@@ -1,0 +1,36 @@
+"""stereo_tpu_torch — the stereo engine on PyTorch and hand-written Hopper
+CUDA kernels.
+
+A port of ``stereo_tpu`` (JAX/Pallas on a TPU), which stays beside it as
+the reference: census cost -> 8-path SGM -> WTA + subpixel + uniqueness +
+cheap LR check -> 3x3 median -> host speckle filter, bit-identical to the
+reference. Imports torch and numpy, never jax.
+"""
+
+from .config import (
+    KITTI_SGM8_128,
+    PRESETS,
+    StereoConfig,
+    TileConfig,
+    from_reference,
+)
+from .pipeline import (
+    StereoResult,
+    build_pipeline,
+    compute_disparity,
+    host_postprocess,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "StereoConfig",
+    "TileConfig",
+    "StereoResult",
+    "build_pipeline",
+    "compute_disparity",
+    "host_postprocess",
+    "from_reference",
+    "PRESETS",
+    "KITTI_SGM8_128",
+]

@@ -1,0 +1,219 @@
+// K3 sgm_select: disparity selection on the summed volume S.
+//
+// Replaces the epilogue half of
+// stereo_tpu/ops/pallas/sgm_kernel.py:_v_fused_kernel (its base form:
+// no emit_d0, no emit_qr). Per pixel of one row it computes
+//
+//   * the left winner: c0 = min_d S, d0 = the first d with S = c0;
+//   * uniqueness: f32(c2) > f32(c0) * f, c2 = min over |d - d0| > 1 and
+//     f = f32(1 + ratio) rounded on the host as JAX rounds it
+//     (stereo_tpu/ops/wta.py:65-73);
+//   * subpixel: offset = f32(cm - cp) / f32(2 * denom) where
+//     denom = cp + cm - 2 c0 > 0 (else 0), clipped to +-0.5, interior
+//     winners only (wta.py:76-93); the integer parts are int32 and the
+//     division is one IEEE __fdiv_rn, so no fast-math contraction can
+//     change a bit;
+//   * the cheap LR check: the right-view winner of column xr is the first
+//     argmin over d of S(y, xr + md + d, d) with lanes past the frame
+//     skipped (0 when none is left), and a pixel survives iff
+//     xr = x - d0 - md is in frame and |d0 - dR(xr)| <= lr_tau
+//     (stereo_tpu/ops/postprocess.py:24-62, 225-268).
+//
+// Output: disp = d0 + offset + md (f32) and valid (one byte, 0/1).
+//
+// Bound on the H100: one read of S, 119 MB int16 at 375x1242x128 (about 36
+// us at the 3.35 TB/s published for an H100 SXM at 700 W). Design: one block
+// per row. Phase 1 gives each warp whole pixels (lanes hold D/32 consecutive
+// disparities, one coalesced load per pixel): it reduces the left winner
+// with warp shuffles and keeps (d0, disp, unique) in shared memory, and it
+// folds the same registers into the right view, where source pixel x lane d
+// is a candidate for right column xr = x - md - d: a shared-memory atomicMin
+// of the integer key S * PD + d (PD = power of two >= D) keeps the smallest
+// cost and, among ties, the smallest d, i.e. the golden first argmin. After
+// __syncthreads, phase 2 runs the LR test per pixel from shared memory and
+// writes the row. S is read once instead of twice.
+
+#include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+template <int N>
+__device__ __forceinline__ void load_sum(const int16_t* p, int (&s)[N]) {
+  if constexpr (N == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    s[0] = (int)(int16_t)(v.x & 0xffff);
+    s[1] = (int)(int16_t)(v.x >> 16);
+    s[2] = (int)(int16_t)(v.y & 0xffff);
+    s[3] = (int)(int16_t)(v.y >> 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] = p[j];
+  }
+}
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+size_t smem_bytes(int w) {
+  return (size_t)w * (2 * sizeof(int) + sizeof(float) + sizeof(uint8_t));
+}
+
+template <int DPL>
+__global__ void sgm_select_kernel(const int16_t* __restrict__ sum,
+                                  float* __restrict__ disp,
+                                  uint8_t* __restrict__ valid, int w, int md,
+                                  int subpixel, int uniqueness, float uniq_f,
+                                  int lr_check, float lr_tau) {
+  constexpr int D = 32 * DPL;
+  constexpr int PD = pow2_at_least(D);
+  extern __shared__ unsigned char smem[];
+  int* rkey = reinterpret_cast<int*>(smem);        // [w] right-view key
+  int* d0s = rkey + w;                             // [w] left winner
+  float* disps = reinterpret_cast<float*>(d0s + w);  // [w] refined disp
+  uint8_t* oks = reinterpret_cast<uint8_t*>(disps + w);  // [w] unique
+
+  const int y = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const size_t row = (size_t)y * w;
+
+  for (int i = threadIdx.x; i < w; i += blockDim.x) rkey[i] = INT_MAX;
+  __syncthreads();
+
+  for (int x = warp; x < w; x += nwarps) {
+    int v[DPL];
+    load_sum<DPL>(sum + (row + x) * D + lane * DPL, v);
+    const int dbase = lane * DPL;
+
+    int c0 = v[0];
+#pragma unroll
+    for (int j = 1; j < DPL; ++j) c0 = min(c0, v[j]);
+    c0 = warp_min(c0);
+    int first = D;
+#pragma unroll
+    for (int j = DPL - 1; j >= 0; --j) {
+      if (v[j] == c0) first = dbase + j;
+    }
+    const int d0 = warp_min(first);
+
+    bool ok = true;
+    if (uniqueness) {
+      int c2 = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        if (abs(dbase + j - d0) > 1) c2 = min(c2, v[j]);
+      }
+      c2 = warp_min(c2);
+      ok = (float)c2 > __fmul_rn((float)c0, uniq_f);
+    }
+
+    float dv = (float)d0;
+    if (subpixel && d0 > 0 && d0 < D - 1) {  // uniform over the warp
+      int cm = INT_MAX, cp = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        if (dbase + j == d0 - 1) cm = v[j];
+        if (dbase + j == d0 + 1) cp = v[j];
+      }
+      cm = warp_min(cm);
+      cp = warp_min(cp);
+      const int denom = cp + cm - 2 * c0;
+      float off = 0.0f;
+      if (denom > 0) off = __fdiv_rn((float)(cm - cp), (float)(2 * denom));
+      off = fminf(fmaxf(off, -0.5f), 0.5f);
+      dv = __fadd_rn(dv, off);
+    }
+    dv = __fadd_rn(dv, (float)md);
+
+    if (lane == 0) {
+      d0s[x] = d0;
+      disps[x] = dv;
+      oks[x] = ok;
+    }
+    if (lr_check) {
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        const int xr = x - md - dbase - j;
+        if (xr >= 0) atomicMin(&rkey[xr], v[j] * PD + dbase + j);
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int x = threadIdx.x; x < w; x += blockDim.x) {
+    bool ok = oks[x];
+    if (lr_check) {
+      const int d0 = d0s[x];
+      const int xr = x - d0 - md;
+      bool lr_ok = false;
+      if (xr >= 0 && xr < w) {
+        const int key = rkey[xr];
+        const int dr = key == INT_MAX ? 0 : (key & (PD - 1));
+        lr_ok = fabsf((float)(d0 - dr)) <= lr_tau;
+      }
+      ok = ok && lr_ok;
+    }
+    disp[row + x] = disps[x];
+    valid[row + x] = ok ? 1 : 0;
+  }
+}
+
+template <int DPL>
+int launch(const int16_t* sum, float* disp, uint8_t* valid, int h, int w,
+           int md, int subpixel, int uniqueness, float uniq_f, int lr_check,
+           float lr_tau, cudaStream_t s) {
+  const size_t smem = smem_bytes(w);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sgm_select_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sgm_select_kernel<DPL><<<h, kThreads, smem, s>>>(
+      sum, disp, valid, w, md, subpixel, uniqueness, uniq_f, lr_check,
+      lr_tau);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int stpu_sgm_select(const void* sum, void* disp, void* valid,
+                               int h, int w, int d, int md, int subpixel,
+                               int uniqueness, float uniq_f, int lr_check,
+                               float lr_tau, void* stream) {
+  if (h <= 0 || w <= 0 || md < 0) return (int)cudaErrorInvalidValue;
+  const auto* s = static_cast<const int16_t*>(sum);
+  auto* o = static_cast<float*>(disp);
+  auto* v = static_cast<uint8_t*>(valid);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define STPU_SELECT(DPL)                                                  \
+  return launch<DPL>(s, o, v, h, w, md, subpixel, uniqueness, uniq_f,     \
+                     lr_check, lr_tau, st)
+  switch (d) {
+    case 32: STPU_SELECT(1);
+    case 64: STPU_SELECT(2);
+    case 96: STPU_SELECT(3);
+    case 128: STPU_SELECT(4);
+    case 160: STPU_SELECT(5);
+    case 192: STPU_SELECT(6);
+    case 224: STPU_SELECT(7);
+    case 256: STPU_SELECT(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef STPU_SELECT
+}

@@ -1,0 +1,27 @@
+"""Stereo ops: plain torch versions (any device) and, under ``ops.cuda``,
+the hand-written Hopper kernels with the same semantics."""
+
+from .census import census_transform, hamming_distance
+from .cost import census_cost_volume
+from .postprocess import (
+    apply_postprocess,
+    lr_consistency,
+    median_3x3,
+    right_disparity_from_volume,
+    select_disparity,
+)
+from .sgm import sgm_aggregate
+from .wta import wta_with_aux
+
+__all__ = [
+    "census_transform",
+    "hamming_distance",
+    "census_cost_volume",
+    "sgm_aggregate",
+    "wta_with_aux",
+    "apply_postprocess",
+    "lr_consistency",
+    "median_3x3",
+    "right_disparity_from_volume",
+    "select_disparity",
+]

@@ -1,0 +1,67 @@
+"""Census transform and Hamming distance (plain torch).
+
+Twin of ``stereo_tpu/ops/census.py``. Descriptors keep the reference's
+``[H, W, words]`` layout; each 32-bit word is held in an int64 with a value
+in ``[0, 2^32)``, because torch's uint32 supports few ops.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def census_transform(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """Census descriptor per pixel.
+
+    Args:
+      img: [H, W] image (uint8 or float); comparisons use raw values.
+      window: (rows, cols), both odd, at most 64 bits (rows*cols - 1).
+
+    Returns:
+      [H, W, n_words] int64 descriptor words in [0, 2^32). Bit k is 1 iff
+      the k-th off-center neighbor (row-major order) is strictly less than
+      the center pixel; it lands in word k // 32 at bit k % 32. Borders
+      replicate the edge pixel.
+    """
+    wy, wx = window
+    if wy % 2 == 0 or wx % 2 == 0:
+        raise ValueError("census window dims must be odd")
+    bits = wy * wx - 1
+    if bits > 64:
+        raise ValueError("census descriptor limited to 64 bits")
+
+    ry, rx = wy // 2, wx // 2
+    img = img.to(torch.int32)
+    h, w = img.shape
+    dev = img.device
+    # Off-center offsets in row-major order: bit k <-> offsets[k].
+    offsets = [(dy - ry, dx - rx) for dy in range(wy) for dx in range(wx)
+               if (dy, dx) != (ry, rx)]
+    oy = torch.tensor([o[0] for o in offsets], device=dev)
+    ox = torch.tensor([o[1] for o in offsets], device=dev)
+    rows = (torch.arange(h, device=dev)[None, :] + oy[:, None]).clamp(0, h - 1)
+    cols = (torch.arange(w, device=dev)[None, :] + ox[:, None]).clamp(0, w - 1)
+    neighbors = img[rows[:, :, None], cols[:, None, :]]       # [bits, H, W]
+    set_bits = (neighbors < img).to(torch.int64)
+    weight = 1 << (torch.arange(bits, device=dev) % 32)       # [bits]
+    words = [
+        (set_bits[i:i + 32] * weight[i:i + 32, None, None]).sum(dim=0)
+        for i in range(0, bits, 32)
+    ]
+    return torch.stack(words, dim=-1)
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of int64 values in [0, 2^32) (SWAR; torch has no popcount)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[...] int32 popcount(a XOR b) summed over the trailing word axis of
+    two [..., n_words] descriptors."""
+    return _popcount32(a ^ b).sum(dim=-1).to(torch.int32)

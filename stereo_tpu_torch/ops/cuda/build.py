@@ -1,0 +1,124 @@
+"""Build the port's native code at first use and load it with ctypes.
+
+The CUDA kernels under ``stereo_tpu_torch/csrc`` compile with ``nvcc`` into
+one shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds); the host speckle filter compiles with ``g++``. Both
+land in ``build/kernels/`` at the repository root, named by a hash of
+their sources and flags, so a changed source rebuilds and an unchanged one
+loads the library already built. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional, Sequence
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+
+#: IEEE division is required by the subpixel step: no --use_fast_math.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: C entry points of the kernel library: argument types (all return int,
+#: the launch's cudaError_t).
+KERNEL_SIGNATURES = {
+    # cl, cr, out, h, w, d, words, md, maxc, stream
+    "stpu_census_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
+    # cost, sum, h, w, d, step_y, step_x, p1, p2, accumulate, stream
+    "stpu_sgm_path": [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
+    # sum, disp, valid, h, w, d, md, subpixel, uniqueness, uniq_f,
+    # lr_check, lr_tau, stream
+    "stpu_sgm_select": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf,
+                        _ci, _cf, _vp],
+    # in, out, h, w, stream
+    "stpu_median3x3": [_vp, _vp, _ci, _ci, _vp],
+}
+
+_lock = threading.Lock()
+_kernels: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then $PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels build from "
+            "source at first use"
+        )
+    return found
+
+
+def compile_library(name: str, sources: Sequence[Path],
+                    compiler: List[str]) -> Path:
+    """Compile ``sources`` with ``compiler + [-o out, *sources]`` into
+    BUILD_DIR, unless a library of the same sources and command exists.
+    The compiler's output is kept beside the library as ``<lib>.log``."""
+    digest = hashlib.sha256()
+    for part in compiler:
+        digest.update(part.encode() + b"\0")
+    for src in sources:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [*compiler, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    lib.with_name(lib.name + ".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building {name} failed ({proc.returncode}):\n"
+            + "\n".join(line for line in proc.stderr.splitlines()
+                        if "ptxas info" not in line and "bytes stack" not in line)
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+def kernel_sources() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The CUDA kernel library, built on first use."""
+    global _kernels
+    with _lock:
+        if _kernels is None:
+            path = compile_library(
+                "stereo_kernels", kernel_sources(), [find_nvcc(), *NVCC_FLAGS]
+            )
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in KERNEL_SIGNATURES.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.stpu_error_string.argtypes = [ctypes.c_int]
+            lib.stpu_error_string.restype = ctypes.c_char_p
+            _kernels = lib
+        return _kernels
+
+
+def check_launch(fn: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        text = load_kernels().stpu_error_string(err).decode()
+        raise RuntimeError(f"{fn} failed: cudaError_t {err} ({text})")

@@ -1,0 +1,96 @@
+"""Semi-Global Matching path aggregation (plain torch).
+
+Twin of ``stereo_tpu/ops/sgm.py`` with fixed P2. For each path direction r,
+
+    L_r(p, d) = C(p, d) + min( L_r(p-r, d),
+                               L_r(p-r, d-1) + P1, L_r(p-r, d+1) + P1,
+                               min_k L_r(p-r, k) + P2 ) - min_k L_r(p-r, k)
+
+with ``L_r(p, .) = C(p, .)`` wherever the predecessor ``p - r`` is out of
+frame (a fresh start at each scanline's first pixel) and the d-1 / d+1
+neighbours edge-replicated at d = 0 and d = D-1. The diagonals are walked
+directly: a row step whose carry is the previous row's, shifted one column
+(the reference shears the volume instead; the predecessors are the same).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import StereoConfig
+
+#: Travel step (dy, dx) of each path; pixel p's predecessor is p - step.
+#: The first four are the 4-path set (horizontal, then vertical).
+PATH_STEPS = (
+    (0, 1), (0, -1), (1, 0), (-1, 0),
+    (1, 1), (-1, -1), (1, -1), (-1, 1),
+)
+
+
+def _recur(l_prev: torch.Tensor, c: torch.Tensor, p1: int, p2: int
+           ) -> torch.Tensor:
+    """One recurrence step for a batch of lines: [L, D] -> [L, D]."""
+    m = l_prev.min(dim=-1, keepdim=True).values
+    dn = torch.cat([l_prev[:, :1], l_prev[:, :-1]], dim=1) + p1
+    up = torch.cat([l_prev[:, 1:], l_prev[:, -1:]], dim=1) + p1
+    cand = torch.minimum(torch.minimum(l_prev, m + p2), torch.minimum(dn, up))
+    return c + cand - m
+
+
+def path_cost(cost: torch.Tensor, cfg: StereoConfig, step) -> torch.Tensor:
+    """[H, W, D] int32 path cost L_r for one travel step (dy, dx)."""
+    c = cost.to(torch.int32)
+    h, w, _ = c.shape
+    dy, dx = step
+    out = torch.empty_like(c)
+    if dy == 0:
+        xs = range(w) if dx > 0 else range(w - 1, -1, -1)
+        prev = None
+        for x in xs:
+            prev = c[:, x] if prev is None else _recur(prev, c[:, x],
+                                                       cfg.p1, cfg.p2)
+            out[:, x] = prev
+        return out
+    ys = range(h) if dy > 0 else range(h - 1, -1, -1)
+    prev = None
+    for y in ys:
+        if prev is None:
+            row = c[y]
+        else:
+            if dx > 0:      # predecessor column x - 1; x = 0 starts fresh
+                pred = torch.cat([prev[:1], prev[:-1]], dim=0)
+            elif dx < 0:    # predecessor column x + 1; x = W-1 starts fresh
+                pred = torch.cat([prev[1:], prev[-1:]], dim=0)
+            else:
+                pred = prev
+            row = _recur(pred, c[y], cfg.p1, cfg.p2)
+            if dx > 0:
+                row[0] = c[y, 0]
+            elif dx < 0:
+                row[w - 1] = c[y, w - 1]
+        out[y] = row
+        prev = row
+    return out
+
+
+def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+    """Sum of SGM path costs S(p, d) = sum_r L_r(p, d).
+
+    Args:
+      cost: [H, W, D] integer matching-cost volume.
+      cfg: num_paths in {0, 4, 8}, P1/P2 (fixed P2 only).
+
+    Returns:
+      [H, W, D] int32 summed volume; num_paths=0 returns the cost as int32.
+    """
+    if cfg.adaptive_p2:
+        raise NotImplementedError(
+            "adaptive_p2 is not ported yet (ROADMAP Queue 1: adaptive P2)"
+        )
+    if cfg.num_paths == 0:
+        return cost.to(torch.int32)
+    s = None
+    for step in PATH_STEPS[: cfg.num_paths]:
+        l_r = path_cost(cost, cfg, step)
+        s = l_r if s is None else s + l_r
+    return s

@@ -1,0 +1,133 @@
+"""CUDA kernels of the port against their plain torch versions, on the card.
+
+Marked ``cuda``; every test skips without a CUDA device. On the machine
+with the card (which has no jax, so tests/conftest.py cannot load):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Shapes are small and ragged (widths not a multiple of the 128-column tile,
+every supported D class); every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from stereo_tpu_torch import KITTI_SGM8_128, build_pipeline
+from stereo_tpu_torch.config import StereoConfig
+from stereo_tpu_torch.data import make_pair
+from stereo_tpu_torch.ops import (
+    census_cost_volume,
+    census_transform,
+    median_3x3,
+    select_disparity,
+    sgm_aggregate,
+)
+from stereo_tpu_torch.ops.cuda import (
+    census_cost,
+    launch_counts,
+    median3x3,
+    reset_launch_counts,
+    sgm_paths,
+    sgm_select,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _images(seed, h, w, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, 256, size=(h, w), dtype=np.uint8)
+                             ).to(dev) for _ in range(2)]
+
+
+@pytest.mark.parametrize(
+    "d, md, window, h, w",
+    [(32, 0, (5, 5), 7, 130), (64, 3, (9, 7), 9, 257),
+     (128, 0, (9, 7), 16, 300), (256, 5, (7, 7), 5, 400)],
+)
+def test_census_cost_kernel(dev, d, md, window, h, w):
+    cfg = StereoConfig(census_window=window, num_disparities=d,
+                       min_disparity=md)
+    left, right = _images(d, h, w, dev)
+    got = census_cost(census_transform(left, window),
+                      census_transform(right, window), cfg)
+    torch.cuda.synchronize()
+    want = census_cost_volume(left, right, cfg)
+    assert got.dtype == torch.int8
+    assert torch.equal(got.to(torch.int32), want)
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+@pytest.mark.parametrize("d, h, w", [(32, 13, 29), (128, 21, 140),
+                                     (256, 6, 300), (96, 40, 7)])
+def test_sgm_paths_kernel(dev, paths, d, h, w):
+    cfg = StereoConfig(census_window=(9, 7), num_disparities=d,
+                       num_paths=paths, p1=14, p2=120)
+    rng = np.random.default_rng(paths + d)
+    cost = torch.from_numpy(rng.integers(0, 63, size=(h, w, d),
+                                         dtype=np.int8)).to(dev)
+    got = sgm_paths(cost, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sgm_aggregate(cost, cfg).to(torch.int16))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(),
+        dict(min_disparity=3),
+        dict(subpixel=False, uniqueness_ratio=0.0),
+        dict(lr_check=False),
+        dict(lr_tau=0.0, uniqueness_ratio=0.1),
+    ],
+)
+@pytest.mark.parametrize("levels", [5, 1400])
+def test_sgm_select_kernel(dev, kw, levels):
+    cfg = KITTI_SGM8_128.replace(num_disparities=64, **kw)
+    rng = np.random.default_rng(levels)
+    s = torch.from_numpy(rng.integers(0, levels, size=(11, 150, 64),
+                                      dtype=np.int16)).to(dev)
+    disp, valid = sgm_select(s, cfg)
+    torch.cuda.synchronize()
+    want_disp, want_valid = select_disparity(s, cfg)
+    assert torch.equal(valid, want_valid)
+    assert torch.equal(disp, want_disp)
+
+
+@pytest.mark.parametrize("h, w", [(1, 1), (3, 2), (37, 150), (375, 1242)])
+def test_median3x3_kernel(dev, h, w):
+    rng = np.random.default_rng(h)
+    disp = torch.from_numpy((rng.integers(0, 512, size=(h, w)) / 4).astype(
+        np.float32)).to(dev)
+    got = median3x3(disp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, median_3x3(disp))
+
+
+def test_pipeline_runs_the_kernels(dev):
+    pair = make_pair((48, 160), max_disp=20)
+    cfg = KITTI_SGM8_128.replace(num_disparities=32)
+    reset_launch_counts()
+    got = build_pipeline(cfg, dev)(pair.left, pair.right)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"census_cost": 1, "sgm_paths": 8,
+                               "sgm_select": 1, "median3x3": 1}
+    want = build_pipeline(cfg.replace(backend="torch"), dev)(
+        pair.left, pair.right)
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.disp, want.disp)
+
+
+def test_kernels_reject_unsupported_disparities(dev):
+    cfg = StereoConfig(num_disparities=48)
+    cost = torch.zeros((4, 8, 48), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sgm_paths(cost, cfg)

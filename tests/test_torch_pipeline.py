@@ -1,0 +1,113 @@
+"""The port's pipeline (CPU, plain ops) against the reference pipeline.
+
+Exact equality of disp and valid against both reference backends: the
+golden jnp composition and the Pallas kernels in interpret mode.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from stereo_tpu import config as jconfig
+from stereo_tpu.data import make_pair
+from stereo_tpu.pipeline import pipeline as jpipe
+from stereo_tpu_torch import cli, config as tconfig, pipeline as tpipe
+
+torch.set_num_threads(1)
+
+_KITTI32 = dict(num_disparities=32)
+
+
+def _port(left, right, kw, preset="kitti_sgm8_128"):
+    cfg = tconfig.PRESETS[preset].replace(**kw)
+    return tpipe.build_pipeline(cfg, device="cpu")(left, right)
+
+
+def _ref(left, right, kw, backend, preset="kitti_sgm8_128"):
+    cfg = jconfig.PRESETS[preset].replace(backend=backend, **kw)
+    return jpipe.build_pipeline(cfg)(left, right)
+
+
+def _assert_same(got, want):
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.disp.numpy(), np.asarray(want.disp))
+
+
+@pytest.mark.parametrize(
+    "preset, kw",
+    [
+        ("kitti_sgm8_128", _KITTI32),
+        ("kitti_sgm8_128", dict(_KITTI32, min_disparity=3)),
+        ("kitti_sgm8_128", dict(_KITTI32, subpixel=False, lr_check=False,
+                                uniqueness_ratio=0.0, median_filter=False)),
+        ("middlebury_census_sgm4_64", _KITTI32),
+        ("kitti_sgm8_128", dict(_KITTI32, num_paths=0)),
+    ],
+)
+def test_compute_disparity_matches_jnp(preset, kw):
+    pair = make_pair((48, 160), max_disp=20, texture="cloud", seed=1)
+    _assert_same(_port(pair.left, pair.right, kw, preset),
+                 _ref(pair.left, pair.right, kw, "jnp", preset))
+
+
+@pytest.mark.parametrize(
+    "shape, d", [((48, 160), 32), ((32, 160), 128)]
+)
+def test_compute_disparity_matches_pallas_interpret(shape, d):
+    pair = make_pair(shape, max_disp=20)
+    kw = dict(num_disparities=d)
+    _assert_same(_port(pair.left, pair.right, kw),
+                 _ref(pair.left, pair.right, kw, "pallas_interpret"))
+
+
+@pytest.mark.parametrize("speckle_max_size", [0, 60])
+def test_host_postprocess_matches_reference(speckle_max_size):
+    pair = make_pair((48, 160), max_disp=20, noise_std=12.0, seed=2)
+    kw = dict(_KITTI32, speckle_max_size=speckle_max_size)
+    got = _port(pair.left, pair.right, kw)
+    want = _ref(pair.left, pair.right, kw, "jnp")
+    cfg_t = tconfig.KITTI_SGM8_128.replace(**kw)
+    cfg_j = jconfig.KITTI_SGM8_128.replace(**kw)
+    gd, gv = tpipe.host_postprocess(got.disp, got.valid, cfg_t)
+    wd, wv = jpipe.host_postprocess(want.disp, want.valid, cfg_j)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gv, wv)
+    assert gv.sum() < np.asarray(want.valid).sum()  # speckles were removed
+
+
+@pytest.mark.parametrize(
+    "kw, call_kw",
+    [
+        (dict(lr_exact=True), {}),
+        (dict(adaptive_p2=True), {}),
+        (dict(cost_fn="sad"), {}),
+        ({}, dict(x_offset=8)),
+        ({}, dict(right_context=4)),
+        ({}, dict(image_height=64)),
+    ],
+)
+def test_unported_modes_raise(kw, call_kw):
+    cfg = tconfig.KITTI_SGM8_128.replace(num_disparities=32, **kw)
+    img = torch.zeros((8, 40), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipe.compute_disparity(img, img, cfg, **call_kw)
+
+
+def test_cuda_backend_rejects_cpu_tensors():
+    cfg = tconfig.KITTI_SGM8_128.replace(num_disparities=32, backend="cuda")
+    img = torch.zeros((8, 40), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpipe.compute_disparity(img, img, cfg)
+
+
+def test_cli_run_demo(capsys):
+    rc = cli.main([
+        "run", "--demo", "--demo-shape", "48", "160", "--demo-max-disp",
+        "20", "--set", "num_disparities=32", "--device", "cpu",
+    ])
+    assert rc == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["pair"].startswith("synthetic-shapes-cloud-48x160")
+    assert rec["bad3"] < 0.05 and rec["density"] > 0.9
