@@ -2,14 +2,17 @@
 CUDA kernels.
 
 A port of ``stereo_tpu`` (JAX/Pallas on a TPU), which stays beside it as
-the reference: census cost -> 8-path SGM -> WTA + subpixel + uniqueness +
-cheap LR check -> 3x3 median -> host speckle filter, bit-identical to the
-reference. Imports torch and numpy, never jax.
+the reference: census or SAD cost -> 4/8-path SGM (fixed or adaptive P2)
+-> WTA + subpixel + uniqueness + cheap or exact LR check -> 3x3 median ->
+host speckle filter, bit-identical to the reference. Imports torch and
+numpy, never jax.
 """
 
 from .config import (
     KITTI_SGM8_128,
+    KITTI_SGM8_128_QUALITY,
     PRESETS,
+    TSUKUBA_SAD16,
     StereoConfig,
     TileConfig,
     from_reference,
@@ -33,4 +36,6 @@ __all__ = [
     "from_reference",
     "PRESETS",
     "KITTI_SGM8_128",
+    "KITTI_SGM8_128_QUALITY",
+    "TSUKUBA_SAD16",
 ]

@@ -10,6 +10,16 @@
 // with L = C at each scanline's first pixel (stereo_tpu/ops/sgm.py:76-83)
 // and stores S = L (first direction) or S += L (later directions).
 //
+// Adaptive P2 (stereo_tpu/ops/sgm.py:55-74, the Pallas kernels' `adaptive`
+// and `cp_mode` forms): given the reference image, each step replaces P2
+// with max(p2_min, P2 / g) where g = |I(p) - I(p-r)| - grad_floor > 0 (P2
+// where g <= 0). The TPU precomputes eight [H, W] maps in XLA because it
+// has no integer divide; here the warp reads I(p) once per step (one
+// broadcast load, prefetched with the next pixel's C) and divides in
+// registers, so no map touches device memory. The diagonals' predecessor
+// is the diagonal neighbour for the image as for the carry; a scanline's
+// first pixel has none and reads no gradient.
+//
 // Bound on the H100: each direction reads C (59.6 MB int8 at 375x1242x128)
 // and reads and writes S (2 x 119 MB int16), about 90 us at the 3.35 TB/s
 // published for an H100 SXM at 700 W. The horizontal directions have only H
@@ -23,8 +33,8 @@
 // wins). The next pixel's C and S are loaded before the current step's
 // arithmetic, so their latency overlaps it. Directions run in sequence on
 // one stream and one warp owns each pixel per direction, so the S update
-// needs no atomics; 8 * (max_unary_cost + P2) < 2^15 keeps int16 exact
-// (checked by the wrapper).
+// needs no atomics; 8 * (max_unary_cost + max(P2, p2_min)) < 2^15 keeps
+// int16 exact (checked by the wrapper).
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -80,12 +90,14 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
-// DPL = disparities per lane (D / 32).
-template <int DPL>
+// DPL = disparities per lane (D / 32); ADAPTIVE: P2 from the image.
+template <int DPL, bool ADAPTIVE>
 __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
+                                const int* __restrict__ image,
                                 int16_t* __restrict__ sum, int h, int w,
                                 int step_y, int step_x, int p1, int p2,
-                                int accumulate, int n_lines) {
+                                int p2_min, int grad_floor, int accumulate,
+                                int n_lines) {
   constexpr int D = 32 * DPL;
   const int lane = threadIdx.x & 31;
   const int line = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -112,6 +124,8 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
   int c[DPL], s_old[DPL] = {}, L[DPL];
   load_cost<DPL>(cost + off, c);
   if (accumulate) load_sum<DPL>(sum + off, s_old);
+  int img = 0, img_prev = 0, img_next = 0;  // I(p), I(p - r), I(p + r)
+  if (ADAPTIVE) img = __ldg(image + (ptrdiff_t)y * w + x);
 
   bool first = true;
   while (true) {
@@ -122,6 +136,7 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
     if (more) {
       load_cost<DPL>(cost + noff, cn);
       if (accumulate) load_sum<DPL>(sum + noff, sn);
+      if (ADAPTIVE) img_next = __ldg(image + (ptrdiff_t)ny * w + nx);
     }
 
     if (first) {
@@ -129,6 +144,11 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
       for (int j = 0; j < DPL; ++j) L[j] = c[j];
       first = false;
     } else {
+      int p2e = p2;
+      if (ADAPTIVE) {
+        const int grad = abs(img - img_prev) - grad_floor;
+        if (grad > 0) p2e = max(p2_min, p2 / grad);  // floor: both >= 0
+      }
       int m = L[0];
 #pragma unroll
       for (int j = 1; j < DPL; ++j) m = min(m, L[j]);
@@ -138,7 +158,7 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
       int nl[DPL];
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
-        int cand = min(L[j], m + p2);
+        int cand = min(L[j], m + p2e);
         if (j > 0) {
           cand = min(cand, L[j - 1] + p1);
         } else if (lane > 0) {
@@ -169,12 +189,15 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
       c[j] = cn[j];
       s_old[j] = sn[j];
     }
+    img_prev = img;
+    img = img_next;
   }
 }
 
 template <int DPL>
-void launch(const int8_t* cost, int16_t* sum, int h, int w, int step_y,
-            int step_x, int p1, int p2, int accumulate, cudaStream_t s) {
+void launch(const int8_t* cost, const int* image, int16_t* sum, int h, int w,
+            int step_y, int step_x, int p1, int p2, int p2_min,
+            int grad_floor, int accumulate, cudaStream_t s) {
   int n_lines;
   if (step_y == 0) {
     n_lines = h;
@@ -184,32 +207,48 @@ void launch(const int8_t* cost, int16_t* sum, int h, int w, int step_y,
     n_lines = w + h - 1;
   }
   const int blocks = (n_lines + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sgm_path_kernel<DPL><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-      cost, sum, h, w, step_y, step_x, p1, p2, accumulate, n_lines);
+  if (image != nullptr) {
+    sgm_path_kernel<DPL, true><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+        cost, image, sum, h, w, step_y, step_x, p1, p2, p2_min, grad_floor,
+        accumulate, n_lines);
+  } else {
+    sgm_path_kernel<DPL, false><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+        cost, image, sum, h, w, step_y, step_x, p1, p2, p2_min, grad_floor,
+        accumulate, n_lines);
+  }
 }
 
 }  // namespace
 
-extern "C" int stpu_sgm_path(const void* cost, void* sum, int h, int w,
-                             int d, int step_y, int step_x, int p1, int p2,
+// image: [H, W] int32 reference view for adaptive P2, or NULL for fixed P2.
+extern "C" int stpu_sgm_path(const void* cost, const void* image, void* sum,
+                             int h, int w, int d, int step_y, int step_x,
+                             int p1, int p2, int p2_min, int grad_floor,
                              int accumulate, void* stream) {
   if (h <= 0 || w <= 0 || step_y < -1 || step_y > 1 || step_x < -1 ||
-      step_x > 1 || (step_y == 0 && step_x == 0)) {
+      step_x > 1 || (step_y == 0 && step_x == 0) ||
+      (image != nullptr && p2 < 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const auto* c = static_cast<const int8_t*>(cost);
+  const auto* im = static_cast<const int*>(image);
   auto* s = static_cast<int16_t*>(sum);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define STPU_PATH(DPL)                                                   \
+  launch<DPL>(c, im, s, h, w, step_y, step_x, p1, p2, p2_min, grad_floor, \
+              accumulate, st);                                           \
+  break
   switch (d) {
-    case 32: launch<1>(c, s, h, w, step_y, step_x, p1, p2, accumulate, st); break;
-    case 64: launch<2>(c, s, h, w, step_y, step_x, p1, p2, accumulate, st); break;
-    case 96: launch<3>(c, s, h, w, step_y, step_x, p1, p2, accumulate, st); break;
-    case 128: launch<4>(c, s, h, w, step_y, step_x, p1, p2, accumulate, st); break;
-    case 160: launch<5>(c, s, h, w, step_y, step_x, p1, p2, accumulate, st); break;
-    case 192: launch<6>(c, s, h, w, step_y, step_x, p1, p2, accumulate, st); break;
-    case 224: launch<7>(c, s, h, w, step_y, step_x, p1, p2, accumulate, st); break;
-    case 256: launch<8>(c, s, h, w, step_y, step_x, p1, p2, accumulate, st); break;
+    case 32: STPU_PATH(1);
+    case 64: STPU_PATH(2);
+    case 96: STPU_PATH(3);
+    case 128: STPU_PATH(4);
+    case 160: STPU_PATH(5);
+    case 192: STPU_PATH(6);
+    case 224: STPU_PATH(7);
+    case 256: STPU_PATH(8);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef STPU_PATH
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // K3 sgm_select: disparity selection on the summed volume S.
 //
 // Replaces the epilogue half of
-// stereo_tpu/ops/pallas/sgm_kernel.py:_v_fused_kernel (its base form:
-// no emit_d0, no emit_qr). Per pixel of one row it computes
+// stereo_tpu/ops/pallas/sgm_kernel.py:_v_fused_kernel (its base and
+// emit_d0 forms; emit_qr is not ported). Per pixel of one row it computes
 //
 //   * the left winner: c0 = min_d S, d0 = the first d with S = c0;
 //   * uniqueness: f32(c2) > f32(c0) * f, c2 = min over |d - d0| > 1 and
@@ -19,7 +19,16 @@
 //     xr = x - d0 - md is in frame and |d0 - dR(xr)| <= lr_tau
 //     (stereo_tpu/ops/postprocess.py:24-62, 225-268).
 //
-// Output: disp = d0 + offset + md (f32) and valid (one byte, 0/1).
+// Output: disp = d0 + offset + md (f32), valid (one byte, 0/1) and, if
+// its pointer is set, the integer winner lane d0 (int32; the emit_d0 form,
+// which the TPU packs as ok + 2 * d0 into one word). The exact LR check
+// compares d0, since the subpixel disparity cannot be rounded back to it
+// (offsets reach +-0.5 on ties).
+//
+// Any D in [1, 256]: lanes hold ceil(D / 32) disparities each, and when D
+// is not a multiple of 32 (tsukuba_sad16 has D = 16) the lanes past D hold
+// INT_MAX, so they never win the argmin, never lower the uniqueness
+// runner-up and take no part in the right view.
 //
 // Bound on the H100: one read of S, 119 MB int16 at 375x1242x128 (about 36
 // us at the 3.35 TB/s published for an H100 SXM at 700 W). Design: one block
@@ -72,14 +81,16 @@ size_t smem_bytes(int w) {
   return (size_t)w * (2 * sizeof(int) + sizeof(float) + sizeof(uint8_t));
 }
 
-template <int DPL>
+// DPL = disparities per lane; PARTIAL: D = d < 32 * DPL (masked lanes).
+template <int DPL, bool PARTIAL>
 __global__ void sgm_select_kernel(const int16_t* __restrict__ sum,
                                   float* __restrict__ disp,
-                                  uint8_t* __restrict__ valid, int w, int md,
-                                  int subpixel, int uniqueness, float uniq_f,
-                                  int lr_check, float lr_tau) {
-  constexpr int D = 32 * DPL;
-  constexpr int PD = pow2_at_least(D);
+                                  uint8_t* __restrict__ valid,
+                                  int* __restrict__ d0_out, int w, int d,
+                                  int md, int subpixel, int uniqueness,
+                                  float uniq_f, int lr_check, float lr_tau) {
+  const int D = PARTIAL ? d : 32 * DPL;
+  constexpr int PD = pow2_at_least(32 * DPL);
   extern __shared__ unsigned char smem[];
   int* rkey = reinterpret_cast<int*>(smem);        // [w] right-view key
   int* d0s = rkey + w;                             // [w] left winner
@@ -97,8 +108,16 @@ __global__ void sgm_select_kernel(const int16_t* __restrict__ sum,
 
   for (int x = warp; x < w; x += nwarps) {
     int v[DPL];
-    load_sum<DPL>(sum + (row + x) * D + lane * DPL, v);
     const int dbase = lane * DPL;
+    if (PARTIAL) {
+      const int16_t* p = sum + (row + x) * D;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        v[j] = dbase + j < D ? (int)p[dbase + j] : INT_MAX;
+      }
+    } else {
+      load_sum<DPL>(sum + (row + x) * D + dbase, v);
+    }
 
     int c0 = v[0];
 #pragma unroll
@@ -149,7 +168,9 @@ __global__ void sgm_select_kernel(const int16_t* __restrict__ sum,
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         const int xr = x - md - dbase - j;
-        if (xr >= 0) atomicMin(&rkey[xr], v[j] * PD + dbase + j);
+        if (xr >= 0 && (!PARTIAL || dbase + j < D)) {
+          atomicMin(&rkey[xr], v[j] * PD + dbase + j);
+        }
       }
     }
   }
@@ -170,50 +191,58 @@ __global__ void sgm_select_kernel(const int16_t* __restrict__ sum,
     }
     disp[row + x] = disps[x];
     valid[row + x] = ok ? 1 : 0;
+    if (d0_out != nullptr) d0_out[row + x] = d0s[x];
   }
 }
 
-template <int DPL>
-int launch(const int16_t* sum, float* disp, uint8_t* valid, int h, int w,
-           int md, int subpixel, int uniqueness, float uniq_f, int lr_check,
-           float lr_tau, cudaStream_t s) {
+template <int DPL, bool PARTIAL>
+int launch(const int16_t* sum, float* disp, uint8_t* valid, int* d0, int h,
+           int w, int d, int md, int subpixel, int uniqueness, float uniq_f,
+           int lr_check, float lr_tau, cudaStream_t s) {
   const size_t smem = smem_bytes(w);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sgm_select_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        sgm_select_kernel<DPL, PARTIAL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sgm_select_kernel<DPL><<<h, kThreads, smem, s>>>(
-      sum, disp, valid, w, md, subpixel, uniqueness, uniq_f, lr_check,
+  sgm_select_kernel<DPL, PARTIAL><<<h, kThreads, smem, s>>>(
+      sum, disp, valid, d0, w, d, md, subpixel, uniqueness, uniq_f, lr_check,
       lr_tau);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// d0: [H, W] int32 winner lanes, or NULL when not wanted.
 extern "C" int stpu_sgm_select(const void* sum, void* disp, void* valid,
-                               int h, int w, int d, int md, int subpixel,
-                               int uniqueness, float uniq_f, int lr_check,
-                               float lr_tau, void* stream) {
-  if (h <= 0 || w <= 0 || md < 0) return (int)cudaErrorInvalidValue;
+                               void* d0, int h, int w, int d, int md,
+                               int subpixel, int uniqueness, float uniq_f,
+                               int lr_check, float lr_tau, void* stream) {
+  if (h <= 0 || w <= 0 || d <= 0 || d > 256 || md < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const auto* s = static_cast<const int16_t*>(sum);
   auto* o = static_cast<float*>(disp);
   auto* v = static_cast<uint8_t*>(valid);
+  auto* w0 = static_cast<int*>(d0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define STPU_SELECT(DPL)                                                  \
-  return launch<DPL>(s, o, v, h, w, md, subpixel, uniqueness, uniq_f,     \
-                     lr_check, lr_tau, st)
-  switch (d) {
-    case 32: STPU_SELECT(1);
-    case 64: STPU_SELECT(2);
-    case 96: STPU_SELECT(3);
-    case 128: STPU_SELECT(4);
-    case 160: STPU_SELECT(5);
-    case 192: STPU_SELECT(6);
-    case 224: STPU_SELECT(7);
-    case 256: STPU_SELECT(8);
-    default: return (int)cudaErrorInvalidValue;
+#define STPU_SELECT(DPL)                                                    \
+  if (d % 32 == 0) {                                                        \
+    return launch<DPL, false>(s, o, v, w0, h, w, d, md, subpixel,           \
+                              uniqueness, uniq_f, lr_check, lr_tau, st);    \
+  }                                                                         \
+  return launch<DPL, true>(s, o, v, w0, h, w, d, md, subpixel, uniqueness,  \
+                           uniq_f, lr_check, lr_tau, st)
+  switch ((d + 31) / 32) {
+    case 1: STPU_SELECT(1);
+    case 2: STPU_SELECT(2);
+    case 3: STPU_SELECT(3);
+    case 4: STPU_SELECT(4);
+    case 5: STPU_SELECT(5);
+    case 6: STPU_SELECT(6);
+    case 7: STPU_SELECT(7);
+    default: STPU_SELECT(8);
   }
 #undef STPU_SELECT
 }

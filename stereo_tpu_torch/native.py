@@ -17,7 +17,7 @@ import numpy as np
 from .ops.cuda.build import PACKAGE_DIR, compile_library
 
 SPECKLE_SOURCE = PACKAGE_DIR.parent / "stereo_tpu" / "native" / "src" / "speckle.cpp"
-GXX_FLAGS = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17"]
+GXX_FLAGS = ["g++", "-O3", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

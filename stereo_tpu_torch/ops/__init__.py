@@ -2,7 +2,7 @@
 the hand-written Hopper kernels with the same semantics."""
 
 from .census import census_transform, hamming_distance
-from .cost import census_cost_volume
+from .cost import box_sum, census_cost_volume, cost_volume, sad_cost_volume
 from .postprocess import (
     apply_postprocess,
     lr_consistency,
@@ -10,13 +10,17 @@ from .postprocess import (
     right_disparity_from_volume,
     select_disparity,
 )
-from .sgm import sgm_aggregate
+from .sgm import adaptive_p2_map, sgm_aggregate
 from .wta import wta_with_aux
 
 __all__ = [
     "census_transform",
     "hamming_distance",
     "census_cost_volume",
+    "box_sum",
+    "sad_cost_volume",
+    "cost_volume",
+    "adaptive_p2_map",
     "sgm_aggregate",
     "wta_with_aux",
     "apply_postprocess",

@@ -1,4 +1,4 @@
-"""Census-Hamming cost volume (plain torch).
+"""Census-Hamming and SAD cost volumes (plain torch).
 
 Twin of ``stereo_tpu/ops/cost.py`` for whole frames: the volume is
 ``[H, W, D]`` with lane d searching disparity ``min_disparity + d``; the
@@ -7,6 +7,8 @@ column is negative take ``max_unary_cost`` so they never win WTA.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -50,3 +52,55 @@ def census_cost_volume(
     cl = census_transform(left, cfg.census_window)
     cr = census_transform(right, cfg.census_window)
     return census_cost_from_descriptors(cl, cr, cfg)
+
+
+def box_sum(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """Windowed box sum of an [H, W] or [H, W, C] integer array with
+    edge-replicated borders, by separable prefix sums. Returns the same
+    shape in int64."""
+    wy, wx = window
+    ry, rx = wy // 2, wx // 2
+    h, w = img.shape[:2]
+    rows = torch.arange(-ry, h + ry, device=img.device).clamp(0, h - 1)
+    cols = torch.arange(-rx, w + rx, device=img.device).clamp(0, w - 1)
+    cs = img[rows][:, cols].to(torch.int64).cumsum(dim=0)
+    rowsum = cs[wy - 1:].clone()                        # [H, W + 2rx, ...]
+    rowsum[1:] -= cs[:-wy]
+    cs = rowsum.cumsum(dim=1)
+    out = cs[:, wx - 1:].clone()
+    out[:, 1:] -= cs[:, :-wx]
+    return out
+
+
+def sad_cost_volume(
+    left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
+) -> torch.Tensor:
+    """SAD block-matching cost volume: the window sum of
+    ``|L(y, x) - R(y, max(x - md - d, 0))|`` with the AD array (not the
+    image) edge-replicated, floor-divided by the window area, and
+    ``max_unary_cost`` where ``x - md - d < 0``. Returns [H, W, D] int32
+    in [0, 255]."""
+    w = left.shape[1]
+    d = cfg.num_disparities
+    md = int(cfg.min_disparity)
+    idx = shifted_index(w, d, md, left.device)
+    l32 = left.to(torch.int32)
+    ad = (l32[:, :, None] - right.to(torch.int32)[:, idx]).abs()  # [H, W, D]
+    area = cfg.sad_window[0] * cfg.sad_window[1]
+    summed = (box_sum(ad, cfg.sad_window) // area).to(torch.int32)
+    bad = invalid_mask(w, d, md, left.device)
+    return summed.masked_fill(bad[None], cfg.max_unary_cost)
+
+
+def cost_volume(
+    left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
+) -> torch.Tensor:
+    """Dispatch on ``cfg.cost_fn``. Returns [H, W, D] int32."""
+    if cfg.cost_fn == "census":
+        return census_cost_volume(left, right, cfg)
+    if cfg.cost_fn == "sad":
+        return sad_cost_volume(left, right, cfg)
+    raise NotImplementedError(
+        f"cost_fn={cfg.cost_fn!r} is not ported yet (ROADMAP Queue 1: rank "
+        "ops)"
+    )

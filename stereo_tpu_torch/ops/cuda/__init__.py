@@ -3,12 +3,12 @@ each. Every wrapper counts its launches in ``<wrapper>.launches``."""
 
 from typing import Dict
 
-from .cost_kernel import census_cost
+from .cost_kernel import census_cost, sad_cost
 from .filter_kernel import median3x3
 from .sgm_kernel import sgm_paths, sgm_select
 
 #: The kernel wrappers in main-path order.
-KERNELS = (census_cost, sgm_paths, sgm_select, median3x3)
+KERNELS = (census_cost, sad_cost, sgm_paths, sgm_select, median3x3)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -22,6 +22,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "census_cost",
+    "sad_cost",
     "sgm_paths",
     "sgm_select",
     "median3x3",

@@ -2,8 +2,9 @@
 
 The CUDA kernels under ``stereo_tpu_torch/csrc`` compile with ``nvcc`` into
 one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds); the host speckle filter compiles with ``g++``. Both
-land in ``build/kernels/`` at the repository root, named by a hash of
+build takes seconds): one compiler process per source, all started
+together, then one link. The host speckle filter compiles with ``g++``.
+Both land in ``build/kernels/`` at the repository root, named by a hash of
 their sources and flags, so a changed source rebuilds and an unchanged one
 loads the library already built. A failed build raises.
 """
@@ -26,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 #: IEEE division is required by the subpixel step: no --use_fast_math.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -36,12 +37,16 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL_SIGNATURES = {
     # cl, cr, out, h, w, d, words, md, maxc, stream
     "stpu_census_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
-    # cost, sum, h, w, d, step_y, step_x, p1, p2, accumulate, stream
-    "stpu_sgm_path": [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
-    # sum, disp, valid, h, w, d, md, subpixel, uniqueness, uniq_f,
-    # lr_check, lr_tau, stream
-    "stpu_sgm_select": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf,
-                        _ci, _cf, _vp],
+    # left, right, out, h, w, d, md, wy, wx, maxc, stream
+    "stpu_sad_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
+    # cost, image (NULL: fixed P2), sum, h, w, d, step_y, step_x, p1, p2,
+    # p2_min, grad_floor, accumulate, stream
+    "stpu_sgm_path": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+                      _ci, _ci, _vp],
+    # sum, disp, valid, d0 (NULL: not emitted), h, w, d, md, subpixel,
+    # uniqueness, uniq_f, lr_check, lr_tau, stream
+    "stpu_sgm_select": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci,
+                        _cf, _ci, _cf, _vp],
     # in, out, h, w, stream
     "stpu_median3x3": [_vp, _vp, _ci, _ci, _vp],
 }
@@ -66,9 +71,10 @@ def find_nvcc() -> str:
 
 def compile_library(name: str, sources: Sequence[Path],
                     compiler: List[str]) -> Path:
-    """Compile ``sources`` with ``compiler + [-o out, *sources]`` into
+    """Compile each of ``sources`` with ``compiler + [-c, -o obj, src]``,
+    all in parallel, and link them with ``compiler[0] -shared`` into
     BUILD_DIR, unless a library of the same sources and command exists.
-    The compiler's output is kept beside the library as ``<lib>.log``."""
+    The compilers' output is kept beside the library as ``<lib>.log``."""
     digest = hashlib.sha256()
     for part in compiler:
         digest.update(part.encode() + b"\0")
@@ -77,21 +83,40 @@ def compile_library(name: str, sources: Sequence[Path],
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [*compiler, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    lib.with_name(lib.name + ".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"building {name} failed ({proc.returncode}):\n"
-            + "\n".join(line for line in proc.stderr.splitlines()
-                        if "ptxas info" not in line and "bytes stack" not in line)
-        )
-    os.replace(tmp, lib)
+    work = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp"
+    work.mkdir(parents=True, exist_ok=True)
+    objs = [str(work / f"{src.stem}.o") for src in sources]
+    procs = []
+    try:
+        for src, obj in zip(sources, objs):
+            cmd = [*compiler, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        runs = [(cmd, proc.communicate(timeout=600)[0], proc.returncode)
+                for cmd, proc in procs]
+        if all(rc == 0 for *_, rc in runs):
+            cmd = [compiler[0], "-shared", "-o", str(work / lib.name), *objs]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  timeout=600)
+            runs.append((cmd, proc.stdout, proc.returncode))
+        lib.with_name(lib.name + ".log").write_text(
+            "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in runs))
+        failed = [out for _, out, rc in runs if rc != 0]
+        if failed:
+            raise RuntimeError(
+                f"building {name} failed:\n" + "\n".join(
+                    line for out in failed for line in out.splitlines()
+                    if "ptxas info" not in line and "bytes stack" not in line)
+            )
+        os.replace(work / lib.name, lib)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -1,7 +1,9 @@
-"""K1 wrapper: census-Hamming cost volume (csrc/census_cost.cu).
+"""K1 and K5 wrappers: census-Hamming (csrc/census_cost.cu) and SAD
+(csrc/sad_cost.cu) cost volumes.
 
-Replaces ``stereo_tpu/ops/pallas/cost_kernel.py:_cost_kernel_x``. The
+K1 replaces ``stereo_tpu/ops/pallas/cost_kernel.py:_cost_kernel_x``; the
 census transform itself stays plain torch, as it stays in XLA on the TPU.
+K5 replaces ``_sad_kernel`` (through ``sad_cost_volume_pallas``).
 """
 
 from __future__ import annotations
@@ -9,8 +11,8 @@ from __future__ import annotations
 import torch
 
 from ...config import StereoConfig
-from ..cost import census_cost_from_descriptors
-from .launch import on_cpu, require, require_disparities, run
+from ..cost import census_cost_from_descriptors, sad_cost_volume
+from .launch import MAX_DISPARITIES, on_cpu, require, require_disparities, run
 
 
 def census_cost(cl: torch.Tensor, cr: torch.Tensor, cfg: StereoConfig
@@ -50,3 +52,39 @@ def census_cost(cl: torch.Tensor, cr: torch.Tensor, cfg: StereoConfig
 
 
 census_cost.launches = 0
+
+
+def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
+             ) -> torch.Tensor:
+    """[H, W, D] int16 SAD cost volume of two [H, W] images, any D in
+    [1, 256]. CPU tensors take the plain version (``ops.cost``); CUDA
+    tensors launch the kernel."""
+    if left.shape != right.shape or left.ndim != 2:
+        raise ValueError(f"expected two [H, W] images: {left.shape}, {right.shape}")
+    if cfg.cost_fn != "sad":
+        raise ValueError(f"sad_cost needs cost_fn='sad', got {cfg.cost_fn}")
+    if on_cpu(left, right):
+        return sad_cost_volume(left, right, cfg).to(torch.int16)
+    h, w = left.shape
+    d = cfg.num_disparities
+    wy, wx = cfg.sad_window
+    if not 1 <= d <= MAX_DISPARITIES:
+        raise ValueError(f"sad_cost takes D in [1, {MAX_DISPARITIES}], got {d}")
+    if wy % 2 == 0 or wx % 2 == 0:
+        raise ValueError(f"sad_window must be odd, got {cfg.sad_window}")
+    if cfg.min_disparity < 0:
+        raise ValueError("the CUDA cost kernel needs min_disparity >= 0")
+    # int32 images: the reference's astype(int32), for any input dtype.
+    l32 = left.to(torch.int32).contiguous()
+    r32 = right.to(torch.int32).contiguous()
+    require(l32, "left", torch.int32, 2)
+    require(r32, "right", torch.int32, 2)
+    out = torch.empty((h, w, d), dtype=torch.int16, device=left.device)
+    run("stpu_sad_cost", left.device, l32.data_ptr(), r32.data_ptr(),
+        out.data_ptr(), h, w, d, int(cfg.min_disparity), wy, wx,
+        cfg.max_unary_cost)
+    sad_cost.launches += 1
+    return out
+
+
+sad_cost.launches = 0

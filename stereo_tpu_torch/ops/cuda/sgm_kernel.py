@@ -2,53 +2,65 @@
 disparity selection (csrc/sgm_select.cu).
 
 K2 replaces ``stereo_tpu/ops/pallas/sgm_kernel.py:_h_kernel``,
-``_v_kernel`` and the path half of ``_v_fused_kernel``; K3 replaces the
-selection epilogue of ``_v_fused_kernel`` (its base form). Together they
-compute what ``sgm_wta_fused_pallas`` does, with S materialized once in
-int16 between them.
+``_v_kernel`` and the path half of ``_v_fused_kernel``, fixed and adaptive
+P2; K3 replaces the selection epilogue of ``_v_fused_kernel`` (its base and
+``emit_d0`` forms). Together they compute what ``sgm_wta_fused_pallas``
+does, with S materialized once in int16 between them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ...config import StereoConfig
 from ..postprocess import select_disparity
 from ..sgm import PATH_STEPS, sgm_aggregate
-from .launch import on_cpu, require, require_disparities, run
+from .launch import MAX_DISPARITIES, on_cpu, require, require_disparities, run
 
 
 def _check_int16_bound(cfg: StereoConfig) -> None:
-    """Each path cost is at most max_unary_cost + P2, so S fits int16 iff
-    num_paths * (max_unary_cost + P2) < 2^15."""
-    bound = cfg.num_paths * (cfg.max_unary_cost + cfg.p2)
+    """Each path cost is at most max_unary_cost + the largest P2 (with
+    adaptive P2, max(P2, p2_min)), so S fits int16 iff num_paths times that
+    is below 2^15."""
+    p2 = max(cfg.p2, cfg.p2_min) if cfg.adaptive_p2 else cfg.p2
+    bound = cfg.num_paths * (cfg.max_unary_cost + p2)
     if bound >= 1 << 15:
         raise ValueError(f"int16 SGM sum may overflow: bound {bound}")
 
 
-def sgm_paths(cost: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
+              image: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[H, W, D] int16 S = sum of the cfg.num_paths (4 or 8) path costs of
-    an int8 cost volume: one kernel launch per direction. CPU tensors take
-    the plain version (``ops.sgm.sgm_aggregate``)."""
+    an int8 cost volume: one kernel launch per direction. With
+    ``cfg.adaptive_p2``, ``image`` ([H, W], the reference view) is required
+    and each step's P2 comes from it. CPU tensors take the plain version
+    (``ops.sgm.sgm_aggregate``)."""
     if cfg.num_paths not in (4, 8):
         raise ValueError(f"sgm_paths needs 4 or 8 paths, got {cfg.num_paths}")
-    if cfg.adaptive_p2:
-        raise NotImplementedError(
-            "adaptive_p2 is not ported yet (ROADMAP Queue 2: adaptive-P2 "
-            "forms of K2)"
-        )
+    if cfg.adaptive_p2 and image is None:
+        raise ValueError("adaptive_p2 needs the reference image")
     _check_int16_bound(cfg)
-    if on_cpu(cost):
-        return sgm_aggregate(cost, cfg).to(torch.int16)
+    img = image if cfg.adaptive_p2 else None
+    if img is not None and img.shape != cost.shape[:2]:
+        raise ValueError(f"image {tuple(img.shape)} != cost "
+                         f"{tuple(cost.shape[:2])}")
+    if on_cpu(*(t for t in (cost, img) if t is not None)):
+        return sgm_aggregate(cost, cfg, image=img).to(torch.int16)
     require(cost, "cost", torch.int8, 3)
     h, w, d = cost.shape
     require_disparities(d)
+    img_ptr = None
+    if img is not None:
+        # int32, as the reference's astype(int32), for any image dtype.
+        img = img.to(torch.int32).contiguous()
+        img_ptr = img.data_ptr()
     s = torch.empty((h, w, d), dtype=torch.int16, device=cost.device)
     for i, (step_y, step_x) in enumerate(PATH_STEPS[: cfg.num_paths]):
-        run("stpu_sgm_path", cost.device, cost.data_ptr(), s.data_ptr(),
-            h, w, d, step_y, step_x, cfg.p1, cfg.p2, int(i > 0))
+        run("stpu_sgm_path", cost.device, cost.data_ptr(), img_ptr,
+            s.data_ptr(), h, w, d, step_y, step_x, cfg.p1, cfg.p2,
+            cfg.p2_min, cfg.adaptive_grad_floor, int(i > 0))
         sgm_paths.launches += 1
     return s
 
@@ -56,31 +68,33 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
 sgm_paths.launches = 0
 
 
-def sgm_select(s: torch.Tensor, cfg: StereoConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False
+               ) -> Tuple[torch.Tensor, ...]:
     """(disp [H, W] float32, valid [H, W] bool) from S: first-min WTA,
-    uniqueness, subpixel and the cheap LR check, median excluded. CPU
-    tensors take the plain version (``ops.postprocess.select_disparity``)."""
-    if cfg.lr_exact:
-        raise NotImplementedError(
-            "lr_exact is not ported yet (ROADMAP Queue 2: _v_fused_kernel "
-            "emit_d0)"
-        )
+    uniqueness, subpixel and the cheap LR check (off with ``lr_exact``),
+    median excluded. ``emit_d0`` adds the integer winner lane d0 ([H, W]
+    int32, md excluded), the form the exact LR check compares. Any D in
+    [1, 256]. CPU tensors take the plain version
+    (``ops.postprocess.select_disparity``)."""
     if on_cpu(s):
-        return select_disparity(s, cfg)
+        return select_disparity(s, cfg, emit_d0=emit_d0)
     require(s, "s", torch.int16, 3)
     h, w, d = s.shape
-    require_disparities(d)
+    if not 1 <= d <= MAX_DISPARITIES:
+        raise ValueError(f"sgm_select takes D in [1, {MAX_DISPARITIES}], got {d}")
     if cfg.min_disparity < 0:
         raise ValueError("the CUDA select kernel needs min_disparity >= 0")
     disp = torch.empty((h, w), dtype=torch.float32, device=s.device)
     valid = torch.empty((h, w), dtype=torch.bool, device=s.device)
+    d0 = (torch.empty((h, w), dtype=torch.int32, device=s.device)
+          if emit_d0 else None)
     run("stpu_sgm_select", s.device, s.data_ptr(), disp.data_ptr(),
-        valid.data_ptr(), h, w, d, int(cfg.min_disparity), int(cfg.subpixel),
+        valid.data_ptr(), None if d0 is None else d0.data_ptr(), h, w, d,
+        int(cfg.min_disparity), int(cfg.subpixel),
         int(cfg.uniqueness_ratio > 0), 1.0 + cfg.uniqueness_ratio,
-        int(cfg.lr_check), cfg.lr_tau)
+        int(cfg.lr_check and not cfg.lr_exact), cfg.lr_tau)
     sgm_select.launches += 1
-    return disp, valid
+    return (disp, valid) if d0 is None else (disp, valid, d0)
 
 
 sgm_select.launches = 0

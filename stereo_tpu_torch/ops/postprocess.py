@@ -98,15 +98,17 @@ def apply_postprocess(
     return disp, valid
 
 
-def select_disparity(s: torch.Tensor, cfg: StereoConfig
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def select_disparity(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False
+                     ) -> Tuple[torch.Tensor, ...]:
     """WTA + subpixel + uniqueness + cheap LR on S, median excluded: the
-    plain version of the ``sgm_select`` kernel. Returns (disp, valid)."""
-    if cfg.lr_exact:
-        raise NotImplementedError(
-            "lr_exact is not ported yet (ROADMAP Queue 1: lr_exact)"
-        )
+    plain version of the ``sgm_select`` kernel. Returns (disp, valid), or
+    with ``emit_d0`` (disp, valid, d0) where d0 is the [H, W] int32 integer
+    winner lane (md excluded). With ``cfg.lr_exact`` the cheap LR check is
+    off: the caller compares against the right view's own winners."""
     disp, valid, d_int = wta_with_aux(s, cfg)
-    return apply_postprocess(
+    disp, valid = apply_postprocess(
         disp, valid, s, cfg.replace(median_filter=False), disp_int=d_int
     )
+    if emit_d0:
+        return disp, valid, (d_int - cfg.min_disparity).to(torch.int32)
+    return disp, valid

@@ -1,6 +1,6 @@
 """Semi-Global Matching path aggregation (plain torch).
 
-Twin of ``stereo_tpu/ops/sgm.py`` with fixed P2. For each path direction r,
+Twin of ``stereo_tpu/ops/sgm.py``. For each path direction r,
 
     L_r(p, d) = C(p, d) + min( L_r(p-r, d),
                                L_r(p-r, d-1) + P1, L_r(p-r, d+1) + P1,
@@ -11,9 +11,17 @@ frame (a fresh start at each scanline's first pixel) and the d-1 / d+1
 neighbours edge-replicated at d = 0 and d = D-1. The diagonals are walked
 directly: a row step whose carry is the previous row's, shifted one column
 (the reference shears the volume instead; the predecessors are the same).
+
+With ``cfg.adaptive_p2`` and an image, P2 becomes per pixel and direction:
+``grad = |I(p) - I(p-r)| - adaptive_grad_floor`` and
+``P2(p) = max(p2_min, P2 // grad)`` where ``grad > 0``, else ``P2``
+(``adaptive_p2_map``). The predecessor of a diagonal step is the diagonal
+neighbour for the image as for the carry.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Union
 
 import torch
 
@@ -27,9 +35,26 @@ PATH_STEPS = (
 )
 
 
-def _recur(l_prev: torch.Tensor, c: torch.Tensor, p1: int, p2: int
-           ) -> torch.Tensor:
-    """One recurrence step for a batch of lines: [L, D] -> [L, D]."""
+def adaptive_p2_map(image: torch.Tensor, cfg: StereoConfig, dy: int, dx: int
+                    ) -> torch.Tensor:
+    """[H, W] int32 effective P2 for one path direction.
+
+    ``dy, dx`` is the offset of the path PREDECESSOR, pred(y, x) =
+    (y + dy, x + dx), as in the reference. Entries whose predecessor falls
+    outside the image are don't-care (the scans fresh-start there).
+    """
+    img = image.to(torch.int32)
+    prev = torch.roll(img, (-dy, -dx), (0, 1))
+    grad = (img - prev).abs() - cfg.adaptive_grad_floor
+    p2 = torch.full_like(img, cfg.p2)
+    q = torch.div(p2, grad.clamp(min=1), rounding_mode="floor")
+    return torch.where(grad > 0, q.clamp(min=cfg.p2_min), p2)
+
+
+def _recur(l_prev: torch.Tensor, c: torch.Tensor, p1: int,
+           p2: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One recurrence step for a batch of lines: [L, D] -> [L, D]; ``p2``
+    is a scalar or an [L, 1] per-line penalty."""
     m = l_prev.min(dim=-1, keepdim=True).values
     dn = torch.cat([l_prev[:, :1], l_prev[:, :-1]], dim=1) + p1
     up = torch.cat([l_prev[:, 1:], l_prev[:, -1:]], dim=1) + p1
@@ -37,18 +62,26 @@ def _recur(l_prev: torch.Tensor, c: torch.Tensor, p1: int, p2: int
     return c + cand - m
 
 
-def path_cost(cost: torch.Tensor, cfg: StereoConfig, step) -> torch.Tensor:
-    """[H, W, D] int32 path cost L_r for one travel step (dy, dx)."""
+def path_cost(cost: torch.Tensor, cfg: StereoConfig, step,
+              image: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[H, W, D] int32 path cost L_r for one travel step (dy, dx); P2 is
+    adaptive if ``cfg.adaptive_p2`` and ``image`` ([H, W]) is given."""
     c = cost.to(torch.int32)
     h, w, _ = c.shape
     dy, dx = step
+    p2 = cfg.p2
+    if cfg.adaptive_p2 and image is not None:
+        p2 = adaptive_p2_map(image, cfg, -dy, -dx)            # [H, W]
     out = torch.empty_like(c)
     if dy == 0:
         xs = range(w) if dx > 0 else range(w - 1, -1, -1)
         prev = None
         for x in xs:
-            prev = c[:, x] if prev is None else _recur(prev, c[:, x],
-                                                       cfg.p1, cfg.p2)
+            if prev is None:
+                prev = c[:, x]
+            else:
+                p2_x = p2 if isinstance(p2, int) else p2[:, x, None]
+                prev = _recur(prev, c[:, x], cfg.p1, p2_x)
             out[:, x] = prev
         return out
     ys = range(h) if dy > 0 else range(h - 1, -1, -1)
@@ -63,7 +96,8 @@ def path_cost(cost: torch.Tensor, cfg: StereoConfig, step) -> torch.Tensor:
                 pred = torch.cat([prev[1:], prev[-1:]], dim=0)
             else:
                 pred = prev
-            row = _recur(pred, c[y], cfg.p1, cfg.p2)
+            p2_y = p2 if isinstance(p2, int) else p2[y, :, None]
+            row = _recur(pred, c[y], cfg.p1, p2_y)
             if dx > 0:
                 row[0] = c[y, 0]
             elif dx < 0:
@@ -73,24 +107,23 @@ def path_cost(cost: torch.Tensor, cfg: StereoConfig, step) -> torch.Tensor:
     return out
 
 
-def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
+def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig,
+                  image: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum of SGM path costs S(p, d) = sum_r L_r(p, d).
 
     Args:
       cost: [H, W, D] integer matching-cost volume.
-      cfg: num_paths in {0, 4, 8}, P1/P2 (fixed P2 only).
+      cfg: num_paths in {0, 4, 8}, P1/P2, adaptive P2.
+      image: [H, W] reference-view intensities; used only with
+        ``cfg.adaptive_p2`` (without it P2 stays fixed, as in the reference).
 
     Returns:
       [H, W, D] int32 summed volume; num_paths=0 returns the cost as int32.
     """
-    if cfg.adaptive_p2:
-        raise NotImplementedError(
-            "adaptive_p2 is not ported yet (ROADMAP Queue 1: adaptive P2)"
-        )
     if cfg.num_paths == 0:
         return cost.to(torch.int32)
     s = None
     for step in PATH_STEPS[: cfg.num_paths]:
-        l_r = path_cost(cost, cfg, step)
+        l_r = path_cost(cost, cfg, step, image)
         s = l_r if s is None else s + l_r
     return s

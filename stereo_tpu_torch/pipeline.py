@@ -1,11 +1,15 @@
 """End-to-end stereo pipeline on whole frames.
 
-On CUDA tensors ``compute_disparity`` runs the census transform (plain
-torch, as it runs in XLA on the TPU) and then the hand-written kernels in
-order: K1 cost volume, K2 once per path direction, K3 selection, K4
-median. On CPU tensors it runs the plain staged path (cost volume, SGM,
-WTA, post-processing), the same composition as the reference's
-``compute_disparity`` with ``backend="jnp"``; both give the same bits.
+On CUDA tensors ``compute_disparity`` runs the hand-written kernels in
+order: the cost volume (K1 after the census transform, which stays plain
+torch as it stays in XLA on the TPU, or K5 for SAD), K2 once per path
+direction (skipped for ``num_paths=0``), K3 selection, K4 median. With
+``lr_exact`` the flipped pair runs the same chain a second time for the
+right view's integer winners, and the consistency compare runs in plain
+torch on [H, W] maps, as it runs in XLA on the TPU. On CPU tensors it runs
+the plain staged path (cost volume, SGM, WTA, post-processing), the same
+composition as the reference's ``compute_disparity`` with
+``backend="jnp"``; both give the same bits.
 """
 
 from __future__ import annotations
@@ -16,9 +20,10 @@ import numpy as np
 import torch
 
 from .config import StereoConfig
-from .ops import census_cost_volume, census_transform, wta_with_aux
-from .ops.cuda import census_cost, median3x3, sgm_paths, sgm_select
-from .ops.postprocess import apply_postprocess
+from .ops import census_transform, wta_with_aux
+from .ops.cost import cost_volume
+from .ops.cuda import census_cost, median3x3, sad_cost, sgm_paths, sgm_select
+from .ops.postprocess import apply_postprocess, lr_consistency
 from .ops.sgm import sgm_aggregate
 
 
@@ -50,19 +55,60 @@ def _check_supported(cfg: StereoConfig, framed: bool) -> None:
             "ported yet (ROADMAP Queue 1: multi-GPU, tiles, patches and "
             "framing)"
         )
-    if cfg.lr_check and cfg.lr_exact:
-        raise NotImplementedError(
-            "lr_exact is not ported yet (ROADMAP Queue 1: lr_exact)"
-        )
-    if cfg.adaptive_p2:
-        raise NotImplementedError(
-            "adaptive_p2 is not ported yet (ROADMAP Queue 1: adaptive P2)"
-        )
-    if cfg.cost_fn != "census":
+    if cfg.cost_fn not in ("census", "sad"):
         raise NotImplementedError(
             f"cost_fn={cfg.cost_fn!r} is not ported yet (ROADMAP Queue 1: "
-            "rank/SAD ops)"
+            "rank ops)"
         )
+
+
+def _kernel_view(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
+                 emit_d0: bool = False):
+    """One reference view through the kernels: cost volume (K1 or K5), K2
+    per direction (S is the cost itself for num_paths=0), K3. Returns
+    ``sgm_select``'s outputs."""
+    if cfg.cost_fn == "sad":
+        cost = sad_cost(ref, tgt, cfg)
+    else:
+        cost = census_cost(census_transform(ref, cfg.census_window),
+                           census_transform(tgt, cfg.census_window), cfg)
+    if cfg.num_paths == 0:
+        s = cost.to(torch.int16)
+    else:
+        s = sgm_paths(cost, cfg, image=ref)
+    return sgm_select(s, cfg, emit_d0=emit_d0)
+
+
+def _kernel_path(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
+                 ) -> StereoResult:
+    if cfg.cost_fn == "sad" and cfg.num_paths > 0:
+        raise NotImplementedError(
+            "SAD costs through SGM on CUDA are not ported yet (ROADMAP "
+            "Queue 2: int16 cost volumes in K2); SAD with num_paths=0 runs"
+        )
+    if cfg.lr_check and cfg.lr_exact:
+        # As the reference's fused lr_exact: the left view keeps its
+        # uniqueness gate and integer winners; the flipped pair gives the
+        # right view's integer winners (subpixel and uniqueness affect
+        # nothing the compare reads).
+        disp, ok, d0 = _kernel_view(
+            left, right, cfg.replace(lr_check=False), emit_d0=True)
+        cfg_r = cfg.replace(lr_check=False, subpixel=False,
+                            uniqueness_ratio=0.0)
+        disp_rf, _ = _kernel_view(right.flip(1), left.flip(1), cfg_r)
+        d_int_l = d0.to(torch.float32) + cfg.min_disparity
+        ok = ok & lr_consistency(d_int_l, disp_rf.flip(1), cfg)
+    else:
+        disp, ok = _kernel_view(left, right, cfg)
+    if cfg.median_filter:
+        disp = median3x3(disp)
+    return StereoResult(disp=disp, valid=ok)
+
+
+def _aggregate(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
+               ) -> torch.Tensor:
+    """Plain cost volume + SGM for one reference view."""
+    return sgm_aggregate(cost_volume(left, right, cfg), cfg, image=left)
 
 
 def compute_disparity(
@@ -102,16 +148,16 @@ def compute_disparity(
     )
     _check_supported(cfg, framed)
     if _use_kernels(cfg, left.device):
-        cl = census_transform(left, cfg.census_window)
-        cr = census_transform(right, cfg.census_window)
-        s = sgm_paths(census_cost(cl, cr, cfg), cfg)
-        disp, ok = sgm_select(s, cfg)
-        if cfg.median_filter:
-            disp = median3x3(disp)
-        return StereoResult(disp=disp, valid=ok)
+        return _kernel_path(left, right, cfg)
 
-    s = sgm_aggregate(census_cost_volume(left, right, cfg), cfg)
+    s = _aggregate(left, right, cfg)
     disp, ok, d_int = wta_with_aux(s, cfg)
+    if cfg.lr_check and cfg.lr_exact:
+        # The reference's staged exact check: the right view matched as
+        # the flipped pair, integer winners compared on both sides.
+        s_r = _aggregate(right.flip(1), left.flip(1), cfg)
+        _, _, d_int_r = wta_with_aux(s_r, cfg)
+        ok = ok & lr_consistency(d_int, d_int_r.flip(1), cfg)
     disp, ok = apply_postprocess(disp, ok, s, cfg, disp_int=d_int)
     return StereoResult(disp=disp, valid=ok)
 

@@ -13,13 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_tpu_torch import KITTI_SGM8_128, build_pipeline
+from stereo_tpu_torch import (
+    KITTI_SGM8_128,
+    KITTI_SGM8_128_QUALITY,
+    TSUKUBA_SAD16,
+    build_pipeline,
+)
 from stereo_tpu_torch.config import StereoConfig
 from stereo_tpu_torch.data import make_pair
 from stereo_tpu_torch.ops import (
     census_cost_volume,
     census_transform,
     median_3x3,
+    sad_cost_volume,
     select_disparity,
     sgm_aggregate,
 )
@@ -28,6 +34,7 @@ from stereo_tpu_torch.ops.cuda import (
     launch_counts,
     median3x3,
     reset_launch_counts,
+    sad_cost,
     sgm_paths,
     sgm_select,
 )
@@ -118,12 +125,119 @@ def test_pipeline_runs_the_kernels(dev):
     reset_launch_counts()
     got = build_pipeline(cfg, dev)(pair.left, pair.right)
     torch.cuda.synchronize()
-    assert launch_counts() == {"census_cost": 1, "sgm_paths": 8,
-                               "sgm_select": 1, "median3x3": 1}
+    assert launch_counts() == {"census_cost": 1, "sad_cost": 0,
+                               "sgm_paths": 8, "sgm_select": 1,
+                               "median3x3": 1}
     want = build_pipeline(cfg.replace(backend="torch"), dev)(
         pair.left, pair.right)
     assert torch.equal(got.valid, want.valid)
     assert torch.equal(got.disp, want.disp)
+
+
+@pytest.mark.parametrize(
+    "paths, floor, p2_min", [(4, 0, 30), (8, 12, 30), (8, 3, 200)]
+)
+@pytest.mark.parametrize("d, h, w", [(32, 13, 29), (128, 21, 140),
+                                     (64, 40, 7)])
+def test_sgm_paths_adaptive_kernel(dev, paths, floor, p2_min, d, h, w):
+    # Every direction of 8 paths on ragged shapes; p2_min=200 > p2.
+    cfg = StereoConfig(num_disparities=d, num_paths=paths, p1=14, p2=120,
+                       adaptive_p2=True, adaptive_grad_floor=floor,
+                       p2_min=p2_min)
+    rng = np.random.default_rng(paths + d + floor)
+    cost = torch.from_numpy(rng.integers(0, 63, size=(h, w, d),
+                                         dtype=np.int8)).to(dev)
+    image = torch.from_numpy((rng.integers(0, 4, size=(h, w)) * 20
+                              + rng.integers(0, 8, size=(h, w))
+                              ).astype(np.uint8)).to(dev)
+    got = sgm_paths(cost, cfg, image=image)
+    torch.cuda.synchronize()
+    want = sgm_aggregate(cost, cfg, image=image).to(torch.int16)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, sgm_paths(cost, cfg.replace(
+        adaptive_p2=False)))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(min_disparity=3),
+                                dict(subpixel=False, uniqueness_ratio=0.1)])
+def test_sgm_select_d0_kernel(dev, kw):
+    cfg = KITTI_SGM8_128.replace(num_disparities=128, lr_exact=True, **kw)
+    rng = np.random.default_rng(7)
+    s = torch.from_numpy(rng.integers(0, 300, size=(9, 170, 128),
+                                      dtype=np.int16)).to(dev)
+    got = sgm_select(s, cfg, emit_d0=True)
+    torch.cuda.synchronize()
+    want = select_disparity(s, cfg, emit_d0=True)
+    assert got[2].dtype == torch.int32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("d", [1, 16, 40])
+@pytest.mark.parametrize(
+    "kw", [dict(), dict(subpixel=True, min_disparity=2, uniqueness_ratio=0.05),
+           dict(lr_check=False)],
+)
+def test_sgm_select_partial_disparities(dev, d, kw):
+    # tsukuba_sad16's D=16 and other counts below a multiple of 32.
+    cfg = TSUKUBA_SAD16.replace(num_disparities=d, **kw)
+    rng = np.random.default_rng(d)
+    s = torch.from_numpy(rng.integers(0, 40, size=(12, 75, d),
+                                      dtype=np.int16)).to(dev)
+    disp, valid = sgm_select(s, cfg)
+    torch.cuda.synchronize()
+    want_disp, want_valid = select_disparity(s, cfg)
+    assert torch.equal(valid, want_valid)
+    assert torch.equal(disp, want_disp)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("md", [0, 3])
+@pytest.mark.parametrize("window, h, w", [((9, 9), 19, 70), ((5, 7), 6, 33)])
+def test_sad_cost_kernel(dev, d, md, window, h, w):
+    cfg = TSUKUBA_SAD16.replace(num_disparities=d, min_disparity=md,
+                                sad_window=window)
+    left, right = _images(d + md, h, w, dev)
+    got = sad_cost(left, right, cfg)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int16 and got.shape == (h, w, d)
+    assert torch.equal(got.to(torch.int32), sad_cost_volume(left, right, cfg))
+
+
+@pytest.mark.parametrize(
+    "cfg, counts",
+    [
+        (KITTI_SGM8_128.replace(num_disparities=32, num_paths=0),
+         dict(census_cost=1, sgm_select=1, median3x3=1)),
+        (KITTI_SGM8_128_QUALITY.replace(num_disparities=32),
+         dict(census_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
+        (KITTI_SGM8_128.replace(num_disparities=32, lr_exact=True),
+         dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=1)),
+        (KITTI_SGM8_128_QUALITY.replace(num_disparities=32, lr_exact=True),
+         dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=1)),
+        (TSUKUBA_SAD16, dict(sad_cost=1, sgm_select=1, median3x3=1)),
+    ],
+    ids=["paths0", "quality", "lr_exact", "quality_lr_exact", "tsukuba"],
+)
+def test_slice_paths_run_the_kernels(dev, cfg, counts):
+    pair = make_pair((48, 160), max_disp=14, texture="cloud", seed=5)
+    reset_launch_counts()
+    got = build_pipeline(cfg, dev)(pair.left, pair.right)
+    torch.cuda.synchronize()
+    want_counts = dict.fromkeys(launch_counts(), 0)
+    want_counts.update(counts)
+    assert launch_counts() == want_counts
+    want = build_pipeline(cfg.replace(backend="torch"), dev)(
+        pair.left, pair.right)
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.disp, want.disp)
+
+
+def test_sad_through_sgm_is_not_ported(dev):
+    img = torch.zeros((8, 40), dtype=torch.uint8, device=dev)
+    cfg = TSUKUBA_SAD16.replace(num_paths=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_pipeline(cfg, dev)(img, img)
 
 
 def test_kernels_reject_unsupported_disparities(dev):

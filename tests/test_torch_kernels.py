@@ -13,15 +13,21 @@ import pytest
 import torch
 
 from stereo_tpu.config import StereoConfig as JCfg
-from stereo_tpu.ops.pallas.cost_kernel import census_cost_volume_pallas
+from stereo_tpu.ops.pallas.cost_kernel import (
+    census_cost_volume_pallas,
+    sad_cost_volume_pallas,
+)
 from stereo_tpu.ops.pallas.filter_kernel import median_3x3_pallas
 from stereo_tpu.ops.pallas.sgm_kernel import sgm_wta_fused_pallas
+from stereo_tpu.ops.postprocess import apply_postprocess as j_apply_postprocess
+from stereo_tpu.ops.wta import wta_with_aux as j_wta_with_aux
 from stereo_tpu_torch.config import StereoConfig as TCfg
 from stereo_tpu_torch.ops import census_transform
 from stereo_tpu_torch.ops.cuda import (
     census_cost,
     launch_counts,
     median3x3,
+    sad_cost,
     sgm_paths,
     sgm_select,
 )
@@ -52,7 +58,7 @@ def test_census_cost_matches_pallas(md):
 
 
 _jit_fused = jax.jit(sgm_wta_fused_pallas, static_argnums=1,
-                     static_argnames="interpret")
+                     static_argnames=("interpret", "emit_d0"))
 
 
 @pytest.mark.parametrize(
@@ -93,6 +99,109 @@ def test_sgm_paths_rejects_int16_overflow():
     cfg = TCfg(num_paths=8, p2=5000)
     with pytest.raises(ValueError, match="int16"):
         sgm_paths(torch.zeros((2, 3, 32), dtype=torch.int8), cfg)
+
+
+def test_sgm_paths_int16_bound_counts_p2_min():
+    # Adaptive P2 can exceed P2 where p2_min > P2: 8 * (24 + 5000) >= 2^15.
+    cost = torch.zeros((2, 3, 32), dtype=torch.int8)
+    img = torch.zeros((2, 3), dtype=torch.uint8)
+    cfg = TCfg(num_paths=8, p2=120, p2_min=5000)
+    assert sgm_paths(cost, cfg).shape == cost.shape   # fixed P2: fits
+    with pytest.raises(ValueError, match="int16"):
+        sgm_paths(cost, cfg.replace(adaptive_p2=True), image=img)
+
+
+def test_sgm_paths_adaptive_needs_image():
+    cfg = TCfg(num_paths=8, adaptive_p2=True)
+    cost = torch.zeros((2, 3, 32), dtype=torch.int8)
+    with pytest.raises(ValueError, match="image"):
+        sgm_paths(cost, cfg)
+    with pytest.raises(ValueError, match="image"):
+        sgm_paths(cost, cfg, image=torch.zeros((3, 2), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize(
+    "shape, kw",
+    [
+        ((21, 33, 128), dict(num_paths=8, adaptive_grad_floor=12,
+                             uniqueness_ratio=0.02)),
+        ((24, 40, 32), dict(num_paths=4, adaptive_grad_floor=0,
+                            min_disparity=3)),
+    ],
+)
+def test_sgm_paths_adaptive_match_fused_pallas(shape, kw):
+    rng = np.random.default_rng(shape[0])
+    h, w, d = shape
+    cost = rng.integers(0, 25, size=shape).astype(np.int8)
+    img = (rng.integers(0, 4, size=(h, w)) * 30
+           + rng.integers(0, 10, size=(h, w))).astype(np.uint8)
+    kw = dict(kw, num_disparities=d, p1=14, p2=120, p2_min=30,
+              adaptive_p2=True, median_filter=False)
+    want_disp, want_valid = _jit_fused(cost, JCfg(**kw), interpret=True,
+                                       image=img)
+    cfg = TCfg(**kw)
+    before = launch_counts()
+    disp, valid = sgm_select(sgm_paths(_t(cost), cfg, image=_t(img)), cfg)
+    assert launch_counts() == before
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))
+
+
+@pytest.mark.parametrize("md", [0, 3])
+def test_sgm_select_d0_matches_fused_pallas(md):
+    rng = np.random.default_rng(13 + md)
+    shape = (16, 40, 32)
+    cost = rng.integers(0, 25, size=shape).astype(np.int8)
+    kw = dict(num_disparities=32, num_paths=8, p1=14, p2=120,
+              min_disparity=md, uniqueness_ratio=0.02, lr_check=False,
+              median_filter=False)
+    want_disp, packed = _jit_fused(cost, JCfg(**kw), interpret=True,
+                                   emit_d0=True)
+    packed = np.asarray(packed)
+    cfg = TCfg(**kw, lr_exact=True)
+    before = launch_counts()
+    disp, ok, d0 = sgm_select(sgm_paths(_t(cost), cfg), cfg, emit_d0=True)
+    assert launch_counts() == before
+    assert d0.dtype == torch.int32
+    np.testing.assert_array_equal(d0.numpy(), packed >> 1)
+    np.testing.assert_array_equal(ok.numpy(), (packed & 1).astype(bool))
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(subpixel=True, min_disparity=2,
+                                             uniqueness_ratio=0.05)])
+def test_sgm_select_d16_matches_reference(kw):
+    # tsukuba_sad16's selection: D=16, S is the raw SAD cost (num_paths=0).
+    rng = np.random.default_rng(14)
+    s = rng.integers(0, 40, size=(12, 50, 16)).astype(np.int16)
+    kw = dict(dict(cost_fn="sad", num_disparities=16, num_paths=0,
+                   subpixel=False), **kw)
+    jcfg = JCfg(**kw)
+    jd, jv, ji = j_wta_with_aux(s.astype(np.int32), jcfg)
+    want_disp, want_valid = j_apply_postprocess(
+        jd, jv, s.astype(np.int32), jcfg.replace(median_filter=False),
+        disp_int=ji)
+    cfg = TCfg(**kw)
+    disp, valid = sgm_select(_t(s), cfg)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))
+
+
+@pytest.mark.parametrize("md, d, window", [(0, 16, (9, 9)), (3, 16, (9, 9)),
+                                          (0, 64, (9, 9)), (3, 16, (5, 7))])
+def test_sad_cost_matches_pallas(md, d, window):
+    rng = np.random.default_rng(15 + md)
+    h, w = 19, 70
+    left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    right = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    kw = dict(cost_fn="sad", sad_window=window, num_disparities=d,
+              min_disparity=md)
+    want, _ = sad_cost_volume_pallas(left, right, JCfg(**kw), interpret=True)
+    before = launch_counts()
+    got = sad_cost(_t(left), _t(right), TCfg(**kw))
+    assert launch_counts() == before
+    assert got.dtype == torch.int16 and got.shape == (h, w, d)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:h, :w])
 
 
 def test_wrappers_reject_mixed_devices():

@@ -12,6 +12,7 @@ import torch
 
 from stereo_tpu import ops as jops
 from stereo_tpu.config import StereoConfig as JCfg
+from stereo_tpu.ops.sgm import adaptive_p2_map as j_adaptive_p2_map
 from stereo_tpu.ops.wta import wta_with_aux as j_wta_with_aux
 from stereo_tpu_torch import ops as tops
 from stereo_tpu_torch.config import StereoConfig as TCfg
@@ -145,3 +146,73 @@ def test_apply_postprocess(lr_check):
     got = tops.apply_postprocess(td, tv, _t(s), TCfg(**kw), disp_int=ti)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("floor", [0, 12])
+@pytest.mark.parametrize("dy, dx", [(0, -1), (0, 1), (-1, 0), (1, 0),
+                                    (-1, -1), (1, 1), (-1, 1), (1, -1)])
+def test_adaptive_p2_map(dy, dx, floor):
+    img = _image(np.random.default_rng(10), 13, 21)
+    kw = dict(adaptive_p2=True, p2=120, p2_min=30, adaptive_grad_floor=floor)
+    want = np.asarray(j_adaptive_p2_map(img, JCfg(**kw), dy, dx))
+    got = tops.adaptive_p2_map(_t(img), TCfg(**kw), dy, dx)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "paths, kw",
+    [
+        (4, dict(adaptive_grad_floor=0)),
+        (4, dict(adaptive_grad_floor=12)),
+        (8, dict(adaptive_grad_floor=0)),
+        (8, dict(adaptive_grad_floor=12)),
+        (8, dict(adaptive_grad_floor=3, p2_min=200)),   # p2_min > p2
+    ],
+)
+def test_sgm_aggregate_adaptive(paths, kw):
+    rng = np.random.default_rng(paths + kw["adaptive_grad_floor"])
+    h, w, d = 17, 29, 16
+    cost = rng.integers(0, 64, size=(h, w, d)).astype(np.int32)
+    # Smooth regions and sharp edges: gradients on both sides of the floor.
+    img = (rng.integers(0, 4, size=(h, w)) * 20
+           + rng.integers(0, 8, size=(h, w))).astype(np.uint8)
+    kw = dict(dict(num_paths=paths, p1=14, p2=120, p2_min=30,
+                   adaptive_p2=True), **kw)
+    want = np.asarray(_jit_sgm(cost, JCfg(**kw), img))
+    got = tops.sgm_aggregate(_t(cost), TCfg(**kw), image=_t(img))
+    np.testing.assert_array_equal(got.numpy(), want)
+    fixed = tops.sgm_aggregate(_t(cost), TCfg(**kw))
+    assert not torch.equal(got, fixed)   # the image changed P2
+
+
+@pytest.mark.parametrize("window", [(9, 9), (5, 7)])
+def test_box_sum(window):
+    rng = np.random.default_rng(11)
+    a = rng.integers(0, 256, size=(14, 23, 5)).astype(np.int32)
+    want = np.asarray(jops.box_sum(a, window))
+    np.testing.assert_array_equal(tops.box_sum(_t(a), window).numpy(), want)
+    want2 = np.asarray(jops.box_sum(a[..., 0], window))
+    np.testing.assert_array_equal(
+        tops.box_sum(_t(a[..., 0]), window).numpy(), want2)
+
+
+@pytest.mark.parametrize("window", [(9, 9), (5, 7)])
+@pytest.mark.parametrize("md", [0, 3])
+def test_sad_cost_volume(md, window):
+    rng = np.random.default_rng(12)
+    left, right = _image(rng, 15, 41), _image(rng, 15, 41)
+    kw = dict(cost_fn="sad", sad_window=window, num_disparities=16,
+              min_disparity=md)
+    want = np.asarray(jops.sad_cost_volume(left, right, JCfg(**kw)))
+    got = tops.sad_cost_volume(_t(left), _t(right), TCfg(**kw))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tops.cost_volume(_t(left), _t(right), TCfg(**kw)).numpy(), want)
+
+
+def test_cost_volume_rank_is_not_ported():
+    img = torch.zeros((4, 8), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.cost_volume(img, img, TCfg(cost_fn="rank"))

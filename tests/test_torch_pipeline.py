@@ -62,6 +62,67 @@ def test_compute_disparity_matches_pallas_interpret(shape, d):
                  _ref(pair.left, pair.right, kw, "pallas_interpret"))
 
 
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize(
+    "kw",
+    [
+        _KITTI32,
+        dict(_KITTI32, adaptive_grad_floor=0),
+        dict(_KITTI32, num_paths=4, min_disparity=2, p2_min=150),  # > p2
+    ],
+    ids=["preset", "floor0", "paths4_p2min"],
+)
+def test_quality_preset_matches_reference(kw, backend):
+    pair = make_pair((40, 128), max_disp=20, texture="cloud", seed=3)
+    preset = "kitti_sgm8_128_quality"
+    _assert_same(_port(pair.left, pair.right, kw, preset),
+                 _ref(pair.left, pair.right, kw, backend, preset))
+
+
+#: The reference's own exact-LR cases (tests/ops/test_pallas_fused.py).
+_LR_EXACT = dict(
+    cost_fn="census", census_window=(5, 5), num_disparities=16, num_paths=8,
+    p1=10, p2=120, subpixel=True, lr_check=True, lr_exact=True,
+    median_filter=True,
+)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(),
+        dict(subpixel=False),
+        dict(uniqueness_ratio=0.05),
+        dict(adaptive_p2=True, p2_min=25),
+        dict(median_filter=False),
+    ],
+    ids=["base", "nosubpix", "uniq", "adaptive", "nomedian"],
+)
+def test_lr_exact_matches_reference(kw, backend):
+    rng = np.random.default_rng(17)
+    left = rng.integers(0, 256, size=(48, 144)).astype(np.uint8)
+    right = np.roll(left, 5, axis=1)
+    kw = dict(_LR_EXACT, **kw)
+    got = _port(left, right, kw)
+    _assert_same(got, _ref(left, right, kw, backend))
+    # The exact check differs from the cheap one somewhere on this pair.
+    cheap = _port(left, right, dict(kw, lr_exact=False))
+    assert not torch.equal(got.valid, cheap.valid)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize(
+    "kw", [{}, dict(min_disparity=3, sad_window=(5, 7), subpixel=True)],
+    ids=["preset", "md3_5x7"],
+)
+def test_tsukuba_sad16_matches_reference(kw, backend):
+    pair = make_pair((48, 96), max_disp=14, kind="shapes", texture="cloud",
+                     seed=4)
+    _assert_same(_port(pair.left, pair.right, kw, "tsukuba_sad16"),
+                 _ref(pair.left, pair.right, kw, backend, "tsukuba_sad16"))
+
+
 @pytest.mark.parametrize("speckle_max_size", [0, 60])
 def test_host_postprocess_matches_reference(speckle_max_size):
     pair = make_pair((48, 160), max_disp=20, noise_std=12.0, seed=2)
@@ -80,9 +141,7 @@ def test_host_postprocess_matches_reference(speckle_max_size):
 @pytest.mark.parametrize(
     "kw, call_kw",
     [
-        (dict(lr_exact=True), {}),
-        (dict(adaptive_p2=True), {}),
-        (dict(cost_fn="sad"), {}),
+        (dict(cost_fn="rank"), {}),
         ({}, dict(x_offset=8)),
         ({}, dict(right_context=4)),
         ({}, dict(image_height=64)),
@@ -111,3 +170,21 @@ def test_cli_run_demo(capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["pair"].startswith("synthetic-shapes-cloud-48x160")
     assert rec["bad3"] < 0.05 and rec["density"] > 0.9
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        ["--preset", "kitti_sgm8_128_quality", "--set", "num_disparities=32"],
+        ["--preset", "kitti_sgm8_128", "--set", "num_disparities=32",
+         "--set", "lr_exact=true"],
+        ["--preset", "tsukuba_sad16"],
+    ],
+    ids=["quality", "lr_exact", "tsukuba_sad16"],
+)
+def test_cli_run_demo_slice_presets(capsys, args):
+    rc = cli.main(["run", "--demo", "--demo-shape", "48", "160",
+                   "--demo-max-disp", "14", "--device", "cpu", *args])
+    assert rc == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["bad3"] < 0.1 and rec["density"] > 0.9
