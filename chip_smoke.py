@@ -8,31 +8,55 @@ result line):
   1. device: a CUDA card is required (there is no CPU path); prints the
      card's name and power limit as nvidia-smi reports them;
   2. build: compiles the five CUDA kernels (nvcc, sm_90a, one compiler per
-     source, all at once) and the host speckle filter (g++) from the
-     sources in this checkout;
+     source, all at once) and the host speckle and fill library (g++) from
+     the sources in this checkout;
   3. kernels: runs each kernel form and its plain torch version on the card
-     at the shapes its path gives it, requires bit-equal results, and
-     times both with CUDA events (medians):
-       - K1 census_cost, K2 sgm_paths (fixed P2), K3 sgm_select and K4
-         median3x3 on kitti_like_pair(seed=0) at 375x1242 with the
-         kitti_sgm8_128 preset (D=128);
-       - K2 with adaptive P2 on the same pair with kitti_sgm8_128_quality;
-       - K3's integer-winner form (emit_d0, the exact LR check's left
-         view) at 375x1242x128;
-       - K5 sad_cost and K3 at D=16 on the tsukuba_sad16 pair (288x384);
-  4. slices: each path serves a few requests through build_pipeline(cfg,
-     "cuda"), host_postprocess and evaluate_disparity, with the launch
-     counters set to 0 just before and read just after: kitti_sgm8_128
-     (K1 1, K2 8, K3 1, K4 1 per frame), kitti_sgm8_128_quality (the same),
-     kitti_sgm8_128 with lr_exact (K1 2, K2 16, K3 2, K4 1) and
-     tsukuba_sad16 (K5 1, K3 1, K4 1). Frame 0 of each must reproduce the
-     reference package's hashes (stereo_tpu_torch/testdata/*_seed0.json)
-     and the repeated seeds their first answers.
+     at every shape a path below gives it, requires bit-equal results,
+     times both with CUDA events (medians) and computes the form's bound on
+     this card from the same shapes. A form is what the wrappers count
+     their launches by: the shape and what picks the instantiation.
+       - K1 census_cost, K2 sgm_paths (fixed and adaptive P2), K3
+         sgm_select (base and the exact LR check's two forms: emit_d0, and
+         integer winners without uniqueness) and K4 median3x3 on
+         kitti_like_pair(seed=0) at 375x1242, D=128;
+       - K1's rank form at 375x1242x128;
+       - the pyramid model's coarse pass on the 2x2-pooled pair (188x621,
+         D=64): K1 on a 1-word 5x5 census, K2 (fixed and adaptive P2), K3
+         without subpixel and LR, K4;
+       - K2 at D=16 (fixed and adaptive P2) and K3 with min_disparity=-8 on
+         the pyramid model's residual volume (375x1242x16), and the
+         plain-torch gather that builds that volume;
+       - K1 at D=64, K2 with 4 paths, K3 and K4 on the Middlebury pair
+         (555x900);
+       - K1, K2 (fixed and adaptive P2), K3, K4, K5 sad_cost at D=128 and
+         K2 on its int16 costs on the hard suite's radiometric pair
+         (160x288, D=128);
+       - K5, K3 at D=16 and K4 on the tsukuba_sad16 pair (288x384);
+  4. slices: each path serves a few requests through get_model(...).build,
+     host_postprocess and evaluate_disparity, with the launch counters set
+     to 0 just before and read just after, by form; a launch of a form
+     that phase 3 did not hold against its plain version fails (per frame,
+     K1/K5 K2 K3 K4):
+     kitti_sgm8_128 (1 8 1 1), kitti_sgm8_128_quality (1 8 1 1),
+     kitti_sgm8_128 with lr_exact (2 16 2 1), tsukuba_sad16 through the
+     block_matching model (1 0 1 1), middlebury_census_sgm4_64 (1 4 1 1),
+     kitti_sgm8_128 and kitti_sgm8_128_quality through the pyramid model
+     with a 5x5 census (1 16 2 2 each; the quality preset gives the
+     residual pass its adaptive P2) and kitti_sgm8_128 with cost_fn="rank"
+     (1 8 1 1). Frame 0 of each must
+     reproduce the reference package's hashes
+     (stereo_tpu_torch/testdata/*_seed0.json) and the repeated seeds their
+     first answers;
+  5. hard suite: run_hard_suite(kitti_sgm8_128_quality, (160, 288), seeds
+     0-2) and census_vs_sad_robustness(kitti_sgm8_128, (160, 288), seed 0)
+     on the card, rows equal to the reference's
+     (testdata/hard_suite_*.json, census_vs_sad_*.json), launch counters
+     checked; prints the rows and the sweep's wall time.
 
 Prints, on the lines before the last, the card's name and power limit
-and one JSON object with each kernel form's launches (its wrapper's count
-summed over the slices that run that form), error and times; the last
-line is {"ok": true, "device": {...}}.
+and one JSON object with each kernel form's launches on the main paths
+(as the wrappers counted them), error, times and bound; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -55,27 +79,40 @@ import torch  # noqa: E402
 from stereo_tpu_torch import (  # noqa: E402
     KITTI_SGM8_128,
     KITTI_SGM8_128_QUALITY,
+    MIDDLEBURY_CENSUS_SGM4_64,
     PRESETS,
     TSUKUBA_SAD16,
-    build_pipeline,
     host_postprocess,
     native,
 )
 from stereo_tpu_torch.data import kitti_like_pair, make_pair  # noqa: E402
 from stereo_tpu_torch.eval import evaluate_disparity  # noqa: E402
+from stereo_tpu_torch.eval.hard_suite import (  # noqa: E402
+    SCENARIOS,
+    census_vs_sad_robustness,
+    run_hard_suite,
+)
+from stereo_tpu_torch.models import get_model  # noqa: E402
+from stereo_tpu_torch.models.pyramid import (  # noqa: E402
+    _pool2,
+    _residual_cost_volume,
+)
 from stereo_tpu_torch.ops import (  # noqa: E402
     adaptive_p2_map,
     census_cost_volume,
     census_transform,
     median_3x3,
+    rank_cost_volume,
+    rank_transform,
     sad_cost_volume,
     select_disparity,
     sgm_aggregate,
 )
 from stereo_tpu_torch.ops.cuda import (  # noqa: E402
     census_cost,
-    launch_counts,
+    launch_forms,
     median3x3,
+    rank_cost,
     reset_launch_counts,
     sad_cost,
     sgm_paths,
@@ -91,27 +128,84 @@ PLAIN = CFG.replace(backend="torch")
 QCFG = KITTI_SGM8_128_QUALITY
 LRCFG = CFG.replace(lr_exact=True)
 SAD = TSUKUBA_SAD16
+RANK = CFG.replace(cost_fn="rank")
+MID = MIDDLEBURY_CENSUS_SGM4_64
+SADSGM = CFG.replace(cost_fn="sad")
+QUALITY_P2 = dict(adaptive_p2=True, adaptive_grad_floor=12, p2_min=30)
 
-_PALLAS = "stereo_tpu/ops/pallas/"
-#: kernel form -> (wrapper, source, the TPU kernel it replaces)
+#: Published peaks of one H100 SXM at 700 W: device memory, and the float32
+#: rate outside the tensor cores, which the kernels' integer ALU work is
+#: held against (the data sheet gives no separate integer rate).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+_COST_CU = "stereo_tpu_torch/csrc/census_cost.cu"
+_SAD_CU = "stereo_tpu_torch/csrc/sad_cost.cu"
+_PATHS_CU = "stereo_tpu_torch/csrc/sgm_paths.cu"
+_SELECT_CU = "stereo_tpu_torch/csrc/sgm_select.cu"
+_MEDIAN_CU = "stereo_tpu_torch/csrc/median3x3.cu"
+_COST_X = "stereo_tpu/ops/pallas/cost_kernel.py:206"
+_COST_D = "stereo_tpu/ops/pallas/cost_kernel.py:119"
+_H_PATHS = "stereo_tpu/ops/pallas/sgm_kernel.py:399"
+_V_FUSED = "stereo_tpu/ops/pallas/sgm_kernel.py:992"
+_MEDIAN = "stereo_tpu/ops/pallas/filter_kernel.py:33"
+#: kernel form -> (wrapper, source, the TPU kernel it replaces). A row with
+#: a size in its name is a form of an earlier row at another path's shape.
 KERNEL_INFO = {
-    "census_cost": ("census_cost", "stereo_tpu_torch/csrc/census_cost.cu",
-                    _PALLAS + "cost_kernel.py:206"),
-    "sad_cost": ("sad_cost", "stereo_tpu_torch/csrc/sad_cost.cu",
-                 _PALLAS + "cost_kernel.py:584"),
-    "sgm_paths": ("sgm_paths", "stereo_tpu_torch/csrc/sgm_paths.cu",
-                  _PALLAS + "sgm_kernel.py:399"),
-    "sgm_paths/adaptive": ("sgm_paths", "stereo_tpu_torch/csrc/sgm_paths.cu",
-                           _PALLAS + "sgm_kernel.py:399"),
-    "sgm_select": ("sgm_select", "stereo_tpu_torch/csrc/sgm_select.cu",
-                   _PALLAS + "sgm_kernel.py:992"),
-    "sgm_select/d0": ("sgm_select", "stereo_tpu_torch/csrc/sgm_select.cu",
-                      _PALLAS + "sgm_kernel.py:1224"),
-    "sgm_select/d16": ("sgm_select", "stereo_tpu_torch/csrc/sgm_select.cu",
-                       _PALLAS + "sgm_kernel.py:992"),
-    "median3x3": ("median3x3", "stereo_tpu_torch/csrc/median3x3.cu",
-                  _PALLAS + "filter_kernel.py:33"),
+    "census_cost": ("census_cost", _COST_CU,
+                    "stereo_tpu/ops/pallas/cost_kernel.py:206"),
+    "census_cost/rank": ("rank_cost", _COST_CU,
+                         "stereo_tpu/ops/pallas/cost_kernel.py:513"),
+    "census_cost/d64": ("census_cost", _COST_CU,
+                        "stereo_tpu/ops/pallas/cost_kernel.py:119"),
+    "sad_cost": ("sad_cost", _SAD_CU,
+                 "stereo_tpu/ops/pallas/cost_kernel.py:584"),
+    "sad_cost/d128": ("sad_cost", _SAD_CU,
+                      "stereo_tpu/ops/pallas/cost_kernel.py:584"),
+    "sgm_paths": ("sgm_paths", _PATHS_CU,
+                  "stereo_tpu/ops/pallas/sgm_kernel.py:399"),
+    "sgm_paths/adaptive": ("sgm_paths", _PATHS_CU,
+                           "stereo_tpu/ops/pallas/sgm_kernel.py:399"),
+    "sgm_paths/4": ("sgm_paths", _PATHS_CU,
+                    "stereo_tpu/ops/pallas/sgm_kernel.py:586"),
+    "sgm_paths/d16": ("sgm_paths", _PATHS_CU,
+                      "stereo_tpu/ops/pallas/sgm_kernel.py:871"),
+    "sgm_paths/d16/adaptive": ("sgm_paths", _PATHS_CU,
+                               "stereo_tpu/ops/pallas/sgm_kernel.py:905"),
+    "sgm_paths/int16": ("sgm_paths", _PATHS_CU,
+                        "stereo_tpu/ops/pallas/sgm_kernel.py:399"),
+    "sgm_select": ("sgm_select", _SELECT_CU,
+                   "stereo_tpu/ops/pallas/sgm_kernel.py:992"),
+    "sgm_select/d0": ("sgm_select", _SELECT_CU,
+                      "stereo_tpu/ops/pallas/sgm_kernel.py:1224"),
+    "sgm_select/int": ("sgm_select", _SELECT_CU, _V_FUSED),
+    "sgm_select/d16": ("sgm_select", _SELECT_CU,
+                       "stereo_tpu/ops/pallas/sgm_kernel.py:992"),
+    "sgm_select/md-8": ("sgm_select", _SELECT_CU,
+                        "stereo_tpu/ops/pallas/sgm_kernel.py:992"),
+    "median3x3": ("median3x3", _MEDIAN_CU, _MEDIAN),
+    # the pyramid model's coarse pass: 188x621, D=64, 5x5 census
+    "census_cost/w1_d64": ("census_cost", _COST_CU, _COST_D),
+    "sgm_paths/d64": ("sgm_paths", _PATHS_CU, _H_PATHS),
+    "sgm_paths/d64/adaptive": ("sgm_paths", _PATHS_CU, _H_PATHS),
+    "sgm_select/coarse": ("sgm_select", _SELECT_CU, _V_FUSED),
+    "median3x3/coarse": ("median3x3", _MEDIAN_CU, _MEDIAN),
+    # middlebury_census_sgm4_64: 555x900, D=64
+    "sgm_select/d64": ("sgm_select", _SELECT_CU, _V_FUSED),
+    "median3x3/555x900": ("median3x3", _MEDIAN_CU, _MEDIAN),
+    # the hard suite: 160x288, D=128
+    "census_cost/160x288": ("census_cost", _COST_CU, _COST_X),
+    "sgm_paths/160x288": ("sgm_paths", _PATHS_CU, _H_PATHS),
+    "sgm_paths/adaptive/160x288": ("sgm_paths", _PATHS_CU, _H_PATHS),
+    "sgm_select/160x288": ("sgm_select", _SELECT_CU, _V_FUSED),
+    "median3x3/160x288": ("median3x3", _MEDIAN_CU, _MEDIAN),
+    # tsukuba_sad16: 288x384
+    "median3x3/288x384": ("median3x3", _MEDIAN_CU, _MEDIAN),
 }
+
+#: (wrapper, *form) as the wrappers count their launches -> the KERNEL_INFO
+#: row whose comparison in the kernels phase launched that form.
+HELD: Dict[tuple, str] = {}
 
 
 def tsukuba_pair(seed: int):
@@ -120,28 +214,143 @@ def tsukuba_pair(seed: int):
                      seed=seed)
 
 
+def middlebury_pair(seed: int):
+    """The middlebury_census_sgm4_64 pair family (the reference's bench)."""
+    return make_pair((555, 900), max_disp=48, kind="shapes", texture="cloud",
+                     seed=seed)
+
+
 class Slice(NamedTuple):
     fixture: str                      # testdata/<fixture>_seed0.json
     pair: Callable[[int], object]     # seed -> StereoPair
     seeds: Tuple[int, ...]
-    launches: Dict[str, int]          # per frame
-    forms: Tuple[str, ...]            # KERNEL_INFO rows this path runs
+    forms: Dict[str, int]             # KERNEL_INFO row -> launches per frame
+    model: str = ""                   # "": the fixture's model
 
+
+#: A pyramid frame: the coarse pass at half size and D/2 (K1, K2 x 8, K3
+#: without LR, K4), then K2 x 8 and K3 on the residual volume, and K4.
+_PYRAMID_FORMS = {
+    "census_cost/w1_d64": 1, "sgm_paths/d64": 8, "sgm_select/coarse": 1,
+    "median3x3/coarse": 1, "sgm_paths/d16": 8, "sgm_select/md-8": 1,
+    "median3x3": 1,
+}
 
 SLICES = (
-    Slice("kitti_sgm8_128", kitti_like_pair, (0, 1, 2, 3, 0, 1, 2, 3),
-          dict(census_cost=1, sgm_paths=8, sgm_select=1, median3x3=1),
-          ("census_cost", "sgm_paths", "sgm_select", "median3x3")),
-    Slice("kitti_sgm8_128_quality", kitti_like_pair, (0, 1, 0, 1),
-          dict(census_cost=1, sgm_paths=8, sgm_select=1, median3x3=1),
-          ("census_cost", "sgm_paths/adaptive", "sgm_select", "median3x3")),
-    Slice("kitti_sgm8_128_lr_exact", kitti_like_pair, (0, 1, 0, 1),
-          dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=1),
-          ("census_cost", "sgm_paths", "sgm_select/d0", "median3x3")),
+    Slice("kitti_sgm8_128", kitti_like_pair, (0, 1, 0, 1),
+          {"census_cost": 1, "sgm_paths": 8, "sgm_select": 1, "median3x3": 1}),
+    Slice("kitti_sgm8_128_quality", kitti_like_pair, (0, 1, 0),
+          {"census_cost": 1, "sgm_paths/adaptive": 8, "sgm_select": 1,
+           "median3x3": 1}),
+    Slice("kitti_sgm8_128_lr_exact", kitti_like_pair, (0, 1, 0),
+          {"census_cost": 2, "sgm_paths": 16, "sgm_select/d0": 1,
+           "sgm_select/int": 1, "median3x3": 1}),
     Slice("tsukuba_sad16", tsukuba_pair, (0, 1, 2, 3, 0, 1, 2, 3),
-          dict(sad_cost=1, sgm_select=1, median3x3=1),
-          ("sad_cost", "sgm_select/d16", "median3x3")),
+          {"sad_cost": 1, "sgm_select/d16": 1, "median3x3/288x384": 1},
+          model="block_matching"),
+    Slice("middlebury_census_sgm4_64", middlebury_pair, (0, 1, 0, 1),
+          {"census_cost/d64": 1, "sgm_paths/4": 4, "sgm_select/d64": 1,
+           "median3x3/555x900": 1}),
+    Slice("kitti_sgm8_128_pyramid55", kitti_like_pair, (0, 1, 0, 1),
+          _PYRAMID_FORMS),
+    Slice("kitti_sgm8_128_quality_pyramid55", kitti_like_pair, (0, 1, 0),
+          {"census_cost/w1_d64": 1, "sgm_paths/d64/adaptive": 8,
+           "sgm_select/coarse": 1, "median3x3/coarse": 1,
+           "sgm_paths/d16/adaptive": 8, "sgm_select/md-8": 1,
+           "median3x3": 1}),
+    Slice("kitti_sgm8_128_rank", kitti_like_pair, (0, 1, 0),
+          {"census_cost/rank": 1, "sgm_paths": 8, "sgm_select": 1,
+           "median3x3": 1}),
 )
+
+
+def held(name: str, fn):
+    """``fn()`` must launch row ``name``'s kernel form and nothing else (K2
+    once per direction): notes the counted form under the row, waits for
+    the card so a fault shows where it ran, and returns what ``fn`` did."""
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    forms = list(launch_forms())
+    if len(forms) != 1 or forms[0][0] != KERNEL_INFO[name][0]:
+        raise AssertionError(f"{name}: launched {forms}")
+    if HELD.setdefault(forms[0], name) != name:
+        raise AssertionError(
+            f"{name} and {HELD[forms[0]]} are one form: {forms[0]}")
+    return out
+
+
+def counted_launches(what: str) -> Dict[str, int]:
+    """The wrappers' launches since the last reset, by KERNEL_INFO row;
+    fails for a form that the kernels phase held against no plain version."""
+    by_row: Dict[str, int] = {}
+    for form, n in launch_forms().items():
+        if form not in HELD:
+            raise AssertionError(f"{what}: launched {form}, a form that no "
+                                 f"row holds against its plain version")
+        by_row[HELD[form]] = by_row.get(HELD[form], 0) + n
+    return by_row
+
+
+def expected_launches(forms: Dict[str, int], times: int) -> Dict[str, int]:
+    return {form: n * times for form, n in forms.items()}
+
+
+def load_slice(sl: Slice):
+    """(fixture, config, model) of a slice, from its fixture file."""
+    fx = json.loads((TESTDATA / f"{sl.fixture}_seed0.json").read_text())
+    cfg = PRESETS[fx["preset"]].replace(**fx.get("overrides", {}))
+    kwargs = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in fx.get("model_kwargs", {}).items()}
+    model = get_model(sl.model or fx.get("model", "classic"), cfg=cfg,
+                      **kwargs)
+    return fx, cfg, model
+
+
+def bound(nbytes: float, ops: float) -> Dict[str, object]:
+    """The least time this card could take: the bytes the function must
+    move (inputs read once, outputs written once) over the memory rate, or
+    its operations over the peak rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)  # no single PyTorch call computes any form
+
+
+def cost_bound(h, w, d, words, ops_per_voxel):
+    """K1: two [H, W, words] int32 descriptor planes in, int8 volume out."""
+    return bound(2 * h * w * words * 4 + h * w * d, h * w * d * ops_per_voxel)
+
+
+def sad_bound(h, w, d, window):
+    """K5: two int32 images in, int16 volume out; per voxel and window tap
+    a subtract, an absolute value and an add, then one divide."""
+    taps = window[0] * window[1]
+    return bound(2 * h * w * 4 + h * w * d * 2, h * w * d * (3 * taps + 1))
+
+
+def paths_bound(cost, cfg):
+    """K2 (all directions of one call): the cost volume in, the int16 S
+    out, the int32 image in with adaptive P2; per voxel and direction about
+    10 integer operations (3 adds, 5 mins counting the reduction, the
+    renormalising subtract, the accumulate)."""
+    h, w, d = cost.shape
+    nbytes = h * w * d * (cost.element_size() + 2)
+    if cfg.adaptive_p2:
+        nbytes += h * w * 4
+    return bound(nbytes, h * w * d * cfg.num_paths * 10)
+
+
+def select_bound(h, w, d, emit_d0=False):
+    """K3: int16 S in, float32 disp and one validity byte out (int32 d0
+    with emit_d0); per voxel about 6 compares and selects."""
+    return bound(h * w * d * 2 + h * w * (5 + 4 * emit_d0), h * w * d * 6)
+
+
+def median_bound(h, w):
+    """K4: float32 map in and out; 19 exchanges of a min and a max."""
+    return bound(2 * h * w * 4, h * w * 38)
 
 
 def sha16(a) -> str:
@@ -216,135 +425,260 @@ def per_direction_ms(dev, cost, scratch, image_ptr, cfg) -> Dict[str, float]:
     h, w, d = cost.shape
     return {
         f"{dy:+d},{dx:+d}": cuda_ms(
-            lambda: run("stpu_sgm_path", dev, cost.data_ptr(), image_ptr,
-                        scratch.data_ptr(), h, w, d, dy, dx, cfg.p1, cfg.p2,
-                        cfg.p2_min, cfg.adaptive_grad_floor, 1), reps=10)
+            lambda: run("stpu_sgm_path", dev, cost.data_ptr(),
+                        cost.element_size(), image_ptr, scratch.data_ptr(), h,
+                        w, d, dy, dx, cfg.p1, cfg.p2, cfg.p2_min,
+                        cfg.adaptive_grad_floor, 1), reps=10)
         for dy, dx in PATH_STEPS[: cfg.num_paths]
     }
 
 
+def to_dev(pair, dev):
+    return (torch.from_numpy(pair.left).to(dev),
+            torch.from_numpy(pair.right).to(dev))
+
+
+def census_row(name, left, right, cfg, reps=20):
+    """One K1 census form against the plain volume; returns (row, volume,
+    plain volume)."""
+    plain = cfg.replace(backend="torch")
+    cl = census_transform(left, cfg.census_window)
+    cr = census_transform(right, cfg.census_window)
+    cost = held(name, lambda: census_cost(cl, cr, cfg))
+    cost_plain = synced(lambda: census_cost_volume(left, right, plain))
+    row = dict(
+        max_abs_err=require_equal(name, cost.to(torch.int32), cost_plain),
+        ms=cuda_ms(lambda: census_cost(cl, cr, cfg), reps=reps),
+        plain_ms=cuda_ms(lambda: census_cost_volume(left, right, plain),
+                         reps=3),
+        **cost_bound(*left.shape, cfg.num_disparities, cfg.census_words, 5),
+    )
+    return row, cost, cost_plain
+
+
+def sad_row(name, left, right, cfg, reps=20):
+    """One K5 form against the plain volume; returns (row, volume, plain
+    volume)."""
+    plain = cfg.replace(backend="torch")
+    cost = held(name, lambda: sad_cost(left, right, cfg))
+    cost_plain = synced(lambda: sad_cost_volume(left, right, plain))
+    row = dict(
+        max_abs_err=require_equal(name, cost.to(torch.int32), cost_plain),
+        ms=cuda_ms(lambda: sad_cost(left, right, cfg), reps=reps),
+        plain_ms=cuda_ms(lambda: sad_cost_volume(left, right, plain), reps=5),
+        **sad_bound(*left.shape, cfg.num_disparities, cfg.sad_window),
+    )
+    return row, cost, cost_plain
+
+
+def paths_row(name, dev, cost, cost_plain, cfg, image=None, reps=10):
+    """One K2 form against plain SGM on the same costs; returns (row, S,
+    plain S)."""
+    plain = cfg.replace(backend="torch")
+    s = held(name, lambda: sgm_paths(cost, cfg, image=image))
+    s_plain = synced(lambda: sgm_aggregate(cost_plain, plain, image=image))
+    row = dict(
+        max_abs_err=require_equal(name, s.to(torch.int32), s_plain),
+        ms=cuda_ms(lambda: sgm_paths(cost, cfg, image=image), reps=reps),
+        plain_ms=cuda_ms(lambda: sgm_aggregate(cost_plain, plain, image=image),
+                         reps=2),
+        **paths_bound(cost, cfg),
+    )
+    ptr = None if image is None else image.to(torch.int32)
+    scratch = torch.empty_like(s)
+    print(f"{name} per direction (dy,dx) ms: " + json.dumps(per_direction_ms(
+        dev, cost, scratch, None if ptr is None else ptr.data_ptr(), cfg)))
+    return row, s, s_plain
+
+
+def select_row(name, s, s_plain, cfg, emit_d0=False, reps=20):
+    """One K3 form against the plain selection; returns (row, outputs,
+    plain outputs)."""
+    plain = cfg.replace(backend="torch")
+    got = held(name, lambda: sgm_select(s, cfg, emit_d0=emit_d0))
+    want = synced(lambda: select_disparity(s_plain, plain, emit_d0=emit_d0))
+    errs = [require_equal(f"{name} output {i}", g, w)
+            for i, (g, w) in enumerate(zip(got, want))]
+    row = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: sgm_select(s, cfg, emit_d0=emit_d0), reps=reps),
+        plain_ms=cuda_ms(lambda: select_disparity(s_plain, plain,
+                                                  emit_d0=emit_d0), reps=3),
+        **select_bound(*s.shape, emit_d0=emit_d0),
+    )
+    return row, got, want
+
+
+def median_row(name, disp, disp_plain):
+    """One K4 shape against the plain median; returns (row, plain map)."""
+    med = held(name, lambda: median3x3(disp))
+    med_plain = synced(lambda: median_3x3(disp_plain))
+    row = dict(
+        max_abs_err=require_equal(name, med, med_plain),
+        ms=cuda_ms(lambda: median3x3(disp), reps=50),
+        plain_ms=cuda_ms(lambda: median_3x3(disp_plain), reps=20),
+        **median_bound(*disp.shape),
+    )
+    return row, med_plain
+
+
 def phase_kernels(dev) -> dict:
-    """Each kernel form against its plain version at its path's shapes."""
-    pair = kitti_like_pair(seed=0)
-    left = torch.from_numpy(pair.left).to(dev)
-    right = torch.from_numpy(pair.right).to(dev)
-    cl = census_transform(left, CFG.census_window)
-    cr = census_transform(right, CFG.census_window)
+    """Each kernel form against its plain version at its paths' shapes."""
+    left, right = to_dev(kitti_like_pair(seed=0), dev)
+    h, w = left.shape
     one_view = cuda_ms(lambda: census_transform(left, CFG.census_window),
                        reps=10)
     print(f"census_transform (plain torch, both views): {2 * one_view:.4f} ms")
     rows = {}
 
-    cost = synced(lambda: census_cost(cl, cr, CFG))
-    cost_plain = synced(lambda: census_cost_volume(left, right, PLAIN))
-    rows["census_cost"] = dict(
-        max_abs_err=require_equal("census_cost", cost.to(torch.int32),
-                                  cost_plain),
-        ms=cuda_ms(lambda: census_cost(cl, cr, CFG), reps=20),
-        plain_ms=cuda_ms(
-            lambda: census_cost_volume(left, right, PLAIN), reps=3),
-    )
-
-    s = synced(lambda: sgm_paths(cost, CFG))
-    s_plain = synced(lambda: sgm_aggregate(cost_plain, PLAIN))
-    rows["sgm_paths"] = dict(
-        max_abs_err=require_equal("sgm_paths", s.to(torch.int32), s_plain),
-        ms=cuda_ms(lambda: sgm_paths(cost, CFG), reps=10),
-        plain_ms=cuda_ms(lambda: sgm_aggregate(cost_plain, PLAIN), reps=2),
-    )
-    scratch = torch.empty_like(s)
-    print("sgm_paths per direction (dy,dx) ms: " + json.dumps(
-        per_direction_ms(dev, cost, scratch, None, CFG)))
-
+    # kitti_sgm8_128, its quality preset and lr_exact: 375x1242, D=128.
+    rows["census_cost"], cost, cost_plain = census_row(
+        "census_cost", left, right, CFG)
+    rows["sgm_paths"], s, s_plain = paths_row(
+        "sgm_paths", dev, cost, cost_plain, CFG)
     # K2 adaptive: the quality preset has the same census and D as CFG, so
     # the cost volume above is its cost volume.
-    qplain = QCFG.replace(backend="torch")
-    s_q = synced(lambda: sgm_paths(cost, QCFG, image=left))
-    s_q_plain = synced(lambda: sgm_aggregate(cost_plain, qplain, image=left))
-    rows["sgm_paths/adaptive"] = dict(
-        max_abs_err=require_equal("sgm_paths adaptive", s_q.to(torch.int32),
-                                  s_q_plain),
-        ms=cuda_ms(lambda: sgm_paths(cost, QCFG, image=left), reps=10),
-        plain_ms=cuda_ms(lambda: sgm_aggregate(cost_plain, qplain,
-                                               image=left), reps=2),
-    )
-    img32 = left.to(torch.int32)
-    print("sgm_paths adaptive per direction (dy,dx) ms: " + json.dumps(
-        per_direction_ms(dev, cost, scratch, img32.data_ptr(), QCFG)))
+    rows["sgm_paths/adaptive"], _, _ = paths_row(
+        "sgm_paths/adaptive", dev, cost, cost_plain, QCFG, image=left)
     # The TPU's alternative: eight [H, W] P2 maps precomputed outside the
     # kernel (plain torch here), which the in-kernel division replaces.
     maps_ms = cuda_ms(lambda: [adaptive_p2_map(left, QCFG, -dy, -dx)
                                for dy, dx in PATH_STEPS], reps=10)
     print(f"adaptive P2 as 8 precomputed maps (plain torch): {maps_ms:.4f} ms")
-
-    disp, valid = synced(lambda: sgm_select(s, CFG))
-    disp_plain, valid_plain = synced(lambda: select_disparity(s_plain, PLAIN))
-    require_equal("sgm_select valid", valid, valid_plain)
-    rows["sgm_select"] = dict(
-        max_abs_err=require_equal("sgm_select disp", disp, disp_plain),
-        ms=cuda_ms(lambda: sgm_select(s, CFG), reps=20),
-        plain_ms=cuda_ms(lambda: select_disparity(s_plain, PLAIN), reps=3),
-    )
-
-    lrplain = LRCFG.replace(backend="torch")
-    got = synced(lambda: sgm_select(s, LRCFG, emit_d0=True))
-    want = synced(lambda: select_disparity(s_plain, lrplain, emit_d0=True))
-    require_equal("sgm_select d0 valid", got[1], want[1])
-    require_equal("sgm_select d0 disp", got[0], want[0])
-    rows["sgm_select/d0"] = dict(
-        max_abs_err=require_equal("sgm_select d0", got[2], want[2]),
-        ms=cuda_ms(lambda: sgm_select(s, LRCFG, emit_d0=True), reps=20),
-        plain_ms=cuda_ms(lambda: select_disparity(s_plain, lrplain,
-                                                  emit_d0=True), reps=3),
-    )
-
-    med = synced(lambda: median3x3(disp))
-    med_plain = synced(lambda: median_3x3(disp_plain))
-    rows["median3x3"] = dict(
-        max_abs_err=require_equal("median3x3", med, med_plain),
-        ms=cuda_ms(lambda: median3x3(disp), reps=50),
-        plain_ms=cuda_ms(lambda: median_3x3(disp_plain), reps=20),
-    )
+    rows["sgm_select"], (disp, _), (disp_plain, valid_plain) = select_row(
+        "sgm_select", s, s_plain, CFG)
+    # lr_exact: the left view's winners with emit_d0, the flipped pair's as
+    # integers without uniqueness; the cheap LR check is off in both.
+    rows["sgm_select/d0"], _, _ = select_row(
+        "sgm_select/d0", s, s_plain, LRCFG, emit_d0=True)
+    rows["sgm_select/int"], _, _ = select_row(
+        "sgm_select/int", s, s_plain,
+        LRCFG.replace(subpixel=False, uniqueness_ratio=0.0))
+    rows["median3x3"], med_plain = median_row("median3x3", disp, disp_plain)
 
     # The plain chain on the card is the reference composition too.
     fx = json.loads((TESTDATA / "kitti_sgm8_128_seed0.json").read_text())
     if (sha16(med_plain), sha16(valid_plain)) != (fx["disp"], fx["valid"]):
         raise AssertionError("plain torch path on the card misses the fixture")
+    del cost, cost_plain, s, s_plain
 
-    # tsukuba_sad16: K5, then K3 at D=16 on the raw SAD cost (num_paths=0).
-    tp = tsukuba_pair(0)
-    tl = torch.from_numpy(tp.left).to(dev)
-    tr = torch.from_numpy(tp.right).to(dev)
-    splain = SAD.replace(backend="torch")
-    sad = synced(lambda: sad_cost(tl, tr, SAD))
-    sad_plain = synced(lambda: sad_cost_volume(tl, tr, splain))
-    rows["sad_cost"] = dict(
-        max_abs_err=require_equal("sad_cost", sad.to(torch.int32), sad_plain),
-        ms=cuda_ms(lambda: sad_cost(tl, tr, SAD), reps=20),
-        plain_ms=cuda_ms(lambda: sad_cost_volume(tl, tr, splain), reps=5),
+    # K1's rank form: one int32 rank per pixel, |rank_l - rank_r|.
+    rl = rank_transform(left, RANK.census_window)
+    rr = rank_transform(right, RANK.census_window)
+    rank_view = cuda_ms(lambda: rank_transform(left, RANK.census_window),
+                        reps=10)
+    print(f"rank_transform (plain torch, both views): {2 * rank_view:.4f} ms")
+    rplain = RANK.replace(backend="torch")
+    rcost = held("census_cost/rank", lambda: rank_cost(rl, rr, RANK))
+    rcost_plain = synced(lambda: rank_cost_volume(left, right, rplain))
+    rows["census_cost/rank"] = dict(
+        max_abs_err=require_equal("census_cost/rank", rcost.to(torch.int32),
+                                  rcost_plain),
+        ms=cuda_ms(lambda: rank_cost(rl, rr, RANK), reps=20),
+        plain_ms=cuda_ms(lambda: rank_cost_volume(left, right, rplain),
+                         reps=3),
+        **cost_bound(h, w, RANK.num_disparities, 1, 2),
     )
-    d16, v16 = synced(lambda: sgm_select(sad, SAD))
-    d16_plain, v16_plain = synced(lambda: select_disparity(sad_plain, splain))
-    require_equal("sgm_select d16 valid", v16, v16_plain)
-    rows["sgm_select/d16"] = dict(
-        max_abs_err=require_equal("sgm_select d16 disp", d16, d16_plain),
-        ms=cuda_ms(lambda: sgm_select(sad, SAD), reps=20),
-        plain_ms=cuda_ms(lambda: select_disparity(sad_plain, splain), reps=5),
-    )
+    del rcost, rcost_plain
+
+    # The pyramid model's coarse pass, on its own inputs: the pooled pair
+    # at 188x621, D=64, a 1-word 5x5 census, integer winners, no LR.
+    pyramid = get_model("pyramid", cfg=CFG, census_window=(5, 5))
+    ccfg = pyramid.coarse_cfg()
+    pleft, pright = _pool2(left), _pool2(right)
+    rows["census_cost/w1_d64"], ccost, ccost_plain = census_row(
+        "census_cost/w1_d64", pleft, pright, ccfg)
+    rows["sgm_paths/d64"], cs, cs_plain = paths_row(
+        "sgm_paths/d64", dev, ccost, ccost_plain, ccfg)
+    rows["sgm_paths/d64/adaptive"], _, _ = paths_row(
+        "sgm_paths/d64/adaptive", dev, ccost, ccost_plain,
+        ccfg.replace(**QUALITY_P2), image=pleft)
+    rows["sgm_select/coarse"], (cdisp, _), (cdisp_plain, _) = select_row(
+        "sgm_select/coarse", cs, cs_plain, ccfg)
+    rows["median3x3/coarse"], _ = median_row(
+        "median3x3/coarse", cdisp, cdisp_plain)
+    del ccost, ccost_plain, cs, cs_plain
+
+    # The pyramid model's residual pass: the gather volume (plain torch),
+    # then K2 at D=16 (the staged S) and K3 with min_disparity=-8; its
+    # K4 is the 375x1242 form above.
+    base, vol, res_cfg = synced(lambda: pyramid.residual_volume(left, right))
+    pcl = census_transform(left, (5, 5))
+    pcr = census_transform(right, (5, 5))
+    base_i = torch.round(base).to(torch.int32)
+    gather_ms = cuda_ms(lambda: _residual_cost_volume(pcl, pcr, base_i, 8, 16),
+                        reps=10)
+    volume_ms = cuda_ms(lambda: pyramid.residual_volume(left, right), reps=5)
+    print(f"pyramid residual volume (plain torch): gather + Hamming "
+          f"{gather_ms:.4f} ms; coarse pass + transforms + volume "
+          f"{volume_ms:.4f} ms")
+    vol8 = vol.to(res_cfg.cost_volume_dtype)
+    rows["sgm_paths/d16"], s16, s16_plain = paths_row(
+        "sgm_paths/d16", dev, vol8, vol, res_cfg)
+    rows["sgm_paths/d16/adaptive"], _, _ = paths_row(
+        "sgm_paths/d16/adaptive", dev, vol8, vol,
+        res_cfg.replace(**QUALITY_P2), image=left)
+    rows["sgm_select/md-8"], (dres, _), _ = select_row(
+        "sgm_select/md-8", s16, s16_plain, res_cfg)
+    if float(dres.min()) >= 0:
+        raise AssertionError("no negative residual: md=-8 was not exercised")
+    del vol, vol8, s16, s16_plain
+
+    # middlebury_census_sgm4_64: 555x900, D=64, 4 paths.
+    ml, mr = to_dev(middlebury_pair(0), dev)
+    rows["census_cost/d64"], mcost, mcost_plain = census_row(
+        "census_cost/d64", ml, mr, MID)
+    rows["sgm_paths/4"], ms_, ms_plain = paths_row(
+        "sgm_paths/4", dev, mcost, mcost_plain, MID)
+    rows["sgm_select/d64"], (mdisp, _), (mdisp_plain, _) = select_row(
+        "sgm_select/d64", ms_, ms_plain, MID)
+    rows["median3x3/555x900"], _ = median_row(
+        "median3x3/555x900", mdisp, mdisp_plain)
+    del mcost, mcost_plain, ms_, ms_plain
+
+    # The hard suite's classic pass at 160x288, D=128 (adaptive P2 in the
+    # sweep, fixed in census_vs_sad_robustness) and the SAD half of the
+    # latter: K5 at D=128, K2 on its int16 costs.
+    rp = make_pair((160, 288), max_disp=96, seed=0, **SCENARIOS["radiometric"])
+    hl, hr = to_dev(rp, dev)
+    rows["census_cost/160x288"], hcost, hcost_plain = census_row(
+        "census_cost/160x288", hl, hr, CFG)
+    rows["sgm_paths/160x288"], hs, hs_plain = paths_row(
+        "sgm_paths/160x288", dev, hcost, hcost_plain, CFG)
+    rows["sgm_paths/adaptive/160x288"], _, _ = paths_row(
+        "sgm_paths/adaptive/160x288", dev, hcost, hcost_plain, QCFG, image=hl)
+    rows["sgm_select/160x288"], (hdisp, _), (hdisp_plain, _) = select_row(
+        "sgm_select/160x288", hs, hs_plain, CFG)
+    rows["median3x3/160x288"], _ = median_row(
+        "median3x3/160x288", hdisp, hdisp_plain)
+    rows["sad_cost/d128"], hsad, hsad_plain = sad_row(
+        "sad_cost/d128", hl, hr, SADSGM)
+    if int(hsad.max()) <= 127:
+        raise AssertionError("SAD costs fit int8: int16 was not exercised")
+    rows["sgm_paths/int16"], _, _ = paths_row(
+        "sgm_paths/int16", dev, hsad, hsad_plain, SADSGM)
+
+    # tsukuba_sad16: K5, K3 at D=16 on the raw SAD cost (num_paths=0), K4.
+    tl, tr = to_dev(tsukuba_pair(0), dev)
+    rows["sad_cost"], sad, sad_plain = sad_row("sad_cost", tl, tr, SAD)
+    rows["sgm_select/d16"], (tdisp, _), (tdisp_plain, _) = select_row(
+        "sgm_select/d16", sad, sad_plain, SAD)
+    rows["median3x3/288x384"], _ = median_row(
+        "median3x3/288x384", tdisp, tdisp_plain)
 
     for name, r in rows.items():
-        print(f"kernel {name}: equal to plain; {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.4f} ms)")
+        print(f"kernel {name}: equal to plain; {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']})")
     return rows
 
 
 def run_slice(dev, sl: Slice) -> Dict[str, int]:
     """The slice's requests through the entry points a user calls; returns
-    the launch counts of that run alone."""
-    fx = json.loads((TESTDATA / f"{sl.fixture}_seed0.json").read_text())
-    cfg = PRESETS[fx["preset"]].replace(**fx.get("overrides", {}))
+    the launches of that run alone, by kernel form, as counted."""
+    fx, cfg, model = load_slice(sl)
     pairs = {seed: sl.pair(seed) for seed in set(sl.seeds)}
-    fn = build_pipeline(cfg, device=dev)
+    fn = model.build(dev)
     fn(pairs[0].left, pairs[0].right)  # warm-up: caches, allocator
     torch.cuda.synchronize()
 
@@ -384,18 +718,71 @@ def run_slice(dev, sl: Slice) -> Dict[str, int]:
             if (m["bad3"], m["density"]) != (fx["bad3"], fx["density"]):
                 raise AssertionError(
                     f"{sl.fixture} frame {i}: metrics {m} != fixture")
-    counts = launch_counts()
-    want_counts = dict.fromkeys(counts, 0)
-    want_counts.update(
-        {k: v * len(sl.seeds) for k, v in sl.launches.items()})
+    counts = counted_launches(sl.fixture)
+    want_counts = expected_launches(sl.forms, len(sl.seeds))
     if counts != want_counts:
         raise AssertionError(
             f"{sl.fixture}: launch counts {counts} != {want_counts}")
-    print(f"slice {sl.fixture}: {len(sl.seeds)} frames, median device "
-          f"{statistics.median(device_ms):.3f} ms, median end to end "
-          f"{statistics.median(e2e_ms):.3f} ms; frame 0 matches the "
+    print(f"slice {sl.fixture} ({model.name}): {len(sl.seeds)} frames, "
+          f"median device {statistics.median(device_ms):.3f} ms, median end "
+          f"to end {statistics.median(e2e_ms):.3f} ms; frame 0 matches the "
           f"reference hashes; launches {counts}")
     return counts
+
+
+#: Kernel forms of one pair of the hard suite's two sweeps (the second
+#: runs a census and a SAD pipeline on each pair).
+_SUITE_FORMS = {"census_cost/160x288": 1, "sgm_paths/adaptive/160x288": 8,
+                "sgm_select/160x288": 1, "median3x3/160x288": 1}
+_ROBUST_FORMS = {"census_cost/160x288": 1, "sad_cost/d128": 1,
+                 "sgm_paths/160x288": 8, "sgm_paths/int16": 8,
+                 "sgm_select/160x288": 2, "median3x3/160x288": 2}
+
+
+def phase_hard_suite(dev) -> Dict[str, int]:
+    """The reference bench's suite-scale sweep and its census-vs-SAD
+    comparison on the card; returns the launches by kernel form, as
+    counted."""
+    fx = json.loads(
+        (TESTDATA / "hard_suite_kitti_sgm8_128_quality.json").read_text())
+    rb = json.loads(
+        (TESTDATA / "census_vs_sad_kitti_sgm8_128.json").read_text())
+    n_pairs = len(SCENARIOS) * len(fx["seeds"])
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = run_hard_suite(PRESETS[fx["preset"]], shape=tuple(fx["shape"]),
+                          seeds=tuple(fx["seeds"]), device=dev)
+    torch.cuda.synchronize()
+    suite_s = time.perf_counter() - t0
+    launches = counted_launches("hard suite")
+    if launches != expected_launches(_SUITE_FORMS, n_pairs):
+        raise AssertionError(f"hard suite: launch counts {launches}")
+    for row in rows:
+        print("hard suite row: " + json.dumps(row))
+    if rows != fx["rows"]:
+        raise AssertionError("hard suite rows differ from the reference's")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    robust = census_vs_sad_robustness(
+        PRESETS[rb["preset"]], shape=tuple(rb["shape"]),
+        seeds=tuple(rb["seeds"]), device=dev)
+    torch.cuda.synchronize()
+    robust_s = time.perf_counter() - t0
+    counts = counted_launches("census vs SAD")
+    if counts != expected_launches(_ROBUST_FORMS, len(rb["seeds"])):
+        raise AssertionError(f"census vs SAD: launch counts {counts}")
+    print("census vs SAD rows: " + json.dumps(robust))
+    if robust != rb["rows"]:
+        raise AssertionError("census vs SAD rows differ from the reference's")
+    print(f"hard suite: {n_pairs} pairs at {fx['shape']} in {suite_s:.3f} s "
+          f"wall ({suite_s / n_pairs * 1e3:.3f} ms per pair, making the pair "
+          f"included); census vs SAD: {robust_s:.3f} s; all rows equal the "
+          f"reference's; launches {launches} and {counts}")
+    for form, n in counts.items():
+        launches[form] = launches.get(form, 0) + n
+    return launches
 
 
 def main() -> int:
@@ -404,11 +791,12 @@ def main() -> int:
     torch.cuda.set_device(dev)
     phase_build()
     rows = phase_kernels(dev)
+    # From here on every launch is one a wrapper counted on a main path.
     launches = dict.fromkeys(KERNEL_INFO, 0)
-    for sl in SLICES:
-        counts = run_slice(dev, sl)
-        for form in sl.forms:
-            launches[form] += counts[KERNEL_INFO[form][0]]
+    for counts in (*(run_slice(dev, sl) for sl in SLICES),
+                   phase_hard_suite(dev)):
+        for form, n in counts.items():
+            launches[form] += n
     missing = [form for form, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"no main path launched {missing}")

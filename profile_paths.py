@@ -1,0 +1,140 @@
+"""Where a frame's time goes on the card, for each path chip_smoke.py drives.
+
+    python3 profile_paths.py [--frames 6] [SLICE ...]
+
+For each named slice of ``chip_smoke.SLICES`` (all by default; config and
+model come from the slice's fixture file, as there) the model serves a few
+frames with the images already on the card and no synchronisation between
+frames, under ``torch.profiler``; the script prints one JSON line per slice
+with the wall time, the device's busy time and idle share, and the device
+time by kernel (the port's CUDA kernels by name, everything else as plain
+torch), all per frame. For a pyramid slice it also times the model's
+stages one by one with CUDA events (medians). Needs a CUDA card; prints
+its name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from chip_smoke import SLICES, cuda_ms, load_slice, phase_device, to_dev
+from stereo_tpu_torch.models.pyramid import (
+    PyramidSGM,
+    _local_minmax_center,
+    _pool2,
+    _residual_cost_volume,
+    _upsample2,
+)
+from stereo_tpu_torch.ops import census_transform
+from stereo_tpu_torch.ops.cuda import median3x3, sgm_paths, sgm_select
+from stereo_tpu_torch.pipeline import compute_disparity
+
+#: Substrings of the port's kernel names, as the profiler reports them.
+KERNELS = ("census_cost_kernel", "sad_cost_kernel", "sgm_path_kernel",
+           "sgm_select_kernel", "median3x3_kernel")
+WARMUP = 3
+
+
+def profile_slice(sl, frames: int, dev: torch.device) -> dict:
+    _, _, model = load_slice(sl)
+    fn = model.build(dev)
+    left, right = to_dev(sl.pair(0), dev)
+    for _ in range(WARMUP):
+        fn(left, right)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            fn(left, right)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = dict.fromkeys((*KERNELS, "plain torch"), 0.0)
+    launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        key = next((k for k in KERNELS if k in ev.key), "plain torch")
+        by_kernel[key] += us / 1e3
+        launches += ev.count
+    busy_ms = sum(by_kernel.values())
+    if busy_ms == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return {
+        "slice": sl.fixture, "model": model.name, "shape": list(left.shape),
+        "frames": frames, "wall_ms": wall_ms / frames,
+        "device_busy_ms": busy_ms / frames,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "device_launches": launches / frames,
+        "device_ms": {k: v / frames for k, v in by_kernel.items()},
+    }
+
+
+def pyramid_stages(sl, dev: torch.device) -> dict:
+    """The pyramid model's stages on the slice's pair, each timed alone (ms,
+    CUDA-event medians): the same calls ``PyramidSGM`` makes."""
+    _, _, model = load_slice(sl)
+    cfg, r = model.cfg, model.residual_range
+    left, right = to_dev(sl.pair(0), dev)
+    h, w = left.shape
+    coarse_cfg = model.coarse_cfg()
+    pl, pr = _pool2(left), _pool2(right)
+    res_c = compute_disparity(pl, pr, coarse_cfg)
+    up = _upsample2(res_c.disp, h, w)
+    cl = census_transform(left, cfg.census_window)
+    cr = census_transform(right, cfg.census_window)
+    base, vol, res_cfg = model.residual_volume(left, right)
+    base_i = torch.round(base).to(torch.int32)
+    vol8 = vol.to(res_cfg.cost_volume_dtype)
+    s = sgm_paths(vol8, res_cfg, image=left)
+    disp_r, _ = sgm_select(s, res_cfg)
+    frame = model.build(dev)
+    stages = {
+        "pool2 x2": lambda: (_pool2(left), _pool2(right)),
+        "coarse pass (K1, K2 x8, K3, K4 at half size, D/2)":
+            lambda: compute_disparity(pl, pr, coarse_cfg),
+        "upsample + min/max centre": lambda: _local_minmax_center(up),
+        "census transform x2":
+            lambda: (census_transform(left, cfg.census_window),
+                     census_transform(right, cfg.census_window)),
+        "gather volume":
+            lambda: _residual_cost_volume(cl, cr, base_i, r // 2, r),
+        "coarse pass to masked volume (residual_volume)":
+            lambda: model.residual_volume(left, right),
+        f"K2 x8 at D={r}": lambda: sgm_paths(vol8, res_cfg, image=left),
+        f"K3 md={-(r // 2)}": lambda: sgm_select(s, res_cfg),
+        "K4": lambda: median3x3(disp_r),
+        "whole frame": lambda: frame(left, right),
+    }
+    return {"slice": sl.fixture, "census_window": list(cfg.census_window),
+            **{name: cuda_ms(fn, reps=10) for name, fn in stages.items()}}
+
+
+def main(argv=None) -> int:
+    by_name = {sl.fixture: sl for sl in SLICES}
+    ap = argparse.ArgumentParser(prog="profile_paths.py")
+    ap.add_argument("slices", nargs="*", default=list(by_name),
+                    help=f"slices to profile, of {sorted(by_name)}")
+    ap.add_argument("--frames", type=int, default=6)
+    args = ap.parse_args(argv)
+    phase_device()
+    dev = torch.device("cuda", 0)
+    for name in args.slices:
+        sl = by_name[name]
+        print(json.dumps(profile_slice(sl, args.frames, dev)))
+        if isinstance(load_slice(sl)[2], PyramidSGM):
+            print(json.dumps({"pyramid_stages": pyramid_stages(sl, dev)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

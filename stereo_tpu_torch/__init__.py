@@ -2,15 +2,17 @@
 CUDA kernels.
 
 A port of ``stereo_tpu`` (JAX/Pallas on a TPU), which stays beside it as
-the reference: census or SAD cost -> 4/8-path SGM (fixed or adaptive P2)
--> WTA + subpixel + uniqueness + cheap or exact LR check -> 3x3 median ->
-host speckle filter, bit-identical to the reference. Imports torch and
-numpy, never jax.
+the reference: census, rank or SAD cost -> 4/8-path SGM (fixed or adaptive
+P2) -> WTA + subpixel + uniqueness + cheap or exact LR check -> 3x3 median
+-> host speckle filter and occlusion fill, bit-identical to the reference;
+``models`` holds the classic, block-matching and pyramid families and
+``eval`` the hard evaluation suite. Imports torch and numpy, never jax.
 """
 
 from .config import (
     KITTI_SGM8_128,
     KITTI_SGM8_128_QUALITY,
+    MIDDLEBURY_CENSUS_SGM4_64,
     PRESETS,
     TSUKUBA_SAD16,
     StereoConfig,
@@ -37,5 +39,6 @@ __all__ = [
     "PRESETS",
     "KITTI_SGM8_128",
     "KITTI_SGM8_128_QUALITY",
+    "MIDDLEBURY_CENSUS_SGM4_64",
     "TSUKUBA_SAD16",
 ]

@@ -1,13 +1,14 @@
 """Command-line interface of the port.
 
     python -m stereo_tpu_torch.cli run --demo --preset kitti_sgm8_128 \\
-        [--set key=value ...] [--device cuda|cpu]
+        [--model classic|block_matching|pyramid] [--set key=value ...] \\
+        [--device cuda|cpu]
 
-runs one synthetic pair (with exact ground truth) through
-``build_pipeline`` and ``host_postprocess`` and prints the metrics as one
-JSON line, as the reference's ``stereo_tpu.cli run`` does. Timings go to
-stderr with the device they ran on. Image files, tiling and the other
-subcommands are not ported yet.
+runs one synthetic pair (with exact ground truth) through the named model
+and ``host_postprocess`` and prints the metrics as one JSON line, as the
+reference's ``stereo_tpu.cli run`` does. Timings go to stderr with the
+device they ran on. Image files, tiling and the other subcommands are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import time
 import torch
 
 from .config import PRESETS, StereoConfig
+from .models import MODELS, get_model
 
 #: Calls timed after the first for the steady-state median.
 STEADY_CALLS = 5
@@ -61,7 +63,7 @@ def _device_name(device: torch.device) -> str:
 def cmd_run(args) -> int:
     from .data.synthetic import make_pair
     from .eval.metrics import evaluate_disparity
-    from .pipeline import build_pipeline, host_postprocess
+    from .pipeline import host_postprocess
 
     cfg = PRESETS.get(args.preset)
     if cfg is None:
@@ -74,7 +76,7 @@ def cmd_run(args) -> int:
         kind="shapes", texture="cloud", seed=args.seed,
     )
     device = torch.device(args.device)
-    fn = build_pipeline(cfg, device)
+    fn = get_model(args.model, cfg=cfg).build(device)
 
     def timed():
         t0 = time.perf_counter()
@@ -101,6 +103,8 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="one pair -> metrics JSON line")
     p.add_argument("--preset", default="kitti_sgm8_128")
+    p.add_argument("--model", default="classic", choices=sorted(MODELS),
+                   help="model family (classic = the full SGM pipeline)")
     p.add_argument("--set", action="append", metavar="KEY=VALUE")
     p.add_argument("--demo", action="store_true", help="synthetic pair")
     p.add_argument("--demo-shape", type=int, nargs=2, default=(375, 1242))

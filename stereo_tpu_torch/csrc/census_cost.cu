@@ -1,22 +1,30 @@
-// K1 census_cost: the census-Hamming cost volume on Hopper.
+// K1 census_cost: the census-Hamming and rank cost volumes on Hopper.
 //
-// Replaces stereo_tpu/ops/pallas/cost_kernel.py:_cost_kernel_x (reached
-// through _roll_cost_volume and census_cost_volume_pallas). Computes
+// Replaces stereo_tpu/ops/pallas/cost_kernel.py:_cost_kernel_x (D >= 128)
+// and _cost_kernel (D < 128), both reached through _roll_cost_volume from
+// census_cost_volume_pallas and rank_cost_volume_pallas. Computes
 //
-//   C(y, x, d) = sum_k popcount(cl(y, x)[k] ^ cr(y, max(x - md - d, 0))[k])
+//   census: C(y, x, d) = sum_k popcount(cl(y, x)[k] ^ cr(y, xr)[k])
+//   rank:   C(y, x, d) = |rank_l(y, x) - rank_r(y, xr)|,  xr = x - md - d
 //
-// and max_unary_cost where x - md - d < 0, into an int8 [H, W, D] volume
-// (one layout; the TPU kernel's transposed copy was a Mosaic-only need).
+// with xr clamped at 0 and max_unary_cost where xr < 0, into an int8
+// [H, W, D] volume for any D in [1, 256] (one layout and one kernel: the TPU
+// kernels' transposed copy and their d-major / x-major split at D = 128 were
+// Mosaic-only needs). The rank form is the same kernel with another combine
+// on one int32 word per pixel; its costs are at most the window area - 1.
 //
 // Bound on the H100: the int8 write, 59.6 MB at 375x1242x128 (about 18 us at
 // the 3.35 TB/s published for an H100 SXM at 700 W); the descriptor reads
-// are 7.5 MB and the popcounts a few integer ops per voxel. Design: one
-// block per (row, 128-column tile) stages the tile's left descriptors and
-// the right descriptors of columns [x0 - md - D + 1, x0 + 128 - md) (clamped
-// into the frame, the golden clamp at 0) in shared memory, word-planar so
-// lanes reading neighbouring disparities spread over banks. Threads walk (x,
-// d) with d fastest and 4 disparities each, so every thread issues one
-// 32-bit store of 4 int8 costs and a warp writes 128 contiguous bytes.
+// are 7.5 MB (census, 2 words) or 1.9 MB (rank) and the combine a few
+// integer ops per voxel. Design: one block per (row, 128-column tile) stages
+// the tile's left descriptors and the right descriptors of columns
+// [x0 - md - D + 1, x0 + 128 - md) (clamped into the frame, the golden clamp
+// at 0) in shared memory, word-planar so lanes reading neighbouring
+// disparities spread over banks. Threads walk (x, d) with d fastest and 4
+// disparities each; where D is a multiple of 4 every thread makes one
+// 32-bit store of 4 int8 costs and a warp writes 128 contiguous bytes, else
+// (rows of D bytes are then not 4-byte aligned) each cost is stored as a
+// byte and disparities past D are skipped.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -26,7 +34,11 @@ namespace {
 constexpr int kTile = 128;    // output columns per block
 constexpr int kThreads = 256;
 
-template <int WORDS>
+enum Combine { kHamming = 0, kAbsDiff = 1 };
+
+// WORDS: 32-bit words per descriptor; COMBINE: Hamming or |l - r| (one
+// word); PACKED: D % 4 == 0, one 32-bit store of 4 costs.
+template <int WORDS, int COMBINE, bool PACKED>
 __global__ void census_cost_kernel(const uint32_t* __restrict__ cl,
                                    const uint32_t* __restrict__ cr,
                                    int8_t* __restrict__ out, int h, int w,
@@ -56,53 +68,79 @@ __global__ void census_cost_kernel(const uint32_t* __restrict__ cl,
   }
   __syncthreads();
 
-  const int groups = d >> 2;  // 4 disparities per thread
+  const int groups = (d + 3) >> 2;  // 4 disparities per thread
   for (int i = threadIdx.x; i < kTile * groups; i += blockDim.x) {
     const int xl = i / groups;
     const int g = i - xl * groups;
     const int x = x0 + xl;
     if (x >= w) break;  // i grows with x: the rest of the loop is off frame
+    int8_t* voxel = out + (row + x) * d + 4 * g;
     uint32_t packed = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int dd = 4 * g + j;
+      if (!PACKED && dd >= d) break;
       const int xr = x - md - dd;
       int c = maxc;
       if (xr >= 0) {
         const int s = xr - base;
-        c = 0;
+        if (COMBINE == kAbsDiff) {
+          c = abs((int)sl[xl] - (int)sr[s]);
+        } else {
+          c = 0;
 #pragma unroll
-        for (int k = 0; k < WORDS; ++k) {
-          c += __popc(sl[k * kTile + xl] ^ sr[k * span + s]);
+          for (int k = 0; k < WORDS; ++k) {
+            c += __popc(sl[k * kTile + xl] ^ sr[k * span + s]);
+          }
         }
       }
-      packed |= (uint32_t)(uint8_t)c << (8 * j);
+      if (PACKED) {
+        packed |= (uint32_t)(uint8_t)c << (8 * j);
+      } else {
+        voxel[j] = (int8_t)c;
+      }
     }
-    reinterpret_cast<uint32_t*>(out + (row + x) * d)[g] = packed;
+    if (PACKED) *reinterpret_cast<uint32_t*>(voxel) = packed;
+  }
+}
+
+template <int WORDS, int COMBINE>
+void launch(const uint32_t* l, const uint32_t* r, int8_t* o, int h, int w,
+            int d, int md, int maxc, cudaStream_t s) {
+  const dim3 grid((w + kTile - 1) / kTile, h);
+  const size_t smem = (size_t)WORDS * (2 * kTile + d - 1) * sizeof(uint32_t);
+  if (d % 4 == 0) {
+    census_cost_kernel<WORDS, COMBINE, true><<<grid, kThreads, smem, s>>>(
+        l, r, o, h, w, d, md, maxc);
+  } else {
+    census_cost_kernel<WORDS, COMBINE, false><<<grid, kThreads, smem, s>>>(
+        l, r, o, h, w, d, md, maxc);
   }
 }
 
 }  // namespace
 
+// cl, cr: [H, W, words] 32-bit descriptors; combine 0: census words (1 or
+// 2), Hamming; combine 1: one int32 rank per pixel, absolute difference.
 extern "C" int stpu_census_cost(const void* cl, const void* cr, void* out,
-                                int h, int w, int d, int words, int md,
-                                int maxc, void* stream) {
-  if (h <= 0 || w <= 0 || d <= 0 || d % 4 != 0 || md < 0 ||
-      (words != 1 && words != 2)) {
+                                int h, int w, int d, int words, int combine,
+                                int md, int maxc, void* stream) {
+  if (h <= 0 || h > 65535 || w <= 0 || d <= 0 || d > 256 || md < 0 ||
+      maxc < 0 || maxc > 127 || (words != 1 && words != 2) ||
+      (combine != kHamming && combine != kAbsDiff) ||
+      (combine == kAbsDiff && words != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((w + kTile - 1) / kTile, h);
-  const size_t smem = (size_t)words * (2 * kTile + d - 1) * sizeof(uint32_t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const uint32_t*>(cl);
   const auto* r = static_cast<const uint32_t*>(cr);
   auto* o = static_cast<int8_t*>(out);
-  if (words == 1) {
-    census_cost_kernel<1><<<grid, kThreads, smem, s>>>(l, r, o, h, w, d, md,
-                                                       maxc);
+  if (combine == kAbsDiff) {
+    launch<1, kAbsDiff>(l, r, o, h, w, d, md, maxc, s);
+  } else if (words == 1) {
+    launch<1, kHamming>(l, r, o, h, w, d, md, maxc, s);
   } else {
-    census_cost_kernel<2><<<grid, kThreads, smem, s>>>(l, r, o, h, w, d, md,
-                                                       maxc);
+    launch<2, kHamming>(l, r, o, h, w, d, md, maxc, s);
   }
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,22 @@
 // is the diagonal neighbour for the image as for the carry; a scanline's
 // first pixel has none and reads no gradient.
 //
+// Any D in [1, 256] and int8 or int16 costs: lanes hold DPL = ceil(D / 32)
+// consecutive disparities, and the registers past D (half the warp at D =
+// 16, the pyramid model's residual volume; the TPU packs several pixels'
+// disparities into one vector there, `seg=`) load a cost of 2^24 instead of
+// reading memory. Such a register's L stays in [2^24, 2^24 + P2]: it never
+// wins min_k L and, plus P1, never beats min_k L + P2 as the d+-1 neighbour
+// of a real disparity, so the edge rule at d = D-1 (skip the missing
+// neighbour) holds at any lane; it is never stored. D = 32 * DPL is a form
+// of its own (a template parameter) with no dead registers and, at D = 128,
+// where every lane's 4 values are aligned, 4-wide vector loads and stores:
+// guarding every load at run time made the D = 128 form a third slower on
+// an H100 (700 W). This is also the staged S of sgm_aggregate_pallas (its
+// _h_kernel and _v_kernel calls): S lands in device memory either way, and
+// the selection kernel is a separate launch. SAD costs (up to 255) come as
+// int16 and are read as such; S stays int16 under the same bound.
+//
 // Bound on the H100: each direction reads C (59.6 MB int8 at 375x1242x128)
 // and reads and writes S (2 x 119 MB int16), about 90 us at the 3.35 TB/s
 // published for an H100 SXM at 700 W. The horizontal directions have only H
@@ -45,35 +61,43 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int N>
-__device__ __forceinline__ void load_cost(const int8_t* p, int (&c)[N]) {
-  if constexpr (N == 4) {
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+// A register past D holds this cost (see the header).
+constexpr int kDeadCost = 1 << 24;
+
+// N values of T at p into v. Not PARTIAL: all N lie below D, and N == 4
+// takes one vector load. PARTIAL: entries at or past `live` take `dead`
+// and read nothing.
+template <int N, bool PARTIAL, typename T>
+__device__ __forceinline__ void load_lane(const T* p, int (&v)[N], int live,
+                                          int dead) {
+  if constexpr (PARTIAL) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = (int)(int8_t)(v >> (8 * j));
+    for (int j = 0; j < N; ++j) v[j] = j < live ? (int)p[j] : dead;
+  } else if constexpr (N == 4 && sizeof(T) == 1) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = (int)(int8_t)(u >> (8 * j));
+  } else if constexpr (N == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    v[0] = (int)(int16_t)(u.x & 0xffff);
+    v[1] = (int)(int16_t)(u.x >> 16);
+    v[2] = (int)(int16_t)(u.y & 0xffff);
+    v[3] = (int)(int16_t)(u.y >> 16);
   } else {
 #pragma unroll
-    for (int j = 0; j < N; ++j) c[j] = p[j];
+    for (int j = 0; j < N; ++j) v[j] = p[j];
   }
 }
 
-template <int N>
-__device__ __forceinline__ void load_sum(const int16_t* p, int (&s)[N]) {
-  if constexpr (N == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    s[0] = (int)(int16_t)(v.x & 0xffff);
-    s[1] = (int)(int16_t)(v.x >> 16);
-    s[2] = (int)(int16_t)(v.y & 0xffff);
-    s[3] = (int)(int16_t)(v.y >> 16);
-  } else {
+template <int N, bool PARTIAL>
+__device__ __forceinline__ void store_sum(int16_t* p, const int (&s)[N],
+                                          int live) {
+  if constexpr (PARTIAL) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) s[j] = p[j];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_sum(int16_t* p, const int (&s)[N]) {
-  if constexpr (N == 4) {
+    for (int j = 0; j < N; ++j) {
+      if (j < live) p[j] = (int16_t)s[j];
+    }
+  } else if constexpr (N == 4) {
     uint2 v;
     v.x = (uint32_t)(uint16_t)s[0] | ((uint32_t)(uint16_t)s[1] << 16);
     v.y = (uint32_t)(uint16_t)s[2] | ((uint32_t)(uint16_t)s[3] << 16);
@@ -90,15 +114,17 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
-// DPL = disparities per lane (D / 32); ADAPTIVE: P2 from the image.
-template <int DPL, bool ADAPTIVE>
-__global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
+// DPL = disparities per lane, ceil(D / 32); PARTIAL: D = d < 32 * DPL
+// (registers past D are dead); ADAPTIVE: P2 from the image; CostT: int8
+// (census, rank) or int16 (SAD) costs.
+template <int DPL, bool PARTIAL, bool ADAPTIVE, typename CostT>
+__global__ void sgm_path_kernel(const CostT* __restrict__ cost,
                                 const int* __restrict__ image,
                                 int16_t* __restrict__ sum, int h, int w,
-                                int step_y, int step_x, int p1, int p2,
+                                int d, int step_y, int step_x, int p1, int p2,
                                 int p2_min, int grad_floor, int accumulate,
                                 int n_lines) {
-  constexpr int D = 32 * DPL;
+  const int D = PARTIAL ? d : 32 * DPL;
   const int lane = threadIdx.x & 31;
   const int line = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (line >= n_lines) return;  // uniform over the warp
@@ -119,11 +145,12 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
     y = step_y > 0 ? k : h - 1 - k;
   }
 
+  const int live = D - lane * DPL;  // this lane's registers below D
   const ptrdiff_t voxel_step = ((ptrdiff_t)step_y * w + step_x) * D;
   ptrdiff_t off = ((ptrdiff_t)y * w + x) * D + lane * DPL;
   int c[DPL], s_old[DPL] = {}, L[DPL];
-  load_cost<DPL>(cost + off, c);
-  if (accumulate) load_sum<DPL>(sum + off, s_old);
+  load_lane<DPL, PARTIAL>(cost + off, c, live, kDeadCost);
+  if (accumulate) load_lane<DPL, PARTIAL>(sum + off, s_old, live, 0);
   int img = 0, img_prev = 0, img_next = 0;  // I(p), I(p - r), I(p + r)
   if (ADAPTIVE) img = __ldg(image + (ptrdiff_t)y * w + x);
 
@@ -134,8 +161,8 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
     const ptrdiff_t noff = off + voxel_step;
     int cn[DPL], sn[DPL] = {};
     if (more) {
-      load_cost<DPL>(cost + noff, cn);
-      if (accumulate) load_sum<DPL>(sum + noff, sn);
+      load_lane<DPL, PARTIAL>(cost + noff, cn, live, kDeadCost);
+      if (accumulate) load_lane<DPL, PARTIAL>(sum + noff, sn, live, 0);
       if (ADAPTIVE) img_next = __ldg(image + (ptrdiff_t)ny * w + nx);
     }
 
@@ -178,7 +205,7 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
     int out[DPL];
 #pragma unroll
     for (int j = 0; j < DPL; ++j) out[j] = s_old[j] + L[j];
-    store_sum<DPL>(sum + off, out);
+    store_sum<DPL, PARTIAL>(sum + off, out, live);
 
     if (!more) break;
     y = ny;
@@ -194,9 +221,9 @@ __global__ void sgm_path_kernel(const int8_t* __restrict__ cost,
   }
 }
 
-template <int DPL>
-void launch(const int8_t* cost, const int* image, int16_t* sum, int h, int w,
-            int step_y, int step_x, int p1, int p2, int p2_min,
+template <int DPL, bool PARTIAL, typename CostT>
+void launch(const void* cost, const int* image, int16_t* sum, int h, int w,
+            int d, int step_y, int step_x, int p1, int p2, int p2_min,
             int grad_floor, int accumulate, cudaStream_t s) {
   int n_lines;
   if (step_y == 0) {
@@ -206,49 +233,64 @@ void launch(const int8_t* cost, const int* image, int16_t* sum, int h, int w,
   } else {
     n_lines = w + h - 1;
   }
+  const auto* c = static_cast<const CostT*>(cost);
   const int blocks = (n_lines + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (image != nullptr) {
-    sgm_path_kernel<DPL, true><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-        cost, image, sum, h, w, step_y, step_x, p1, p2, p2_min, grad_floor,
+    sgm_path_kernel<DPL, PARTIAL, true, CostT><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+        c, image, sum, h, w, d, step_y, step_x, p1, p2, p2_min, grad_floor,
         accumulate, n_lines);
   } else {
-    sgm_path_kernel<DPL, false><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-        cost, image, sum, h, w, step_y, step_x, p1, p2, p2_min, grad_floor,
+    sgm_path_kernel<DPL, PARTIAL, false, CostT><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+        c, image, sum, h, w, d, step_y, step_x, p1, p2, p2_min, grad_floor,
         accumulate, n_lines);
   }
 }
 
 }  // namespace
 
-// image: [H, W] int32 reference view for adaptive P2, or NULL for fixed P2.
-extern "C" int stpu_sgm_path(const void* cost, const void* image, void* sum,
-                             int h, int w, int d, int step_y, int step_x,
-                             int p1, int p2, int p2_min, int grad_floor,
-                             int accumulate, void* stream) {
-  if (h <= 0 || w <= 0 || step_y < -1 || step_y > 1 || step_x < -1 ||
-      step_x > 1 || (step_y == 0 && step_x == 0) ||
-      (image != nullptr && p2 < 0)) {
+// cost: [H, W, D] int8 (cost_bytes 1) or int16 (cost_bytes 2); image: [H, W]
+// int32 reference view for adaptive P2, or NULL for fixed P2.
+extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
+                             const void* image, void* sum, int h, int w,
+                             int d, int step_y, int step_x, int p1, int p2,
+                             int p2_min, int grad_floor, int accumulate,
+                             void* stream) {
+  if (h <= 0 || w <= 0 || d <= 0 || d > 256 || step_y < -1 || step_y > 1 ||
+      step_x < -1 || step_x > 1 || (step_y == 0 && step_x == 0) ||
+      (cost_bytes != 1 && cost_bytes != 2) || p1 < 0 || p2 < 0 ||
+      p2_min < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const auto* c = static_cast<const int8_t*>(cost);
   const auto* im = static_cast<const int*>(image);
   auto* s = static_cast<int16_t*>(sum);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define STPU_PATH(DPL)                                                   \
-  launch<DPL>(c, im, s, h, w, step_y, step_x, p1, p2, p2_min, grad_floor, \
-              accumulate, st);                                           \
+#define STPU_PATH_AS(DPL, PARTIAL, T)                                       \
+  launch<DPL, PARTIAL, T>(cost, im, s, h, w, d, step_y, step_x, p1, p2,     \
+                          p2_min, grad_floor, accumulate, st)
+#define STPU_PATH(DPL)                                                      \
+  if (d == 32 * DPL) {                                                      \
+    if (cost_bytes == 1) {                                                  \
+      STPU_PATH_AS(DPL, false, int8_t);                                     \
+    } else {                                                                \
+      STPU_PATH_AS(DPL, false, int16_t);                                    \
+    }                                                                       \
+  } else if (cost_bytes == 1) {                                             \
+    STPU_PATH_AS(DPL, true, int8_t);                                        \
+  } else {                                                                  \
+    STPU_PATH_AS(DPL, true, int16_t);                                       \
+  }                                                                         \
   break
-  switch (d) {
-    case 32: STPU_PATH(1);
-    case 64: STPU_PATH(2);
-    case 96: STPU_PATH(3);
-    case 128: STPU_PATH(4);
-    case 160: STPU_PATH(5);
-    case 192: STPU_PATH(6);
-    case 224: STPU_PATH(7);
-    case 256: STPU_PATH(8);
-    default: return (int)cudaErrorInvalidValue;
+  switch ((d + 31) / 32) {
+    case 1: STPU_PATH(1);
+    case 2: STPU_PATH(2);
+    case 3: STPU_PATH(3);
+    case 4: STPU_PATH(4);
+    case 5: STPU_PATH(5);
+    case 6: STPU_PATH(6);
+    case 7: STPU_PATH(7);
+    default: STPU_PATH(8);
   }
 #undef STPU_PATH
+#undef STPU_PATH_AS
   return (int)cudaGetLastError();
 }

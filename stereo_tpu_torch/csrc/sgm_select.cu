@@ -19,6 +19,10 @@
 //     xr = x - d0 - md is in frame and |d0 - dR(xr)| <= lr_tau
 //     (stereo_tpu/ops/postprocess.py:24-62, 225-268).
 //
+// A negative md (the pyramid model's residual pass searches [-R/2, R/2))
+// only shifts the winner, disp = (d0 + offset) + md in that order; it is
+// taken with the cheap LR check off.
+//
 // Output: disp = d0 + offset + md (f32), valid (one byte, 0/1) and, if
 // its pointer is set, the integer winner lane d0 (int32; the emit_d0 form,
 // which the TPU packs as ok + 2 * d0 into one word). The exact LR check
@@ -219,7 +223,9 @@ extern "C" int stpu_sgm_select(const void* sum, void* disp, void* valid,
                                void* d0, int h, int w, int d, int md,
                                int subpixel, int uniqueness, float uniq_f,
                                int lr_check, float lr_tau, void* stream) {
-  if (h <= 0 || w <= 0 || d <= 0 || d > 256 || md < 0) {
+  // md < 0 only without the cheap LR check, whose right-view columns
+  // x - md - d would leave the row's shared-memory keys.
+  if (h <= 0 || w <= 0 || d <= 0 || d > 256 || (md < 0 && lr_check)) {
     return (int)cudaErrorInvalidValue;
   }
   const auto* s = static_cast<const int16_t*>(sum);

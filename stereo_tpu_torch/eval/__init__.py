@@ -1,4 +1,5 @@
-"""Disparity quality metrics (numpy only)."""
+"""Disparity quality metrics, the hard evaluation suite and the sweep
+harness."""
 
 from .metrics import evaluate_disparity
 

@@ -1,9 +1,10 @@
-"""Host-side speckle filter: the reference's C++, built for the port.
+"""Host-side speckle filter and occlusion fill: the reference's C++, in
+the port's own copy.
 
-Compiles ``stereo_tpu/native/src/speckle.cpp`` by path with ``g++`` into
-``build/kernels/`` (see ``ops/cuda/build.py``) and calls it through
-ctypes. Importing ``stereo_tpu.native`` would load jax, so the source is
-read, not imported. A failed build raises; there is no Python fallback.
+Compiles ``csrc/speckle.cpp`` (the text of the reference's
+``native/src/speckle.cpp``) with ``g++`` into ``build/kernels/`` (see
+``ops/cuda/build.py``) and calls it through ctypes. A failed build raises;
+there is no Python fallback.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .ops.cuda.build import PACKAGE_DIR, compile_library
+from .ops.cuda.build import CSRC_DIR, compile_library
 
-SPECKLE_SOURCE = PACKAGE_DIR.parent / "stereo_tpu" / "native" / "src" / "speckle.cpp"
+SPECKLE_SOURCE = CSRC_DIR / "speckle.cpp"
 GXX_FLAGS = ["g++", "-O3", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -36,6 +37,11 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
                 ctypes.c_int64, ctypes.c_float, ctypes.c_int32,
+            ]
+            lib.stpu_fill_invalid_lr.restype = None
+            lib.stpu_fill_invalid_lr.argtypes = [
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
+                ctypes.c_int64, ctypes.c_int64,
             ]
             _lib = lib
         return _lib
@@ -58,3 +64,24 @@ def filter_speckles(
         h, w, float(tau), int(max_size), 0.0, 0,
     )
     return disp, valid_u8.astype(bool), int(removed)
+
+
+def fill_invalid_lr(disp: np.ndarray, valid: np.ndarray
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Fill each invalid pixel with the smaller of the nearest valid
+    disparities to its left and right on the same row (occlusions belong
+    to the background).
+
+    Returns (disp_filled, filled_mask); inputs are not modified. A pixel is
+    fillable iff its row has at least one valid pixel.
+    """
+    disp = np.ascontiguousarray(disp, dtype=np.float32).copy()
+    valid = np.ascontiguousarray(valid, dtype=bool)
+    h, w = disp.shape
+    valid_u8 = valid.astype(np.uint8)
+    load().stpu_fill_invalid_lr(
+        disp.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        valid_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+    )
+    filled = (~valid) & valid.any(axis=1, keepdims=True)
+    return disp, filled

@@ -1,8 +1,14 @@
 """Stereo ops: plain torch versions (any device) and, under ``ops.cuda``,
 the hand-written Hopper kernels with the same semantics."""
 
-from .census import census_transform, hamming_distance
-from .cost import box_sum, census_cost_volume, cost_volume, sad_cost_volume
+from .census import census_transform, hamming_distance, rank_transform
+from .cost import (
+    box_sum,
+    census_cost_volume,
+    cost_volume,
+    rank_cost_volume,
+    sad_cost_volume,
+)
 from .postprocess import (
     apply_postprocess,
     lr_consistency,
@@ -16,6 +22,8 @@ from .wta import wta_with_aux
 __all__ = [
     "census_transform",
     "hamming_distance",
+    "rank_transform",
+    "rank_cost_volume",
     "census_cost_volume",
     "box_sum",
     "sad_cost_volume",

@@ -1,4 +1,4 @@
-"""Census transform and Hamming distance (plain torch).
+"""Census and rank transforms and Hamming distance (plain torch).
 
 Twin of ``stereo_tpu/ops/census.py``. Descriptors keep the reference's
 ``[H, W, words]`` layout; each 32-bit word is held in an int64 with a value
@@ -10,6 +10,22 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+def _neighbors(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """[wy*wx - 1, H, W]: the off-centre window neighbours of every pixel
+    in row-major order, borders replicating the edge pixel."""
+    wy, wx = window
+    ry, rx = wy // 2, wx // 2
+    h, w = img.shape
+    dev = img.device
+    offsets = [(dy - ry, dx - rx) for dy in range(wy) for dx in range(wx)
+               if (dy, dx) != (ry, rx)]
+    oy = torch.tensor([o[0] for o in offsets], device=dev)
+    ox = torch.tensor([o[1] for o in offsets], device=dev)
+    rows = (torch.arange(h, device=dev)[None, :] + oy[:, None]).clamp(0, h - 1)
+    cols = (torch.arange(w, device=dev)[None, :] + ox[:, None]).clamp(0, w - 1)
+    return img[rows[:, :, None], cols[:, None, :]]
 
 
 def census_transform(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
@@ -32,18 +48,9 @@ def census_transform(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor
     if bits > 64:
         raise ValueError("census descriptor limited to 64 bits")
 
-    ry, rx = wy // 2, wx // 2
     img = img.to(torch.int32)
-    h, w = img.shape
     dev = img.device
-    # Off-center offsets in row-major order: bit k <-> offsets[k].
-    offsets = [(dy - ry, dx - rx) for dy in range(wy) for dx in range(wx)
-               if (dy, dx) != (ry, rx)]
-    oy = torch.tensor([o[0] for o in offsets], device=dev)
-    ox = torch.tensor([o[1] for o in offsets], device=dev)
-    rows = (torch.arange(h, device=dev)[None, :] + oy[:, None]).clamp(0, h - 1)
-    cols = (torch.arange(w, device=dev)[None, :] + ox[:, None]).clamp(0, w - 1)
-    neighbors = img[rows[:, :, None], cols[:, None, :]]       # [bits, H, W]
+    neighbors = _neighbors(img, window)                       # [bits, H, W]
     set_bits = (neighbors < img).to(torch.int64)
     weight = 1 << (torch.arange(bits, device=dev) % 32)       # [bits]
     words = [
@@ -65,3 +72,14 @@ def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[...] int32 popcount(a XOR b) summed over the trailing word axis of
     two [..., n_words] descriptors."""
     return _popcount32(a ^ b).sum(dim=-1).to(torch.int32)
+
+
+def rank_transform(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
+    """[H, W] int32 rank transform: the count of window neighbours strictly
+    below the centre pixel (the scalar cousin of census; its cost is the
+    absolute rank difference). Borders replicate the edge pixel."""
+    wy, wx = window
+    if wy % 2 == 0 or wx % 2 == 0:
+        raise ValueError("rank window dims must be odd")
+    img = img.to(torch.int32)
+    return (_neighbors(img, window) < img).sum(dim=0, dtype=torch.int32)

@@ -1,4 +1,4 @@
-"""Census-Hamming and SAD cost volumes (plain torch).
+"""Census-Hamming, rank and SAD cost volumes (plain torch).
 
 Twin of ``stereo_tpu/ops/cost.py`` for whole frames: the volume is
 ``[H, W, D]`` with lane d searching disparity ``min_disparity + d``; the
@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 
 from ..config import StereoConfig
-from .census import census_transform, hamming_distance
+from .census import census_transform, hamming_distance, rank_transform
 
 
 def shifted_index(w: int, num_disparities: int, min_disparity: int,
@@ -52,6 +52,29 @@ def census_cost_volume(
     cl = census_transform(left, cfg.census_window)
     cr = census_transform(right, cfg.census_window)
     return census_cost_from_descriptors(cl, cr, cfg)
+
+
+def rank_cost_from_descriptors(
+    rl: torch.Tensor, rr: torch.Tensor, cfg: StereoConfig
+) -> torch.Tensor:
+    """[H, W, D] int32 absolute rank differences of two [H, W] rank maps."""
+    w = rl.shape[1]
+    d = cfg.num_disparities
+    md = int(cfg.min_disparity)
+    idx = shifted_index(w, d, md, rl.device)
+    cost = (rl.to(torch.int32)[:, :, None] - rr.to(torch.int32)[:, idx]).abs()
+    bad = invalid_mask(w, d, md, rl.device)
+    return cost.masked_fill(bad[None], cfg.max_unary_cost)
+
+
+def rank_cost_volume(
+    left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
+) -> torch.Tensor:
+    """Rank-transform cost volume |rank_l(x) - rank_r(x - md - d)| over
+    ``cfg.census_window``. Returns [H, W, D] int32 in [0, window area - 1]."""
+    rl = rank_transform(left, cfg.census_window)
+    rr = rank_transform(right, cfg.census_window)
+    return rank_cost_from_descriptors(rl, rr, cfg)
 
 
 def box_sum(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
@@ -98,9 +121,6 @@ def cost_volume(
     """Dispatch on ``cfg.cost_fn``. Returns [H, W, D] int32."""
     if cfg.cost_fn == "census":
         return census_cost_volume(left, right, cfg)
-    if cfg.cost_fn == "sad":
-        return sad_cost_volume(left, right, cfg)
-    raise NotImplementedError(
-        f"cost_fn={cfg.cost_fn!r} is not ported yet (ROADMAP Queue 1: rank "
-        "ops)"
-    )
+    if cfg.cost_fn == "rank":
+        return rank_cost_volume(left, right, cfg)
+    return sad_cost_volume(left, right, cfg)

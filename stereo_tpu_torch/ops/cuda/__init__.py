@@ -1,32 +1,44 @@
 """Hand-written Hopper (sm_90a) CUDA kernels of the main path, one wrapper
-each. Every wrapper counts its launches in ``<wrapper>.launches``."""
+each. Every wrapper counts its launches in ``<wrapper>.forms``, a Counter
+keyed by the launched form: the tensors' shape and whatever else picks the
+kernel's instantiation (``launch.count_launch``)."""
 
-from typing import Dict
+from typing import Dict, Tuple
 
-from .cost_kernel import census_cost, sad_cost
+from .cost_kernel import census_cost, rank_cost, sad_cost
 from .filter_kernel import median3x3
 from .sgm_kernel import sgm_paths, sgm_select
 
 #: The kernel wrappers in main-path order.
-KERNELS = (census_cost, sad_cost, sgm_paths, sgm_select, median3x3)
+KERNELS = (census_cost, rank_cost, sad_cost, sgm_paths, sgm_select,
+           median3x3)
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Launches per wrapper since the last reset."""
+    return {k.__name__: sum(k.forms.values()) for k in KERNELS}
+
+
+def launch_forms() -> Dict[Tuple, int]:
+    """Launches per (wrapper, *form) since the last reset."""
+    return {(k.__name__, *form): n for k in KERNELS
+            for form, n in k.forms.items()}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.forms.clear()
 
 
 __all__ = [
     "census_cost",
+    "rank_cost",
     "sad_cost",
     "sgm_paths",
     "sgm_select",
     "median3x3",
     "KERNELS",
     "launch_counts",
+    "launch_forms",
     "reset_launch_counts",
 ]

@@ -35,14 +35,15 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points of the kernel library: argument types (all return int,
 #: the launch's cudaError_t).
 KERNEL_SIGNATURES = {
-    # cl, cr, out, h, w, d, words, md, maxc, stream
-    "stpu_census_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
+    # cl, cr, out, h, w, d, words, combine, md, maxc, stream
+    "stpu_census_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+                         _vp],
     # left, right, out, h, w, d, md, wy, wx, maxc, stream
     "stpu_sad_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
-    # cost, image (NULL: fixed P2), sum, h, w, d, step_y, step_x, p1, p2,
-    # p2_min, grad_floor, accumulate, stream
-    "stpu_sgm_path": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
-                      _ci, _ci, _vp],
+    # cost, cost_bytes, image (NULL: fixed P2), sum, h, w, d, step_y,
+    # step_x, p1, p2, p2_min, grad_floor, accumulate, stream
+    "stpu_sgm_path": [_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+                      _ci, _ci, _ci, _vp],
     # sum, disp, valid, d0 (NULL: not emitted), h, w, d, md, subpixel,
     # uniqueness, uniq_f, lr_check, lr_tau, stream
     "stpu_sgm_select": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci,

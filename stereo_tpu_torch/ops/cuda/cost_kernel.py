@@ -1,24 +1,55 @@
-"""K1 and K5 wrappers: census-Hamming (csrc/census_cost.cu) and SAD
-(csrc/sad_cost.cu) cost volumes.
+"""K1 and K5 wrappers: census-Hamming and rank (csrc/census_cost.cu) and
+SAD (csrc/sad_cost.cu) cost volumes.
 
-K1 replaces ``stereo_tpu/ops/pallas/cost_kernel.py:_cost_kernel_x``; the
-census transform itself stays plain torch, as it stays in XLA on the TPU.
-K5 replaces ``_sad_kernel`` (through ``sad_cost_volume_pallas``).
+K1 replaces ``stereo_tpu/ops/pallas/cost_kernel.py:_cost_kernel_x`` and
+``_cost_kernel`` (D below 128), in their census and rank forms; the census
+and rank transforms themselves stay plain torch, as they stay in XLA on
+the TPU. K5 replaces ``_sad_kernel`` (through ``sad_cost_volume_pallas``).
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from ...config import StereoConfig
-from ..cost import census_cost_from_descriptors, sad_cost_volume
-from .launch import MAX_DISPARITIES, on_cpu, require, require_disparities, run
+from ..cost import (
+    census_cost_from_descriptors,
+    rank_cost_from_descriptors,
+    sad_cost_volume,
+)
+from .launch import count_launch, on_cpu, require, require_disparities, run
+
+#: The kernel's combine of a left and a right descriptor.
+_HAMMING, _ABS_DIFF = 0, 1
+
+
+def _launch_descriptor_cost(dl: torch.Tensor, dr: torch.Tensor, words: int,
+                            combine: int, cfg: StereoConfig) -> torch.Tensor:
+    """K1 on two planes of 32-bit descriptors (int64 or int32 holding the
+    same low 32 bits): [H, W, D] int8."""
+    h, w = dl.shape[:2]
+    d = cfg.num_disparities
+    require_disparities(d)
+    if cfg.min_disparity < 0:
+        raise ValueError("the CUDA cost kernel needs min_disparity >= 0")
+    # Same bits, 32-bit words: int64 -> int32 wraps values >= 2^31.
+    dl32 = dl.to(torch.int32).contiguous()
+    dr32 = dr.to(torch.int32).contiguous()
+    require(dl32, "left descriptors", torch.int32, dl.ndim)
+    require(dr32, "right descriptors", torch.int32, dl.ndim)
+    out = torch.empty((h, w, d), dtype=torch.int8, device=dl.device)
+    run("stpu_census_cost", dl.device, dl32.data_ptr(), dr32.data_ptr(),
+        out.data_ptr(), h, w, d, words, combine, int(cfg.min_disparity),
+        cfg.max_unary_cost)
+    return out
 
 
 def census_cost(cl: torch.Tensor, cr: torch.Tensor, cfg: StereoConfig
                 ) -> torch.Tensor:
     """[H, W, D] int8 cost volume from [H, W, words] int64 census
-    descriptors (``ops.census.census_transform``).
+    descriptors (``ops.census.census_transform``), any D in [1, 256].
 
     CPU tensors take the plain version (``ops.cost``); CUDA tensors launch
     the kernel.
@@ -31,27 +62,40 @@ def census_cost(cl: torch.Tensor, cr: torch.Tensor, cfg: StereoConfig
         return census_cost_from_descriptors(cl, cr, cfg).to(
             cfg.cost_volume_dtype
         )
-    h, w, words = cl.shape
-    d = cfg.num_disparities
-    require_disparities(d)
+    words = cl.shape[2]
     if words != cfg.census_words or words not in (1, 2):
         raise ValueError(f"expected {cfg.census_words} census words, got {words}")
-    if cfg.min_disparity < 0:
-        raise ValueError("the CUDA cost kernel needs min_disparity >= 0")
-    # Same bits, 32-bit words: int64 -> int32 wraps values >= 2^31.
-    cl32 = cl.to(torch.int32).contiguous()
-    cr32 = cr.to(torch.int32).contiguous()
-    require(cl32, "cl", torch.int32, 3)
-    require(cr32, "cr", torch.int32, 3)
-    out = torch.empty((h, w, d), dtype=torch.int8, device=cl.device)
-    run("stpu_census_cost", cl.device, cl32.data_ptr(), cr32.data_ptr(),
-        out.data_ptr(), h, w, d, words, int(cfg.min_disparity),
-        cfg.max_unary_cost)
-    census_cost.launches += 1
+    out = _launch_descriptor_cost(cl, cr, words, _HAMMING, cfg)
+    count_launch(census_cost, *out.shape, words)
     return out
 
 
-census_cost.launches = 0
+census_cost.forms = Counter()
+
+
+def rank_cost(rl: torch.Tensor, rr: torch.Tensor, cfg: StereoConfig
+              ) -> torch.Tensor:
+    """[H, W, D] int8 cost volume |rank_l(x) - rank_r(x - md - d)| from two
+    [H, W] int32 rank maps (``ops.census.rank_transform``), any D in
+    [1, 256]: K1's absolute-difference form.
+
+    CPU tensors take the plain version (``ops.cost``); CUDA tensors launch
+    the kernel.
+    """
+    if rl.shape != rr.shape or rl.ndim != 2:
+        raise ValueError(f"expected two [H, W] rank maps: {rl.shape}, {rr.shape}")
+    if cfg.cost_fn != "rank":
+        raise ValueError(f"rank_cost needs cost_fn='rank', got {cfg.cost_fn}")
+    if on_cpu(rl, rr):
+        return rank_cost_from_descriptors(rl, rr, cfg).to(
+            cfg.cost_volume_dtype
+        )
+    out = _launch_descriptor_cost(rl, rr, 1, _ABS_DIFF, cfg)
+    count_launch(rank_cost, *out.shape)
+    return out
+
+
+rank_cost.forms = Counter()
 
 
 def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
@@ -68,8 +112,7 @@ def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
     h, w = left.shape
     d = cfg.num_disparities
     wy, wx = cfg.sad_window
-    if not 1 <= d <= MAX_DISPARITIES:
-        raise ValueError(f"sad_cost takes D in [1, {MAX_DISPARITIES}], got {d}")
+    require_disparities(d)
     if wy % 2 == 0 or wx % 2 == 0:
         raise ValueError(f"sad_window must be odd, got {cfg.sad_window}")
     if cfg.min_disparity < 0:
@@ -83,8 +126,8 @@ def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
     run("stpu_sad_cost", left.device, l32.data_ptr(), r32.data_ptr(),
         out.data_ptr(), h, w, d, int(cfg.min_disparity), wy, wx,
         cfg.max_unary_cost)
-    sad_cost.launches += 1
+    count_launch(sad_cost, h, w, d, wy, wx)
     return out
 
 
-sad_cost.launches = 0
+sad_cost.forms = Counter()

@@ -5,10 +5,12 @@ Replaces ``stereo_tpu/ops/pallas/filter_kernel.py:_median_kernel``.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from ..postprocess import median_3x3
-from .launch import on_cpu, require, run
+from .launch import count_launch, on_cpu, require, run
 
 
 def median3x3(disp: torch.Tensor) -> torch.Tensor:
@@ -20,8 +22,8 @@ def median3x3(disp: torch.Tensor) -> torch.Tensor:
     h, w = disp.shape
     out = torch.empty_like(disp)
     run("stpu_median3x3", disp.device, disp.data_ptr(), out.data_ptr(), h, w)
-    median3x3.launches += 1
+    count_launch(median3x3, h, w)
     return out
 
 
-median3x3.launches = 0
+median3x3.forms = Counter()

@@ -11,7 +11,8 @@ import torch
 
 from .build import check_launch, load_kernels
 
-#: Disparity counts the kernels take: one warp holds D in 32 lanes.
+#: Most disparities the kernels take: one warp holds D in 32 lanes, up to
+#: 8 to a lane.
 MAX_DISPARITIES = 256
 
 
@@ -40,11 +41,18 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 
 def require_disparities(d: int) -> None:
-    if d % 32 or not 32 <= d <= MAX_DISPARITIES:
+    if not 1 <= d <= MAX_DISPARITIES:
         raise ValueError(
-            f"the CUDA kernels take num_disparities a multiple of 32 in "
-            f"[32, {MAX_DISPARITIES}], got {d}"
+            f"the CUDA kernels take num_disparities in "
+            f"[1, {MAX_DISPARITIES}], got {d}"
         )
+
+
+def count_launch(wrapper, *form) -> None:
+    """Add one to ``wrapper``'s count of kernel launches, under ``form``:
+    the shape and whatever else picks the kernel's instantiation. Called
+    where the wrapper launches its kernel, and nowhere else."""
+    wrapper.forms[form] += 1
 
 
 def run(fn: str, device: torch.device, *args) -> None:

@@ -5,11 +5,14 @@ K2 replaces ``stereo_tpu/ops/pallas/sgm_kernel.py:_h_kernel``,
 ``_v_kernel`` and the path half of ``_v_fused_kernel``, fixed and adaptive
 P2; K3 replaces the selection epilogue of ``_v_fused_kernel`` (its base and
 ``emit_d0`` forms). Together they compute what ``sgm_wta_fused_pallas``
-does, with S materialized once in int16 between them.
+does, with S materialized once in int16 between them; ``sgm_paths`` alone
+is the staged S of ``sgm_aggregate_pallas`` (the pyramid model's residual
+volume at D=16).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -17,7 +20,7 @@ import torch
 from ...config import StereoConfig
 from ..postprocess import select_disparity
 from ..sgm import PATH_STEPS, sgm_aggregate
-from .launch import MAX_DISPARITIES, on_cpu, require, require_disparities, run
+from .launch import count_launch, on_cpu, require, require_disparities, run
 
 
 def _check_int16_bound(cfg: StereoConfig) -> None:
@@ -33,10 +36,10 @@ def _check_int16_bound(cfg: StereoConfig) -> None:
 def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
               image: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[H, W, D] int16 S = sum of the cfg.num_paths (4 or 8) path costs of
-    an int8 cost volume: one kernel launch per direction. With
-    ``cfg.adaptive_p2``, ``image`` ([H, W], the reference view) is required
-    and each step's P2 comes from it. CPU tensors take the plain version
-    (``ops.sgm.sgm_aggregate``)."""
+    an int8 (census, rank) or int16 (SAD) cost volume, any D in [1, 256]:
+    one kernel launch per direction. With ``cfg.adaptive_p2``, ``image``
+    ([H, W], the reference view) is required and each step's P2 comes from
+    it. CPU tensors take the plain version (``ops.sgm.sgm_aggregate``)."""
     if cfg.num_paths not in (4, 8):
         raise ValueError(f"sgm_paths needs 4 or 8 paths, got {cfg.num_paths}")
     if cfg.adaptive_p2 and image is None:
@@ -48,7 +51,9 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
                          f"{tuple(cost.shape[:2])}")
     if on_cpu(*(t for t in (cost, img) if t is not None)):
         return sgm_aggregate(cost, cfg, image=img).to(torch.int16)
-    require(cost, "cost", torch.int8, 3)
+    if cost.dtype not in (torch.int8, torch.int16):
+        raise TypeError(f"cost: expected int8 or int16, got {cost.dtype}")
+    require(cost, "cost", cost.dtype, 3)
     h, w, d = cost.shape
     require_disparities(d)
     img_ptr = None
@@ -58,14 +63,16 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
         img_ptr = img.data_ptr()
     s = torch.empty((h, w, d), dtype=torch.int16, device=cost.device)
     for i, (step_y, step_x) in enumerate(PATH_STEPS[: cfg.num_paths]):
-        run("stpu_sgm_path", cost.device, cost.data_ptr(), img_ptr,
-            s.data_ptr(), h, w, d, step_y, step_x, cfg.p1, cfg.p2,
-            cfg.p2_min, cfg.adaptive_grad_floor, int(i > 0))
-        sgm_paths.launches += 1
+        run("stpu_sgm_path", cost.device, cost.data_ptr(),
+            cost.element_size(), img_ptr, s.data_ptr(), h, w, d, step_y,
+            step_x, cfg.p1, cfg.p2, cfg.p2_min, cfg.adaptive_grad_floor,
+            int(i > 0))
+        count_launch(sgm_paths, h, w, d, str(cost.dtype), cfg.num_paths,
+                     cfg.adaptive_p2)
     return s
 
 
-sgm_paths.launches = 0
+sgm_paths.forms = Counter()
 
 
 def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False
@@ -74,16 +81,18 @@ def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False
     uniqueness, subpixel and the cheap LR check (off with ``lr_exact``),
     median excluded. ``emit_d0`` adds the integer winner lane d0 ([H, W]
     int32, md excluded), the form the exact LR check compares. Any D in
-    [1, 256]. CPU tensors take the plain version
+    [1, 256]; a negative ``min_disparity`` only with the cheap LR check
+    off. CPU tensors take the plain version
     (``ops.postprocess.select_disparity``)."""
     if on_cpu(s):
         return select_disparity(s, cfg, emit_d0=emit_d0)
     require(s, "s", torch.int16, 3)
     h, w, d = s.shape
-    if not 1 <= d <= MAX_DISPARITIES:
-        raise ValueError(f"sgm_select takes D in [1, {MAX_DISPARITIES}], got {d}")
-    if cfg.min_disparity < 0:
-        raise ValueError("the CUDA select kernel needs min_disparity >= 0")
+    require_disparities(d)
+    cheap_lr = cfg.lr_check and not cfg.lr_exact
+    if cfg.min_disparity < 0 and cheap_lr:
+        raise ValueError("the CUDA select kernel takes min_disparity < 0 "
+                         "only with the cheap LR check off")
     disp = torch.empty((h, w), dtype=torch.float32, device=s.device)
     valid = torch.empty((h, w), dtype=torch.bool, device=s.device)
     d0 = (torch.empty((h, w), dtype=torch.int32, device=s.device)
@@ -92,9 +101,10 @@ def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False
         valid.data_ptr(), None if d0 is None else d0.data_ptr(), h, w, d,
         int(cfg.min_disparity), int(cfg.subpixel),
         int(cfg.uniqueness_ratio > 0), 1.0 + cfg.uniqueness_ratio,
-        int(cfg.lr_check and not cfg.lr_exact), cfg.lr_tau)
-    sgm_select.launches += 1
+        int(cheap_lr), cfg.lr_tau)
+    count_launch(sgm_select, h, w, d, int(cfg.min_disparity), cfg.subpixel,
+                 cfg.uniqueness_ratio > 0, cheap_lr, emit_d0)
     return (disp, valid) if d0 is None else (disp, valid, d0)
 
 
-sgm_select.launches = 0
+sgm_select.forms = Counter()

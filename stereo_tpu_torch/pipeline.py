@@ -1,8 +1,8 @@
 """End-to-end stereo pipeline on whole frames.
 
 On CUDA tensors ``compute_disparity`` runs the hand-written kernels in
-order: the cost volume (K1 after the census transform, which stays plain
-torch as it stays in XLA on the TPU, or K5 for SAD), K2 once per path
+order: the cost volume (K1 after the census or rank transform, which stays
+plain torch as it stays in XLA on the TPU, or K5 for SAD), K2 once per path
 direction (skipped for ``num_paths=0``), K3 selection, K4 median. With
 ``lr_exact`` the flipped pair runs the same chain a second time for the
 right view's integer winners, and the consistency compare runs in plain
@@ -20,9 +20,16 @@ import numpy as np
 import torch
 
 from .config import StereoConfig
-from .ops import census_transform, wta_with_aux
+from .ops import census_transform, rank_transform, wta_with_aux
 from .ops.cost import cost_volume
-from .ops.cuda import census_cost, median3x3, sad_cost, sgm_paths, sgm_select
+from .ops.cuda import (
+    census_cost,
+    median3x3,
+    rank_cost,
+    sad_cost,
+    sgm_paths,
+    sgm_select,
+)
 from .ops.postprocess import apply_postprocess, lr_consistency
 from .ops.sgm import sgm_aggregate
 
@@ -35,7 +42,8 @@ class StereoResult(NamedTuple):
     valid: torch.Tensor
 
 
-def _use_kernels(cfg: StereoConfig, device: torch.device) -> bool:
+def use_kernels(cfg: StereoConfig, device: torch.device) -> bool:
+    """Whether ``cfg.backend`` sends tensors on ``device`` to the kernels."""
     if cfg.backend == "torch":
         return False
     if cfg.backend == "cuda":
@@ -45,47 +53,34 @@ def _use_kernels(cfg: StereoConfig, device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def _check_supported(cfg: StereoConfig, framed: bool) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for modes the
-    port does not have yet."""
-    if framed:
-        raise NotImplementedError(
-            "tiles, patches and masked frames (valid, constrain, x_offset, "
-            "image_width, y_offset, image_height, right_context) are not "
-            "ported yet (ROADMAP Queue 1: multi-GPU, tiles, patches and "
-            "framing)"
-        )
-    if cfg.cost_fn not in ("census", "sad"):
-        raise NotImplementedError(
-            f"cost_fn={cfg.cost_fn!r} is not ported yet (ROADMAP Queue 1: "
-            "rank ops)"
-        )
-
-
 def _kernel_view(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
                  emit_d0: bool = False):
-    """One reference view through the kernels: cost volume (K1 or K5), K2
-    per direction (S is the cost itself for num_paths=0), K3. Returns
-    ``sgm_select``'s outputs."""
+    """One reference view through the kernels: cost volume (K1 or K5),
+    then ``kernel_select``."""
     if cfg.cost_fn == "sad":
         cost = sad_cost(ref, tgt, cfg)
+    elif cfg.cost_fn == "rank":
+        cost = rank_cost(rank_transform(ref, cfg.census_window),
+                         rank_transform(tgt, cfg.census_window), cfg)
     else:
         cost = census_cost(census_transform(ref, cfg.census_window),
                            census_transform(tgt, cfg.census_window), cfg)
+    return kernel_select(cost, cfg, ref, emit_d0=emit_d0)
+
+
+def kernel_select(cost: torch.Tensor, cfg: StereoConfig, image: torch.Tensor,
+                  emit_d0: bool = False):
+    """K2 per direction on a cost volume (S is the cost itself for
+    num_paths=0), then K3. Returns ``sgm_select``'s outputs."""
     if cfg.num_paths == 0:
         s = cost.to(torch.int16)
     else:
-        s = sgm_paths(cost, cfg, image=ref)
+        s = sgm_paths(cost, cfg, image=image)
     return sgm_select(s, cfg, emit_d0=emit_d0)
 
 
 def _kernel_path(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
                  ) -> StereoResult:
-    if cfg.cost_fn == "sad" and cfg.num_paths > 0:
-        raise NotImplementedError(
-            "SAD costs through SGM on CUDA are not ported yet (ROADMAP "
-            "Queue 2: int16 cost volumes in K2); SAD with num_paths=0 runs"
-        )
     if cfg.lr_check and cfg.lr_exact:
         # As the reference's fused lr_exact: the left view keeps its
         # uniqueness gate and integer winners; the flipped pair gives the
@@ -146,8 +141,14 @@ def compute_disparity(
         or image_width not in (None, left.shape[1]) or y_offset != 0
         or image_height is not None or right_context != 0
     )
-    _check_supported(cfg, framed)
-    if _use_kernels(cfg, left.device):
+    if framed:
+        raise NotImplementedError(
+            "tiles, patches and masked frames (valid, constrain, x_offset, "
+            "image_width, y_offset, image_height, right_context) are not "
+            "ported yet (ROADMAP Queue 1: multi-GPU, tiles, patches and "
+            "framing)"
+        )
+    if use_kernels(cfg, left.device):
         return _kernel_path(left, right, cfg)
 
     s = _aggregate(left, right, cfg)
@@ -180,17 +181,14 @@ def build_pipeline(cfg: StereoConfig, device="cuda"):
 
 
 def host_postprocess(disp, valid, cfg: StereoConfig):
-    """Host-side (numpy) speckle removal after device compute.
+    """Host-side (numpy) post-filters after device compute.
 
-    The speckle size is ``max(speckle_max_size, round(speckle_rel * H*W))``
-    as in the reference; the filter is the reference's C++ (``native``).
-    Returns numpy (disp, valid).
+    Speckle removal with size ``max(speckle_max_size, round(speckle_rel *
+    H*W))``, then, with ``cfg.fill_occlusions``, each invalid pixel takes
+    the smaller of its nearest valid row neighbours and counts as an
+    estimate; both are the reference's C++ (``native``). Returns numpy
+    (disp, valid).
     """
-    if cfg.fill_occlusions:
-        raise NotImplementedError(
-            "fill_occlusions is not ported yet (ROADMAP Queue 1: eval/hard "
-            "suite, rest of host_postprocess)"
-        )
     if isinstance(disp, torch.Tensor):
         disp = disp.cpu().numpy()
     if isinstance(valid, torch.Tensor):
@@ -205,4 +203,9 @@ def host_postprocess(disp, valid, cfg: StereoConfig):
         from .native import filter_speckles
 
         disp, valid, _ = filter_speckles(disp, valid, cfg.speckle_tau, speckle)
+    if cfg.fill_occlusions:
+        from .native import fill_invalid_lr
+
+        disp, filled = fill_invalid_lr(disp, valid)
+        valid = valid | filled
     return disp, valid

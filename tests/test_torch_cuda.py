@@ -6,7 +6,8 @@ with the card (which has no jax, so tests/conftest.py cannot load):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Shapes are small and ragged (widths not a multiple of the 128-column tile,
-every supported D class); every comparison is exact.
+odd frame sizes, D from 1 to 256 including counts that fill no whole warp
+or lane); every comparison is exact.
 """
 
 import numpy as np
@@ -16,15 +17,19 @@ import torch
 from stereo_tpu_torch import (
     KITTI_SGM8_128,
     KITTI_SGM8_128_QUALITY,
+    MIDDLEBURY_CENSUS_SGM4_64,
     TSUKUBA_SAD16,
     build_pipeline,
 )
 from stereo_tpu_torch.config import StereoConfig
 from stereo_tpu_torch.data import make_pair
+from stereo_tpu_torch.models import get_model
 from stereo_tpu_torch.ops import (
     census_cost_volume,
     census_transform,
     median_3x3,
+    rank_cost_volume,
+    rank_transform,
     sad_cost_volume,
     select_disparity,
     sgm_aggregate,
@@ -32,7 +37,9 @@ from stereo_tpu_torch.ops import (
 from stereo_tpu_torch.ops.cuda import (
     census_cost,
     launch_counts,
+    launch_forms,
     median3x3,
+    rank_cost,
     reset_launch_counts,
     sad_cost,
     sgm_paths,
@@ -58,7 +65,9 @@ def _images(seed, h, w, dev):
 @pytest.mark.parametrize(
     "d, md, window, h, w",
     [(32, 0, (5, 5), 7, 130), (64, 3, (9, 7), 9, 257),
-     (128, 0, (9, 7), 16, 300), (256, 5, (7, 7), 5, 400)],
+     (128, 0, (9, 7), 16, 300), (256, 5, (7, 7), 5, 400),
+     (16, 0, (5, 5), 47, 155), (64, 0, (9, 7), 47, 155), (1, 0, (9, 7), 5, 131),
+     (33, 2, (5, 5), 6, 140), (255, 1, (9, 7), 3, 260)],
 )
 def test_census_cost_kernel(dev, d, md, window, h, w):
     cfg = StereoConfig(census_window=window, num_disparities=d,
@@ -72,15 +81,49 @@ def test_census_cost_kernel(dev, d, md, window, h, w):
     assert torch.equal(got.to(torch.int32), want)
 
 
+@pytest.mark.parametrize(
+    "d, md, window, h, w",
+    [(128, 0, (9, 7), 16, 300), (16, 0, (5, 5), 47, 155),
+     (64, 3, (9, 7), 47, 155), (1, 0, (3, 3), 5, 131), (33, 2, (9, 7), 6, 140)],
+)
+def test_rank_cost_kernel(dev, d, md, window, h, w):
+    cfg = StereoConfig(cost_fn="rank", census_window=window,
+                       num_disparities=d, min_disparity=md)
+    left, right = _images(d, h, w, dev)
+    got = rank_cost(rank_transform(left, window),
+                    rank_transform(right, window), cfg)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8
+    assert torch.equal(got.to(torch.int32), rank_cost_volume(left, right, cfg))
+
+
 @pytest.mark.parametrize("paths", [4, 8])
 @pytest.mark.parametrize("d, h, w", [(32, 13, 29), (128, 21, 140),
-                                     (256, 6, 300), (96, 40, 7)])
+                                     (256, 6, 300), (96, 40, 7),
+                                     (16, 47, 155), (64, 47, 155),
+                                     (1, 9, 12), (33, 11, 37), (100, 7, 45),
+                                     (250, 5, 33)])
 def test_sgm_paths_kernel(dev, paths, d, h, w):
     cfg = StereoConfig(census_window=(9, 7), num_disparities=d,
                        num_paths=paths, p1=14, p2=120)
     rng = np.random.default_rng(paths + d)
     cost = torch.from_numpy(rng.integers(0, 63, size=(h, w, d),
                                          dtype=np.int8)).to(dev)
+    got = sgm_paths(cost, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sgm_aggregate(cost, cfg).to(torch.int16))
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+@pytest.mark.parametrize("d, h, w", [(128, 21, 140), (16, 47, 155),
+                                     (33, 11, 37)])
+def test_sgm_paths_int16_cost_kernel(dev, paths, d, h, w):
+    # SAD costs reach 255: int16 in, and 8 * (255 + 120) < 2^15.
+    cfg = StereoConfig(cost_fn="sad", num_disparities=d, num_paths=paths,
+                       p1=14, p2=120)
+    rng = np.random.default_rng(paths + d)
+    cost = torch.from_numpy(rng.integers(0, 256, size=(h, w, d),
+                                         dtype=np.int16)).to(dev)
     got = sgm_paths(cost, cfg)
     torch.cuda.synchronize()
     assert torch.equal(got, sgm_aggregate(cost, cfg).to(torch.int16))
@@ -125,9 +168,16 @@ def test_pipeline_runs_the_kernels(dev):
     reset_launch_counts()
     got = build_pipeline(cfg, dev)(pair.left, pair.right)
     torch.cuda.synchronize()
-    assert launch_counts() == {"census_cost": 1, "sad_cost": 0,
-                               "sgm_paths": 8, "sgm_select": 1,
-                               "median3x3": 1}
+    assert launch_counts() == {"census_cost": 1, "rank_cost": 0,
+                               "sad_cost": 0, "sgm_paths": 8,
+                               "sgm_select": 1, "median3x3": 1}
+    # by form: the shape and what picks the kernel's instantiation
+    assert launch_forms() == {
+        ("census_cost", 48, 160, 32, 2): 1,
+        ("sgm_paths", 48, 160, 32, "torch.int8", 8, False): 8,
+        ("sgm_select", 48, 160, 32, 0, True, True, True, False): 1,
+        ("median3x3", 48, 160): 1,
+    }
     want = build_pipeline(cfg.replace(backend="torch"), dev)(
         pair.left, pair.right)
     assert torch.equal(got.valid, want.valid)
@@ -138,7 +188,7 @@ def test_pipeline_runs_the_kernels(dev):
     "paths, floor, p2_min", [(4, 0, 30), (8, 12, 30), (8, 3, 200)]
 )
 @pytest.mark.parametrize("d, h, w", [(32, 13, 29), (128, 21, 140),
-                                     (64, 40, 7)])
+                                     (64, 40, 7), (16, 47, 155), (33, 11, 37)])
 def test_sgm_paths_adaptive_kernel(dev, paths, floor, p2_min, d, h, w):
     # Every direction of 8 paths on ragged shapes; p2_min=200 > p2.
     cfg = StereoConfig(num_disparities=d, num_paths=paths, p1=14, p2=120,
@@ -191,7 +241,27 @@ def test_sgm_select_partial_disparities(dev, d, kw):
     assert torch.equal(disp, want_disp)
 
 
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [1, 16, 33])
+@pytest.mark.parametrize("kw", [dict(), dict(subpixel=False,
+                                             uniqueness_ratio=0.0)])
+def test_sgm_select_negative_origin(dev, d, kw):
+    # The pyramid's residual pass: min_disparity = -R/2, cheap LR off.
+    cfg = KITTI_SGM8_128.replace(num_disparities=d, min_disparity=-8,
+                                 lr_check=False, **kw)
+    rng = np.random.default_rng(d)
+    s = torch.from_numpy(rng.integers(0, 300, size=(47, 155, d),
+                                      dtype=np.int16)).to(dev)
+    disp, valid = sgm_select(s, cfg)
+    torch.cuda.synchronize()
+    want_disp, want_valid = select_disparity(s, cfg)
+    assert torch.equal(valid, want_valid)
+    assert torch.equal(disp, want_disp)
+    assert float(disp.min()) < 0
+    with pytest.raises(ValueError, match="cheap LR"):
+        sgm_select(s, cfg.replace(lr_check=True))
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("md", [0, 3])
 @pytest.mark.parametrize("window, h, w", [((9, 9), 19, 70), ((5, 7), 6, 33)])
 def test_sad_cost_kernel(dev, d, md, window, h, w):
@@ -216,8 +286,17 @@ def test_sad_cost_kernel(dev, d, md, window, h, w):
         (KITTI_SGM8_128_QUALITY.replace(num_disparities=32, lr_exact=True),
          dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=1)),
         (TSUKUBA_SAD16, dict(sad_cost=1, sgm_select=1, median3x3=1)),
+        (MIDDLEBURY_CENSUS_SGM4_64,
+         dict(census_cost=1, sgm_paths=4, sgm_select=1, median3x3=1)),
+        (KITTI_SGM8_128.replace(num_disparities=48, cost_fn="rank"),
+         dict(rank_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
+        (KITTI_SGM8_128.replace(num_disparities=16),
+         dict(census_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
+        (KITTI_SGM8_128.replace(num_disparities=32, cost_fn="sad"),
+         dict(sad_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
     ],
-    ids=["paths0", "quality", "lr_exact", "quality_lr_exact", "tsukuba"],
+    ids=["paths0", "quality", "lr_exact", "quality_lr_exact", "tsukuba",
+         "middlebury", "rank_d48", "d16", "sad_sgm"],
 )
 def test_slice_paths_run_the_kernels(dev, cfg, counts):
     pair = make_pair((48, 160), max_disp=14, texture="cloud", seed=5)
@@ -233,15 +312,52 @@ def test_slice_paths_run_the_kernels(dev, cfg, counts):
     assert torch.equal(got.disp, want.disp)
 
 
-def test_sad_through_sgm_is_not_ported(dev):
-    img = torch.zeros((8, 40), dtype=torch.uint8, device=dev)
-    cfg = TSUKUBA_SAD16.replace(num_paths=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_pipeline(cfg, dev)(img, img)
+@pytest.mark.parametrize("shape", [(96, 160), (75, 121)])
+@pytest.mark.parametrize(
+    "cfg, mkw",
+    [(KITTI_SGM8_128.replace(num_disparities=32), dict()),
+     (KITTI_SGM8_128.replace(num_disparities=32),
+      dict(census_window=(5, 5))),
+     (KITTI_SGM8_128_QUALITY.replace(num_disparities=32),
+      dict(census_window=(5, 5), residual_range=8))],
+    ids=["9x7", "5x5", "quality_r8"],
+)
+def test_pyramid_model_runs_the_kernels(dev, shape, cfg, mkw):
+    # Coarse pass K1 K2x8 K3 K4, residual pass K2x8 (D = R, md = -R/2) K3 K4.
+    pair = make_pair(shape, max_disp=24, texture="cloud", seed=1)
+    reset_launch_counts()
+    got = get_model("pyramid", cfg=cfg, **mkw).build(dev)(pair.left,
+                                                          pair.right)
+    torch.cuda.synchronize()
+    want_counts = dict.fromkeys(launch_counts(), 0)
+    want_counts.update(census_cost=1, sgm_paths=16, sgm_select=2, median3x3=2)
+    assert launch_counts() == want_counts
+    want = get_model("pyramid", cfg=cfg.replace(backend="torch"),
+                     **mkw).build(dev)(pair.left, pair.right)
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.disp, want.disp)
+
+
+def test_block_matching_model_runs_the_kernels(dev):
+    pair = make_pair((48, 160), max_disp=14, texture="cloud", seed=5)
+    reset_launch_counts()
+    model = get_model("block_matching")
+    got = model.build(dev)(pair.left, pair.right)
+    torch.cuda.synchronize()
+    want_counts = dict.fromkeys(launch_counts(), 0)
+    want_counts.update(sad_cost=1, sgm_select=1, median3x3=1)
+    assert launch_counts() == want_counts
+    want = build_pipeline(model.cfg.replace(backend="torch"), dev)(
+        pair.left, pair.right)
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.disp, want.disp)
 
 
 def test_kernels_reject_unsupported_disparities(dev):
-    cfg = StereoConfig(num_disparities=48)
-    cost = torch.zeros((4, 8, 48), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    cfg = StereoConfig(num_disparities=288)
+    cost = torch.zeros((4, 8, 288), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match=r"\[1, 256\]"):
         sgm_paths(cost, cfg)
+    with pytest.raises(TypeError, match="int8 or int16"):
+        sgm_paths(cost[:, :, :32].contiguous().to(torch.int32),
+                  cfg.replace(num_disparities=32))

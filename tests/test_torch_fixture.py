@@ -1,9 +1,21 @@
 """The full-size fixtures that the port's GPU run must reproduce, tied to
-the reference package, and the port's independence from jax."""
+the reference package, and the port's independence from jax.
+
+The fixtures under ``stereo_tpu_torch/testdata`` are made by this file from
+the reference's golden path (``backend="jnp"`` on the CPU):
+
+    python tests/test_torch_fixture.py            # every fixture
+    python tests/test_torch_fixture.py NAME ...   # the named ones
+
+A slice fixture holds hashes of ``disp``/``valid`` before and after
+``host_postprocess``, counts and metrics of one frame; the hard-suite
+fixtures hold the aggregated rows.
+"""
 
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -12,46 +24,126 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_tpu import data as jdata
-from stereo_tpu.config import KITTI_SGM8_128, PRESETS
-from stereo_tpu.data import kitti_like_pair
-from stereo_tpu.eval.metrics import evaluate_disparity
-from stereo_tpu.pipeline.pipeline import build_pipeline, host_postprocess
-from stereo_tpu_torch import data as tdata
+ROOT = Path(__file__).resolve().parents[1]
+if __name__ == "__main__":  # run as a script: the CPU backend, as conftest
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, str(ROOT))
+
+from stereo_tpu import data as jdata  # noqa: E402
+from stereo_tpu.config import KITTI_SGM8_128, PRESETS  # noqa: E402
+from stereo_tpu.data import kitti_like_pair  # noqa: E402
+from stereo_tpu.eval import hard_suite as jsuite  # noqa: E402
+from stereo_tpu.eval.metrics import evaluate_disparity  # noqa: E402
+from stereo_tpu.models import get_model  # noqa: E402
+from stereo_tpu.pipeline.pipeline import host_postprocess  # noqa: E402
+from stereo_tpu_torch import PRESETS as TPRESETS  # noqa: E402
+from stereo_tpu_torch import data as tdata  # noqa: E402
+from stereo_tpu_torch.eval import hard_suite as tsuite  # noqa: E402
 
 torch.set_num_threads(1)
 
-ROOT = Path(__file__).resolve().parents[1]
 TESTDATA = ROOT / "stereo_tpu_torch" / "testdata"
 FIXTURE = TESTDATA / "kitti_sgm8_128_seed0.json"
 
-#: The slice fixtures: name -> the pair each was made on, from either
-#: package's data module (chip_smoke.py builds the same pairs).
+
+def _kitti(data):
+    return data.kitti_like_pair(seed=0)
+
+
+def _shapes_pair(shape, max_disp):
+    return lambda data: data.make_pair(shape, max_disp=max_disp, kind="shapes",
+                                       texture="cloud", seed=0)
+
+
+#: The slice fixtures whose golden run is repeated by the tests: name ->
+#: the pair each was made on, from either package's data module
+#: (chip_smoke.py builds the same pairs).
 SLICE_PAIRS = {
-    "kitti_sgm8_128_quality": lambda data: data.kitti_like_pair(seed=0),
-    "kitti_sgm8_128_lr_exact": lambda data: data.kitti_like_pair(seed=0),
-    "tsukuba_sad16": lambda data: data.make_pair(
-        (288, 384), max_disp=14, kind="shapes", texture="cloud", seed=0),
+    "kitti_sgm8_128_quality": _kitti,
+    "kitti_sgm8_128_lr_exact": _kitti,
+    "tsukuba_sad16": _shapes_pair((288, 384), 14),
+    "middlebury_census_sgm4_64": _shapes_pair((555, 900), 48),
+    "kitti_sgm8_128_pyramid55": _kitti,
+    "kitti_sgm8_128_quality_pyramid55": _kitti,
+    "kitti_sgm8_128_rank": _kitti,
 }
+
+#: Every slice fixture: name -> (preset, config overrides, model, model
+#: keyword arguments, pair, the pair's description).
+SLICES = {
+    "kitti_sgm8_128": ("kitti_sgm8_128", {}, "classic", {}, _kitti,
+                       "kitti_like_pair(seed=0)"),
+    "kitti_sgm8_128_quality": ("kitti_sgm8_128_quality", {}, "classic", {},
+                               _kitti, "kitti_like_pair(seed=0)"),
+    "kitti_sgm8_128_lr_exact": ("kitti_sgm8_128", {"lr_exact": True},
+                                "classic", {}, _kitti,
+                                "kitti_like_pair(seed=0)"),
+    "tsukuba_sad16": ("tsukuba_sad16", {}, "classic", {},
+                      _shapes_pair((288, 384), 14),
+                      "make_pair((288, 384), max_disp=14, kind='shapes', "
+                      "texture='cloud', seed=0)"),
+    "middlebury_census_sgm4_64": (
+        "middlebury_census_sgm4_64", {}, "classic", {},
+        _shapes_pair((555, 900), 48),
+        "make_pair((555, 900), max_disp=48, kind='shapes', texture='cloud', "
+        "seed=0)"),
+    "kitti_sgm8_128_pyramid55": ("kitti_sgm8_128", {}, "pyramid",
+                                 {"census_window": [5, 5]}, _kitti,
+                                 "kitti_like_pair(seed=0)"),
+    "kitti_sgm8_128_quality_pyramid55": (
+        "kitti_sgm8_128_quality", {}, "pyramid", {"census_window": [5, 5]},
+        _kitti, "kitti_like_pair(seed=0)"),
+    "kitti_sgm8_128_rank": ("kitti_sgm8_128", {"cost_fn": "rank"}, "classic",
+                            {}, _kitti, "kitti_like_pair(seed=0)"),
+}
+
+#: The hard-suite fixtures: the reference bench's suite-scale sweep.
+SUITE_FIXTURE = TESTDATA / "hard_suite_kitti_sgm8_128_quality.json"
+SUITE = dict(preset="kitti_sgm8_128_quality", shape=[160, 288],
+             seeds=[0, 1, 2])
+ROBUSTNESS_FIXTURE = TESTDATA / "census_vs_sad_kitti_sgm8_128.json"
+ROBUSTNESS = dict(preset="kitti_sgm8_128", shape=[160, 288], seeds=[0])
+
+SLICE_KEYS = {"source", "preset", "overrides", "model", "model_kwargs", "pair",
+              "shape", "hash", "disp", "valid", "n_valid", "post_disp",
+              "post_valid", "post_n_valid", "bad3", "density"}
 
 
 def _hash(a) -> str:
     return hashlib.sha256(np.asarray(a).tobytes()).hexdigest()[:16]
 
 
+def _model_kwargs(fx: dict) -> dict:
+    """JSON lists back to the tuples the models take."""
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in fx.get("model_kwargs", {}).items()}
+
+
+def _golden_record(cfg, pair, model="classic", model_kwargs=None) -> dict:
+    """Hashes, counts and metrics of the JAX golden path on ``pair``,
+    before and after host_postprocess."""
+    fn = get_model(model, cfg=cfg.replace(backend="jnp"),
+                   **(model_kwargs or {})).build()
+    res = fn(pair.left, pair.right)
+    disp, valid = np.asarray(res.disp), np.asarray(res.valid)
+    pdisp, pvalid = host_postprocess(disp, valid, cfg)
+    m = evaluate_disparity(pdisp, pair.gt_disp, pair.gt_valid, pvalid)
+    return dict(
+        shape=list(pair.left.shape), disp=_hash(disp), valid=_hash(valid),
+        n_valid=int(valid.sum()), post_disp=_hash(pdisp),
+        post_valid=_hash(pvalid), post_n_valid=int(pvalid.sum()),
+        bad3=m["bad3"], density=m["density"],
+    )
+
+
 def _check_golden(fx: dict, cfg, pair) -> None:
     """The JAX golden path on ``pair`` gives the hashes, counts and
     metrics stored in ``fx``, before and after host_postprocess."""
-    assert list(pair.left.shape) == fx["shape"]
-    res = build_pipeline(cfg.replace(backend="jnp"))(pair.left, pair.right)
-    disp, valid = np.asarray(res.disp), np.asarray(res.valid)
-    assert (_hash(disp), _hash(valid)) == (fx["disp"], fx["valid"])
-    assert int(valid.sum()) == fx["n_valid"]
-    pdisp, pvalid = host_postprocess(disp, valid, cfg)
-    assert (_hash(pdisp), _hash(pvalid)) == (fx["post_disp"], fx["post_valid"])
-    assert int(pvalid.sum()) == fx["post_n_valid"]
-    m = evaluate_disparity(pdisp, pair.gt_disp, pair.gt_valid, pvalid)
-    assert m["bad3"] == fx["bad3"] and m["density"] == fx["density"]
+    got = _golden_record(cfg, pair, fx.get("model", "classic"),
+                         _model_kwargs(fx))
+    assert got == {k: fx[k] for k in got}
 
 
 def test_reference_reproduces_fixture():
@@ -62,8 +154,9 @@ def test_reference_reproduces_fixture():
 
 @pytest.mark.parametrize("name", sorted(SLICE_PAIRS))
 def test_reference_reproduces_slice_fixture(name):
-    """The quality preset and the exact LR check at 375x1242, D=128, and
-    tsukuba_sad16 at 288x384, D=16, give the stored hashes."""
+    """The quality preset, the exact LR check, the rank cost and the
+    pyramid model at 375x1242, D=128, the Middlebury preset at 555x900,
+    D=64, and tsukuba_sad16 at 288x384, D=16, give the stored hashes."""
     fx = json.loads((TESTDATA / f"{name}_seed0.json").read_text())
     cfg = PRESETS[fx["preset"]].replace(**fx.get("overrides", {}))
     _check_golden(fx, cfg, SLICE_PAIRS[name](jdata))
@@ -78,11 +171,70 @@ def test_port_data_matches_reference(name):
                                       getattr(want, field))
 
 
+@pytest.mark.parametrize("name", sorted(SLICES))
+def test_slice_fixture_is_well_formed(name):
+    """Every slice fixture names a preset and a model of both packages,
+    the pair's shape and all the hashes the GPU run compares."""
+    fx = json.loads((TESTDATA / f"{name}_seed0.json").read_text())
+    preset, overrides, model, mkw, pair, _ = SLICES[name]
+    assert set(fx) <= SLICE_KEYS and SLICE_KEYS - set(fx) <= {
+        "overrides", "model", "model_kwargs"}
+    assert fx["preset"] == preset and fx["preset"] in TPRESETS
+    assert fx.get("overrides", {}) == overrides
+    assert fx.get("model", "classic") == model
+    assert fx.get("model_kwargs", {}) == mkw
+    assert fx["shape"] == list(pair(tdata).left.shape)
+    for key in ("disp", "valid", "post_disp", "post_valid"):
+        assert re.fullmatch(r"[0-9a-f]{16}", fx[key])
+    h, w = fx["shape"]
+    assert 0 < fx["post_n_valid"] <= fx["n_valid"] <= h * w
+    assert 0.0 <= fx["bad3"] < 0.1 and 0.5 < fx["density"] <= 1.0
+
+
+def test_hard_suite_fixture_is_well_formed():
+    """Ten scenario rows of three pairs each, with both score sets."""
+    fx = json.loads(SUITE_FIXTURE.read_text())
+    assert {k: fx[k] for k in SUITE} == SUITE
+    assert [r["scenario"] for r in fx["rows"]] == list(tsuite.SCENARIOS)
+    for row in fx["rows"]:
+        assert row["n_pairs"] == 3
+        assert {"bad3_noc", "density_noc", "bad3_all", "density_all"} <= set(row)
+    rb = json.loads(ROBUSTNESS_FIXTURE.read_text())
+    assert {k: rb[k] for k in ROBUSTNESS} == ROBUSTNESS
+    assert set(rb["rows"]) == {"census", "sad"}
+    assert rb["rows"]["census"]["bad3_noc"] < rb["rows"]["sad"]["bad3_noc"]
+
+
+def test_reference_reproduces_suite_fixtures():
+    """The JAX golden path gives the stored hard-suite and robustness rows."""
+    fx = json.loads(SUITE_FIXTURE.read_text())
+    assert fx["rows"] == jsuite.run_hard_suite(
+        PRESETS[fx["preset"]].replace(backend="jnp"),
+        shape=tuple(fx["shape"]), seeds=tuple(fx["seeds"]))
+    rb = json.loads(ROBUSTNESS_FIXTURE.read_text())
+    assert rb["rows"] == jsuite.census_vs_sad_robustness(
+        PRESETS[rb["preset"]].replace(backend="jnp"),
+        shape=tuple(rb["shape"]), seeds=tuple(rb["seeds"]))
+
+
+def test_port_cpu_path_reproduces_robustness_fixture():
+    """The smallest fixture (two 160x288 pairs at D=128, census and SAD
+    through 8-path SGM) on the port's CPU path, row for row."""
+    rb = json.loads(ROBUSTNESS_FIXTURE.read_text())
+    got = tsuite.census_vs_sad_robustness(
+        TPRESETS[rb["preset"]], shape=tuple(rb["shape"]),
+        seeds=tuple(rb["seeds"]), device="cpu")
+    assert got == rb["rows"]
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, stereo_tpu_torch\n"
         "stereo_tpu_torch.build_pipeline\n"
         "import stereo_tpu_torch.cli, stereo_tpu_torch.native\n"
+        "import stereo_tpu_torch.models, stereo_tpu_torch.eval.hard_suite\n"
+        "import stereo_tpu_torch.eval.harness, stereo_tpu_torch.utils.viz\n"
+        "import chip_smoke, profile_paths\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stereo_tpu')]\n"
         "assert not bad, bad\n"
@@ -91,3 +243,84 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _port_sources():
+    return [ROOT / "chip_smoke.py", ROOT / "profile_paths.py",
+            *sorted((ROOT / "stereo_tpu_torch").rglob("*.py")),
+            *sorted((ROOT / "stereo_tpu_torch" / "csrc").iterdir())]
+
+
+def _code_lines(path: Path):
+    """Lines of ``path`` outside comments and docstrings (which may cite
+    the reference's counterpart by file and line)."""
+    text = path.read_text()
+    if path.suffix == ".py":
+        text = re.sub(r'("""|\'\'\')[\s\S]*?\1', "", text)
+        return [ln.split("#", 1)[0] for ln in text.splitlines()]
+    text = re.sub(r"/\*[\s\S]*?\*/", "", text)
+    return [ln.split("//", 1)[0] for ln in text.splitlines()]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_no_reference_path(path):
+    """No port file imports jax or the reference package, or builds a path
+    into ``stereo_tpu/``: the port keeps its own copy of what it needs. A
+    ``file.py:line`` citation of the kernel a port kernel replaces names no
+    file that could be opened, and is allowed."""
+    bad = [
+        ln for ln in _code_lines(path)
+        if re.search(r"^\s*(import|from)\s+(jax|jaxlib|stereo_tpu)\b", ln)
+        or re.search(r"stereo_tpu(?!_torch)\b",
+                     re.sub(r"stereo_tpu/[\w/]+\.py:\d+", "", ln))
+    ]
+    assert not bad, bad
+
+
+def _write(path: Path, record: dict) -> None:
+    path.write_text(json.dumps(record, indent=2) + "\n")
+    print(f"wrote {path.relative_to(ROOT)}")
+
+
+def write_fixtures(names) -> None:
+    """Make the named fixtures (all when none is named) from the JAX
+    golden path and store them under ``stereo_tpu_torch/testdata``."""
+    names = list(names) or [*SLICES, "hard_suite", "census_vs_sad"]
+    for name in names:
+        if name == "hard_suite":
+            rows = jsuite.run_hard_suite(
+                PRESETS[SUITE["preset"]].replace(backend="jnp"),
+                shape=tuple(SUITE["shape"]), seeds=tuple(SUITE["seeds"]))
+            _write(SUITE_FIXTURE, dict(
+                source="stereo_tpu run_hard_suite(backend='jnp')", **SUITE,
+                rows=rows))
+        elif name == "census_vs_sad":
+            rows = jsuite.census_vs_sad_robustness(
+                PRESETS[ROBUSTNESS["preset"]].replace(backend="jnp"),
+                shape=tuple(ROBUSTNESS["shape"]),
+                seeds=tuple(ROBUSTNESS["seeds"]))
+            _write(ROBUSTNESS_FIXTURE, dict(
+                source="stereo_tpu census_vs_sad_robustness(backend='jnp')",
+                **ROBUSTNESS, rows=rows))
+        else:
+            preset, overrides, model, mkw, pair, pair_text = SLICES[name]
+            cfg = PRESETS[preset].replace(**overrides)
+            fx = dict(
+                source="stereo_tpu get_model(model, cfg(backend='jnp')) + "
+                       "host_postprocess + evaluate_disparity",
+                preset=preset, pair=pair_text,
+                hash="sha256(array.tobytes()).hexdigest()[:16]",
+                **_golden_record(cfg, pair(jdata), model,
+                                 _model_kwargs({"model_kwargs": mkw})))
+            if overrides:
+                fx["overrides"] = overrides
+            if model != "classic":
+                fx["model"] = model
+            if mkw:
+                fx["model_kwargs"] = mkw
+            _write(TESTDATA / f"{name}_seed0.json", fx)
+
+
+if __name__ == "__main__":
+    write_fixtures(sys.argv[1:])

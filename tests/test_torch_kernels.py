@@ -13,24 +13,34 @@ import pytest
 import torch
 
 from stereo_tpu.config import StereoConfig as JCfg
+from stereo_tpu import ops as jops
+from stereo_tpu.ops.cost import rank_cost_volume as j_rank_cost_volume
 from stereo_tpu.ops.pallas.cost_kernel import (
     census_cost_volume_pallas,
+    rank_cost_volume_pallas,
     sad_cost_volume_pallas,
 )
 from stereo_tpu.ops.pallas.filter_kernel import median_3x3_pallas
-from stereo_tpu.ops.pallas.sgm_kernel import sgm_wta_fused_pallas
+from stereo_tpu.ops.pallas.sgm_kernel import (
+    sgm_aggregate_pallas,
+    sgm_wta_fused_pallas,
+)
 from stereo_tpu.ops.postprocess import apply_postprocess as j_apply_postprocess
 from stereo_tpu.ops.wta import wta_with_aux as j_wta_with_aux
 from stereo_tpu_torch.config import StereoConfig as TCfg
-from stereo_tpu_torch.ops import census_transform
+from stereo_tpu_torch.ops import census_transform, rank_transform
 from stereo_tpu_torch.ops.cuda import (
     census_cost,
     launch_counts,
+    launch_forms,
     median3x3,
+    rank_cost,
+    reset_launch_counts,
     sad_cost,
     sgm_paths,
     sgm_select,
 )
+from stereo_tpu_torch.ops.cuda.launch import count_launch
 
 torch.set_num_threads(1)
 
@@ -55,6 +65,27 @@ def test_census_cost_matches_pallas(md):
     assert launch_counts() == before
     assert got.dtype == torch.int8 and got.shape == (h, w, 128)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:h, :w])
+
+
+def test_launches_are_counted_by_form():
+    """A launch is booked under its wrapper and its form; CPU calls (the
+    plain versions) book nothing."""
+    reset_launch_counts()
+    median3x3(torch.zeros(4, 5))
+    assert launch_forms() == {} and not any(launch_counts().values())
+    try:
+        count_launch(median3x3, 4, 5)
+        count_launch(median3x3, 4, 5)
+        count_launch(median3x3, 8, 5)
+        count_launch(sgm_select, 8, 5, 16, -8, True, False, False)
+        assert launch_forms() == {
+            ("median3x3", 4, 5): 2, ("median3x3", 8, 5): 1,
+            ("sgm_select", 8, 5, 16, -8, True, False, False): 1}
+        assert launch_counts()["median3x3"] == 3
+        assert launch_counts()["sgm_select"] == 1
+    finally:
+        reset_launch_counts()
+    assert launch_forms() == {}
 
 
 _jit_fused = jax.jit(sgm_wta_fused_pallas, static_argnums=1,
@@ -209,3 +240,87 @@ def test_wrappers_reject_mixed_devices():
         census_cost(torch.zeros((2, 3, 2), dtype=torch.int64),
                     torch.zeros((2, 3, 2), dtype=torch.int64,
                                 device="meta"), TCfg())
+
+
+def test_rank_cost_matches_pallas():
+    # D=16 takes the TPU's d-major kernel (_cost_kernel), rank combine.
+    rng = np.random.default_rng(31)
+    h, w = 24, 40
+    left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    right = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    kw = dict(cost_fn="rank", census_window=(9, 7), num_disparities=16,
+              min_disparity=2)
+    want, _ = rank_cost_volume_pallas(left, right, JCfg(**kw), interpret=True)
+    cfg = TCfg(**kw)
+    before = launch_counts()
+    got = rank_cost(rank_transform(_t(left), cfg.census_window),
+                    rank_transform(_t(right), cfg.census_window), cfg)
+    assert launch_counts() == before
+    assert got.dtype == torch.int8 and got.shape == (h, w, 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:h, :w])
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(j_rank_cost_volume(left, right, JCfg(**kw))))
+
+
+def test_rank_cost_rejects_other_cost_fn():
+    r = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="rank"):
+        rank_cost(r, r, TCfg())
+    with pytest.raises(ValueError, match="rank maps"):
+        rank_cost(r, r[:, :4], TCfg(cost_fn="rank"))
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["fixed", "adaptive"])
+def test_sgm_paths_d16_matches_staged_pallas(adaptive):
+    # The pyramid's residual aggregation: D=16, min_disparity=-8, 8 paths,
+    # against sgm_aggregate_pallas (lane-packed on the TPU) and the golden.
+    rng = np.random.default_rng(32)
+    h, w, d = 24, 40, 16
+    cost = rng.integers(0, 25, size=(h, w, d)).astype(np.int16)
+    img = (rng.integers(0, 4, size=(h, w)) * 30
+           + rng.integers(0, 10, size=(h, w))).astype(np.uint8)
+    kw = dict(num_disparities=d, min_disparity=-8, num_paths=8, p1=14,
+              p2=120, lr_check=False)
+    if adaptive:
+        kw.update(adaptive_p2=True, adaptive_grad_floor=12, p2_min=30)
+    want = np.asarray(sgm_aggregate_pallas(cost, JCfg(**kw), interpret=True,
+                                           image=img))
+    golden = np.asarray(jops.sgm_aggregate(cost.astype(np.int32), JCfg(**kw),
+                                           image=img))
+    before = launch_counts()
+    got = sgm_paths(_t(cost.astype(np.int8)), TCfg(**kw), image=_t(img))
+    assert launch_counts() == before
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), want[:h, :w])
+    np.testing.assert_array_equal(got.numpy(), golden)
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+def test_sgm_paths_int16_sad_costs_match_golden(paths):
+    # SAD costs up to 255 in int16 through SGM: 8 * (255 + 120) < 2^15.
+    rng = np.random.default_rng(33)
+    left = rng.integers(0, 256, size=(20, 48)).astype(np.uint8)
+    right = rng.integers(0, 256, size=(20, 48)).astype(np.uint8)
+    kw = dict(cost_fn="sad", sad_window=(5, 5), num_disparities=24,
+              num_paths=paths, p1=14, p2=120)
+    want = np.asarray(jops.sgm_aggregate(
+        jops.sad_cost_volume(left, right, JCfg(**kw)), JCfg(**kw)))
+    cfg = TCfg(**kw)
+    cost = sad_cost(_t(left), _t(right), cfg)
+    assert cost.dtype == torch.int16 and int(cost.max()) > 127
+    got = sgm_paths(cost, cfg)
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sgm_select_negative_origin_matches_reference():
+    rng = np.random.default_rng(34)
+    s = rng.integers(0, 300, size=(12, 50, 16)).astype(np.int16)
+    kw = dict(num_disparities=16, min_disparity=-8, lr_check=False,
+              uniqueness_ratio=0.02, subpixel=True)
+    want_disp, want_valid, _ = j_wta_with_aux(s.astype(np.int32), JCfg(**kw))
+    before = launch_counts()
+    disp, valid = sgm_select(_t(s), TCfg(**kw))
+    assert launch_counts() == before
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))

@@ -12,6 +12,8 @@ import torch
 
 from stereo_tpu import ops as jops
 from stereo_tpu.config import StereoConfig as JCfg
+from stereo_tpu.ops.census import rank_transform as j_rank_transform
+from stereo_tpu.ops.cost import rank_cost_volume as j_rank_cost_volume
 from stereo_tpu.ops.sgm import adaptive_p2_map as j_adaptive_p2_map
 from stereo_tpu.ops.wta import wta_with_aux as j_wta_with_aux
 from stereo_tpu_torch import ops as tops
@@ -213,6 +215,57 @@ def test_sad_cost_volume(md, window):
 
 
 def test_cost_volume_rank_is_not_ported():
-    img = torch.zeros((4, 8), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.cost_volume(img, img, TCfg(cost_fn="rank"))
+    """cost_fn="rank" does not raise: the dispatch gives the reference's
+    rank volume."""
+    rng = np.random.default_rng(20)
+    left, right = _image(rng, 9, 30), _image(rng, 9, 30)
+    kw = dict(cost_fn="rank", census_window=(5, 5), num_disparities=8)
+    want = np.asarray(jops.cost_volume(left, right, JCfg(**kw)))
+    got = tops.cost_volume(_t(left), _t(right), TCfg(**kw))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("window", [(3, 3), (5, 5), (9, 7)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_rank_transform(window, dtype):
+    img = _image(np.random.default_rng(21), 19, 27).astype(dtype)
+    want = np.asarray(j_rank_transform(img, window))
+    got = tops.rank_transform(_t(img), window)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.max()) <= window[0] * window[1] - 1
+
+
+def test_rank_transform_rejects_even_window():
+    with pytest.raises(ValueError, match="odd"):
+        tops.rank_transform(torch.zeros((4, 4), dtype=torch.uint8), (4, 5))
+
+
+@pytest.mark.parametrize("md", [0, 3])
+@pytest.mark.parametrize("window, d", [((9, 7), 24), ((5, 5), 1)])
+def test_rank_cost_volume(md, window, d):
+    rng = np.random.default_rng(22)
+    left, right = _image(rng, 17, 45), _image(rng, 17, 45)
+    kw = dict(cost_fn="rank", census_window=window, num_disparities=d,
+              min_disparity=md)
+    want = np.asarray(j_rank_cost_volume(left, right, JCfg(**kw)))
+    got = tops.rank_cost_volume(_t(left), _t(right), TCfg(**kw))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tops.cost_volume(_t(left), _t(right), TCfg(**kw)).numpy(), want)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(subpixel=False),
+                                dict(uniqueness_ratio=0.0)])
+def test_select_disparity_negative_origin(kw):
+    # The pyramid's residual selection: md = -R/2, no LR check.
+    rng = np.random.default_rng(23)
+    s = rng.integers(0, 300, size=(12, 50, 16)).astype(np.int32)
+    kw = dict(dict(num_disparities=16, min_disparity=-8, lr_check=False,
+                   uniqueness_ratio=0.02, subpixel=True), **kw)
+    want_disp, want_valid, _ = j_wta_with_aux(s, JCfg(**kw))
+    disp, valid = tops.select_disparity(_t(s.astype(np.int16)), TCfg(**kw))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))
+    assert float(disp.min()) < 0

@@ -138,10 +138,56 @@ def test_host_postprocess_matches_reference(speckle_max_size):
     assert gv.sum() < np.asarray(want.valid).sum()  # speckles were removed
 
 
+def test_host_postprocess_fills_occlusions():
+    pair = make_pair((48, 160), max_disp=20, kind="layers", noise_std=6.0,
+                     seed=2)
+    kw = dict(_KITTI32, fill_occlusions=True)
+    got = _port(pair.left, pair.right, kw)
+    want = _ref(pair.left, pair.right, kw, "jnp")
+    gd, gv = tpipe.host_postprocess(got.disp, got.valid,
+                                    tconfig.KITTI_SGM8_128.replace(**kw))
+    wd, wv = jpipe.host_postprocess(want.disp, want.valid,
+                                    jconfig.KITTI_SGM8_128.replace(**kw))
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gv, wv)
+    assert gv.sum() > got.valid.sum().item()  # rejected pixels were filled
+    assert not np.array_equal(gd, got.disp.numpy())
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
+def test_middlebury_preset_matches_reference(backend):
+    # D=64, 4 paths: the TPU's d-major cost kernel and 4-path SGM.
+    pair = make_pair((37, 100), max_disp=48, kind="shapes", texture="cloud",
+                     seed=6)
+    preset = "middlebury_census_sgm4_64"
+    _assert_same(_port(pair.left, pair.right, {}, preset),
+                 _ref(pair.left, pair.right, {}, backend, preset))
+
+
+@pytest.mark.parametrize(
+    "kw", [_KITTI32, dict(num_disparities=16, census_window=(5, 5),
+                          min_disparity=2, num_paths=4)],
+    ids=["kitti32", "d16_5x5_md2_paths4"],
+)
+def test_rank_config_matches_reference(kw):
+    pair = make_pair((40, 128), max_disp=20, texture="cloud", seed=7)
+    kw = dict(kw, cost_fn="rank")
+    _assert_same(_port(pair.left, pair.right, kw),
+                 _ref(pair.left, pair.right, kw, "jnp"))
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+def test_sad_through_sgm_matches_reference(paths):
+    pair = make_pair((40, 128), max_disp=20, texture="cloud", seed=8)
+    kw = dict(_KITTI32, cost_fn="sad", num_paths=paths)
+    _assert_same(_port(pair.left, pair.right, kw),
+                 _ref(pair.left, pair.right, kw, "jnp"))
+
+
 @pytest.mark.parametrize(
     "kw, call_kw",
     [
-        (dict(cost_fn="rank"), {}),
+        ({}, dict(y_offset=2)),
         ({}, dict(x_offset=8)),
         ({}, dict(right_context=4)),
         ({}, dict(image_height=64)),
@@ -188,3 +234,28 @@ def test_cli_run_demo_slice_presets(capsys, args):
     assert rc == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["bad3"] < 0.1 and rec["density"] > 0.9
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        ["--model", "pyramid", "--set", "num_disparities=32"],
+        ["--model", "block_matching", "--preset", "tsukuba_sad16"],
+        ["--model", "classic", "--set", "num_disparities=32", "--set",
+         "cost_fn=rank"],
+        ["--preset", "middlebury_census_sgm4_64", "--set",
+         "fill_occlusions=true"],
+    ],
+    ids=["pyramid", "block_matching", "rank", "middlebury_fill"],
+)
+def test_cli_run_demo_models(capsys, args):
+    rc = cli.main(["run", "--demo", "--demo-shape", "48", "160",
+                   "--demo-max-disp", "14", "--device", "cpu", *args])
+    assert rc == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["bad3"] < 0.1 and rec["density"] > 0.9
+
+
+def test_cli_rejects_unknown_model():
+    with pytest.raises(SystemExit):
+        cli.main(["run", "--demo", "--model", "learned"])
