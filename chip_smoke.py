@@ -7,7 +7,7 @@ result line):
 
   1. device: a CUDA card is required (there is no CPU path); prints the
      card's name and power limit as nvidia-smi reports them;
-  2. build: compiles the five CUDA kernels (nvcc, sm_90a, one compiler per
+  2. build: compiles the six CUDA kernels (nvcc, sm_90a, one compiler per
      source, all at once) and the host speckle and fill library (g++) from
      the sources in this checkout;
   3. kernels: runs each kernel form and its plain torch version on the card
@@ -32,6 +32,16 @@ result line):
          K2 on its int16 costs on the hard suite's radiometric pair
          (160x288, D=128);
        - K5, K3 at D=16 and K4 on the tsukuba_sad16 pair (288x384);
+       - config 4 (middlebury_full_256_tiled, D=256) through the banded
+         runner: every patch of the three splits below, at 497x720 and at
+         1988x2880, through K1 (with x_offset and right_context where the
+         patch has them), K2, K3 (base, framed, or the emit_qr form with
+         the patch's own range) and K4, each patch at its whole shape
+         against the plain version on the same patch (at 1988x2880 the
+         plain K2 takes seconds, and is timed once);
+       - tsukuba_sad16 in two column patches (288x228 each, the legacy
+         overlap): K5 without and with a column origin, K3 framed, K4;
+       - K6 alu_peak in float32 and int32 at the anchor's two programs;
   4. slices: each path serves a few requests through get_model(...).build,
      host_postprocess and evaluate_disparity, with the launch counters set
      to 0 just before and read just after, by form; a launch of a form
@@ -39,11 +49,20 @@ result line):
      K1/K5 K2 K3 K4):
      kitti_sgm8_128 (1 8 1 1), kitti_sgm8_128_quality (1 8 1 1),
      kitti_sgm8_128 with lr_exact (2 16 2 1), tsukuba_sad16 through the
-     block_matching model (1 0 1 1), middlebury_census_sgm4_64 (1 4 1 1),
+     block_matching model (1 0 1 1) and through build_banded_pipeline in two
+     column patches (2 0 2 2, K5 with x_offset != 0),
+     middlebury_census_sgm4_64 (1 4 1 1),
      kitti_sgm8_128 and kitti_sgm8_128_quality through the pyramid model
      with a 5x5 census (1 16 2 2 each; the quality preset gives the
      residual pass its adaptive P2) and kitti_sgm8_128 with cost_fn="rank"
-     (1 8 1 1). Frame 0 of each must
+     (1 8 1 1); then config 4 through build_banded_pipeline at 497x720
+     and at 1988x2880 (make_pair(shape, max_disp=200, kind="shapes",
+     texture="cloud")): the whole frame (n_bands=1, n_cols=1; 1 8 1 1),
+     two column patches stitched (2 16 2 2, K3 in its emit_qr form) and
+     2x2 patches in the legacy overlap (4 32 4 4, x_offset != 0); the
+     splits are not expected to equal the whole frame (SGM warm-up at
+     patch edges), and the share of pixels that differ is printed. Frame 0
+     of each must
      reproduce the reference package's hashes
      (stereo_tpu_torch/testdata/*_seed0.json) and the repeated seeds their
      first answers;
@@ -51,7 +70,20 @@ result line):
      0-2) and census_vs_sad_robustness(kitti_sgm8_128, (160, 288), seed 0)
      on the card, rows equal to the reference's
      (testdata/hard_suite_*.json, census_vs_sad_*.json), launch counters
-     checked; prints the rows and the sweep's wall time.
+     checked; prints the rows and the sweep's wall time;
+  6. anchor: measure_alu_peak times K6 over the reference's two programs
+     in float32 and int32 (one JSON line per program, then the best rate
+     per type), with the launch counters set to 0 before and read after;
+     every kernel row gains sol_fraction and sol_fraction_anchor.
+
+    python3 chip_smoke.py --write-fixtures DIR
+
+instead makes the full-size (1988x2880) config-4 fixtures: each split runs
+on the card through the plain torch path (backend="torch") and through the
+kernels, the two must agree bit for bit, and DIR/<fixture>_seed0.json gets
+the hashes (to be copied into stereo_tpu_torch/testdata). The quarter-size
+fixtures, which the reference package makes on the CPU, tie that plain
+path to the reference.
 
 Prints, on the lines before the last, the card's name and power limit
 and one JSON object with each kernel form's launches on the main paths
@@ -61,6 +93,7 @@ and one JSON object with each kernel form's launches on the main paths
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import statistics
@@ -85,12 +118,25 @@ from stereo_tpu_torch import (  # noqa: E402
     host_postprocess,
     native,
 )
+from stereo_tpu_torch.config import MIDDLEBURY_FULL_256_TILED  # noqa: E402
 from stereo_tpu_torch.data import kitti_like_pair, make_pair  # noqa: E402
 from stereo_tpu_torch.eval import evaluate_disparity  # noqa: E402
 from stereo_tpu_torch.eval.hard_suite import (  # noqa: E402
     SCENARIOS,
     census_vs_sad_robustness,
     run_hard_suite,
+)
+from stereo_tpu_torch.eval.roofline import (  # noqa: E402
+    ANCHOR_PROGRAMS,
+    cost_bound,
+    cuda_ms,
+    measure_alu_peak,
+    median_bound,
+    paths_bound,
+    peak_bound,
+    sad_bound,
+    select_bound,
+    sol_fractions,
 )
 from stereo_tpu_torch.models import get_model  # noqa: E402
 from stereo_tpu_torch.models.pyramid import (  # noqa: E402
@@ -109,6 +155,7 @@ from stereo_tpu_torch.ops import (  # noqa: E402
     sgm_aggregate,
 )
 from stereo_tpu_torch.ops.cuda import (  # noqa: E402
+    alu_peak,
     census_cost,
     launch_forms,
     median3x3,
@@ -120,7 +167,14 @@ from stereo_tpu_torch.ops.cuda import (  # noqa: E402
 )
 from stereo_tpu_torch.ops.cuda.build import load_kernels  # noqa: E402
 from stereo_tpu_torch.ops.cuda.launch import run  # noqa: E402
+from stereo_tpu_torch.ops.cuda.peak_kernel import alu_peak_plain  # noqa: E402
+from stereo_tpu_torch.ops.postprocess import spill_width  # noqa: E402
 from stereo_tpu_torch.ops.sgm import PATH_STEPS  # noqa: E402
+from stereo_tpu_torch.parallel import (  # noqa: E402
+    build_banded_pipeline,
+    plan_bands,
+)
+from stereo_tpu_torch.parallel.bands import right_context_of  # noqa: E402
 
 TESTDATA = ROOT / "stereo_tpu_torch" / "testdata"
 CFG = KITTI_SGM8_128
@@ -133,22 +187,20 @@ MID = MIDDLEBURY_CENSUS_SGM4_64
 SADSGM = CFG.replace(cost_fn="sad")
 QUALITY_P2 = dict(adaptive_p2=True, adaptive_grad_floor=12, p2_min=30)
 
-#: Published peaks of one H100 SXM at 700 W: device memory, and the float32
-#: rate outside the tensor cores, which the kernels' integer ALU work is
-#: held against (the data sheet gives no separate integer rate).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-
+CFG4 = MIDDLEBURY_FULL_256_TILED
 _COST_CU = "stereo_tpu_torch/csrc/census_cost.cu"
 _SAD_CU = "stereo_tpu_torch/csrc/sad_cost.cu"
 _PATHS_CU = "stereo_tpu_torch/csrc/sgm_paths.cu"
 _SELECT_CU = "stereo_tpu_torch/csrc/sgm_select.cu"
 _MEDIAN_CU = "stereo_tpu_torch/csrc/median3x3.cu"
+_PEAK_CU = "stereo_tpu_torch/csrc/alu_peak.cu"
 _COST_X = "stereo_tpu/ops/pallas/cost_kernel.py:206"
 _COST_D = "stereo_tpu/ops/pallas/cost_kernel.py:119"
 _H_PATHS = "stereo_tpu/ops/pallas/sgm_kernel.py:399"
 _V_FUSED = "stereo_tpu/ops/pallas/sgm_kernel.py:992"
 _MEDIAN = "stereo_tpu/ops/pallas/filter_kernel.py:33"
+_EMIT_QR = "stereo_tpu/ops/pallas/sgm_kernel.py:1082"
+_PEAK = "stereo_tpu/eval/roofline.py:141"
 #: kernel form -> (wrapper, source, the TPU kernel it replaces). A row with
 #: a size in its name is a form of an earlier row at another path's shape.
 KERNEL_INFO = {
@@ -203,6 +255,73 @@ KERNEL_INFO = {
     "median3x3/288x384": ("median3x3", _MEDIAN_CU, _MEDIAN),
 }
 
+
+
+def _cfg4_forms(k1: Dict[str, int], shapes: Dict[str, int], k3: str
+                ) -> Dict[str, int]:
+    """Launches per frame of one config-4 split, by KERNEL_INFO row: ``k1``
+    maps a K1 row's suffix ("HxW" or "HxW/framed") to its launches,
+    ``shapes`` a patch shape "HxW" to the patches of that shape, ``k3`` is
+    the suffix of the split's K3 form ("", "/framed" or "/qr")."""
+    forms = {f"census_cost/cfg4/{suffix}": n for suffix, n in k1.items()}
+    for shape, n in shapes.items():
+        forms[f"sgm_paths/cfg4/{shape}"] = 8 * n
+        forms[f"sgm_select/cfg4/{shape}{k3}"] = n
+        forms[f"median3x3/cfg4/{shape}"] = n
+    return forms
+
+
+#: Config 4 through the banded runner, halo 20: the split, then the
+#: launches per frame at 497x720 and at 1988x2880. Stitched patches are
+#: 380 and 1460 columns wide (half the frame + the halo; the second reads
+#: 255 context columns); the legacy ones 636 and 1716 (+ halo + D on the
+#: inner side), in bands of 269 and 268, or 1014, rows.
+CFG4_SPLITS = {
+    "": (dict(n_bands=1, n_cols=1),
+         _cfg4_forms({"497x720": 1}, {"497x720": 1}, ""),
+         _cfg4_forms({"1988x2880": 1}, {"1988x2880": 1}, "")),
+    "_1x2": (dict(n_bands=1, n_cols=2),
+             _cfg4_forms({"497x380": 1, "497x380/framed": 1}, {"497x380": 2},
+                         "/qr"),
+             _cfg4_forms({"1988x1460": 1, "1988x1460/framed": 1},
+                         {"1988x1460": 2}, "/qr")),
+    "_2x2_legacy": (dict(n_bands=2, n_cols=2, lr_stitch=False),
+                    _cfg4_forms({"269x636": 1, "269x636/framed": 1,
+                                 "268x636": 1, "268x636/framed": 1},
+                                {"269x636": 2, "268x636": 2}, "/framed"),
+                    _cfg4_forms({"1014x1716": 2, "1014x1716/framed": 2},
+                                {"1014x1716": 4}, "/framed")),
+}
+for _, _quarter, _full in CFG4_SPLITS.values():
+    for _name in (*_quarter, *_full):
+        _kernel = _name.split("/")[0]
+        KERNEL_INFO[_name] = {
+            "census_cost": ("census_cost", _COST_CU, _COST_X),
+            "sgm_paths": ("sgm_paths", _PATHS_CU, _H_PATHS),
+            "sgm_select": ("sgm_select", _SELECT_CU,
+                           _EMIT_QR if _name.endswith("/qr") else _V_FUSED),
+            "median3x3": ("median3x3", _MEDIAN_CU, _MEDIAN),
+        }[_kernel]
+#: tsukuba_sad16 (288x384, D=16, no SGM paths) in two column patches: a SAD
+#: cost takes the legacy overlap, so both patches are 228 columns wide (half
+#: the frame + halo 20 + D) and the second has a column origin in K5 and K3.
+SAD_SPLIT = dict(n_bands=1, n_cols=2)
+SAD_SPLIT_FORMS = {"sad_cost/bands/288x228": 1,
+                   "sad_cost/bands/288x228/framed": 1,
+                   "sgm_select/bands/288x228/framed": 2,
+                   "median3x3/bands/288x228": 2}
+for _name in SAD_SPLIT_FORMS:
+    KERNEL_INFO[_name] = {
+        "sad_cost": ("sad_cost", _SAD_CU,
+                     "stereo_tpu/ops/pallas/cost_kernel.py:584"),
+        "sgm_select": ("sgm_select", _SELECT_CU, _V_FUSED),
+        "median3x3": ("median3x3", _MEDIAN_CU, _MEDIAN),
+    }[_name.split("/")[0]]
+#: K6 at the anchor's programs: alu_peak/<type>/k<k>.
+for _rows, _k, _chains in ANCHOR_PROGRAMS:
+    for _type in ("float32", "int32"):
+        KERNEL_INFO[f"alu_peak/{_type}/k{_k}"] = ("alu_peak", _PEAK_CU, _PEAK)
+
 #: (wrapper, *form) as the wrappers count their launches -> the KERNEL_INFO
 #: row whose comparison in the kernels phase launched that form.
 HELD: Dict[tuple, str] = {}
@@ -220,12 +339,37 @@ def middlebury_pair(seed: int):
                      seed=seed)
 
 
+def cfg4_pair(shape):
+    """seed -> the config-4 pair family at ``shape`` (the reference's
+    bench, at 1988x2880)."""
+    return lambda seed: make_pair(shape, max_disp=200, kind="shapes",
+                                  texture="cloud", seed=seed)
+
+
 class Slice(NamedTuple):
     fixture: str                      # testdata/<fixture>_seed0.json
     pair: Callable[[int], object]     # seed -> StereoPair
     seeds: Tuple[int, ...]
     forms: Dict[str, int]             # KERNEL_INFO row -> launches per frame
     model: str = ""                   # "": the fixture's model
+    differs_from: str = ""            # print the share of pixels that differ
+
+
+class BandedRunner(NamedTuple):
+    """A fixture's ``bands`` split as a model: ``build(device)`` is
+    ``build_banded_pipeline`` for the fixture's frame."""
+
+    cfg: object
+    shape: Tuple[int, int]
+    split: Dict[str, object]
+
+    @property
+    def name(self) -> str:
+        return "banded " + " ".join(f"{k}={v}" for k, v in self.split.items())
+
+    def build(self, device):
+        return build_banded_pipeline(self.cfg, self.shape, device=device,
+                                     **self.split)
 
 
 #: A pyramid frame: the coarse pass at half size and D/2 (K1, K2 x 8, K3
@@ -248,6 +392,8 @@ SLICES = (
     Slice("tsukuba_sad16", tsukuba_pair, (0, 1, 2, 3, 0, 1, 2, 3),
           {"sad_cost": 1, "sgm_select/d16": 1, "median3x3/288x384": 1},
           model="block_matching"),
+    Slice("tsukuba_sad16_1x2", tsukuba_pair, (0, 1, 0), SAD_SPLIT_FORMS,
+          differs_from="tsukuba_sad16"),
     Slice("middlebury_census_sgm4_64", middlebury_pair, (0, 1, 0, 1),
           {"census_cost/d64": 1, "sgm_paths/4": 4, "sgm_select/d64": 1,
            "median3x3/555x900": 1}),
@@ -261,22 +407,33 @@ SLICES = (
     Slice("kitti_sgm8_128_rank", kitti_like_pair, (0, 1, 0),
           {"census_cost/rank": 1, "sgm_paths": 8, "sgm_select": 1,
            "median3x3": 1}),
+    # config 4 through the banded runner, at a quarter of the resolution
+    # (fixtures from the reference package) and at the bench's size
+    *(Slice(f"middlebury_full_256_tiled_q{tag}", cfg4_pair((497, 720)),
+            (0, 1, 0), quarter,
+            differs_from="middlebury_full_256_tiled_q" if tag else "")
+      for tag, (_, quarter, _) in CFG4_SPLITS.items()),
+    *(Slice(f"middlebury_full_256_tiled{tag}", cfg4_pair((1988, 2880)),
+            (0, 0), full,
+            differs_from="middlebury_full_256_tiled" if tag else "")
+      for tag, (_, _, full) in CFG4_SPLITS.items()),
 )
 
 
 def held(name: str, fn):
     """``fn()`` must launch row ``name``'s kernel form and nothing else (K2
     once per direction): notes the counted form under the row, waits for
-    the card so a fault shows where it ran, and returns what ``fn`` did."""
+    the card so a fault shows where it ran, and returns what ``fn`` did,
+    which the caller compares with the plain version."""
     reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     forms = list(launch_forms())
     if len(forms) != 1 or forms[0][0] != KERNEL_INFO[name][0]:
         raise AssertionError(f"{name}: launched {forms}")
-    if HELD.setdefault(forms[0], name) != name:
-        raise AssertionError(
-            f"{name} and {HELD[forms[0]]} are one form: {forms[0]}")
+    form = forms[0]
+    if HELD.setdefault(form, name) != name:
+        raise AssertionError(f"{name} and {HELD[form]} are one form: {form}")
     return out
 
 
@@ -300,57 +457,13 @@ def load_slice(sl: Slice):
     """(fixture, config, model) of a slice, from its fixture file."""
     fx = json.loads((TESTDATA / f"{sl.fixture}_seed0.json").read_text())
     cfg = PRESETS[fx["preset"]].replace(**fx.get("overrides", {}))
+    if "bands" in fx:
+        return fx, cfg, BandedRunner(cfg, tuple(fx["shape"]), fx["bands"])
     kwargs = {k: tuple(v) if isinstance(v, list) else v
               for k, v in fx.get("model_kwargs", {}).items()}
     model = get_model(sl.model or fx.get("model", "classic"), cfg=cfg,
                       **kwargs)
     return fx, cfg, model
-
-
-def bound(nbytes: float, ops: float) -> Dict[str, object]:
-    """The least time this card could take: the bytes the function must
-    move (inputs read once, outputs written once) over the memory rate, or
-    its operations over the peak rate, whichever is larger."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)  # no single PyTorch call computes any form
-
-
-def cost_bound(h, w, d, words, ops_per_voxel):
-    """K1: two [H, W, words] int32 descriptor planes in, int8 volume out."""
-    return bound(2 * h * w * words * 4 + h * w * d, h * w * d * ops_per_voxel)
-
-
-def sad_bound(h, w, d, window):
-    """K5: two int32 images in, int16 volume out; per voxel and window tap
-    a subtract, an absolute value and an add, then one divide."""
-    taps = window[0] * window[1]
-    return bound(2 * h * w * 4 + h * w * d * 2, h * w * d * (3 * taps + 1))
-
-
-def paths_bound(cost, cfg):
-    """K2 (all directions of one call): the cost volume in, the int16 S
-    out, the int32 image in with adaptive P2; per voxel and direction about
-    10 integer operations (3 adds, 5 mins counting the reduction, the
-    renormalising subtract, the accumulate)."""
-    h, w, d = cost.shape
-    nbytes = h * w * d * (cost.element_size() + 2)
-    if cfg.adaptive_p2:
-        nbytes += h * w * 4
-    return bound(nbytes, h * w * d * cfg.num_paths * 10)
-
-
-def select_bound(h, w, d, emit_d0=False):
-    """K3: int16 S in, float32 disp and one validity byte out (int32 d0
-    with emit_d0); per voxel about 6 compares and selects."""
-    return bound(h * w * d * 2 + h * w * (5 + 4 * emit_d0), h * w * d * 6)
-
-
-def median_bound(h, w):
-    """K4: float32 map in and out; 19 exchanges of a min and a max."""
-    return bound(2 * h * w * 4, h * w * 38)
 
 
 def sha16(a) -> str:
@@ -359,35 +472,23 @@ def sha16(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median device-clock ms of ``fn()`` over ``reps`` CUDA-event-timed
-    calls, after ``warmup`` untimed ones."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float((got.double() - want.double()).abs().max())
+    """The largest difference (nan if any is), taken in bands of rows: a
+    full-size config-4 volume as one float64 tensor is 11.7 GB."""
+    return float(torch.stack([
+        (g.double() - w.double()).abs().max()
+        for g, w in zip(got.split(64), want.split(64))]).max())
 
 
 def require_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    if got.shape != want.shape or not torch.equal(got, want):
+    """``got`` must hold ``want``'s values (the kernels' int8 and int16
+    volumes against the plain versions' int32); returns the max abs err."""
+    err = max_abs_err(got, want) if got.shape == want.shape else float("nan")
+    if err != 0:
         raise AssertionError(
-            f"{name}: kernel differs from its plain version "
-            f"(shape {tuple(got.shape)} vs {tuple(want.shape)}, max abs err "
-            f"{max_abs_err(got, want) if got.shape == want.shape else 'n/a'})"
-        )
-    return max_abs_err(got, want)
+            f"{name}: kernel differs from its plain version (shape "
+            f"{tuple(got.shape)} vs {tuple(want.shape)}, max abs err {err})")
+    return err
 
 
 def synced(fn):
@@ -520,6 +621,161 @@ def median_row(name, disp, disp_plain):
         **median_bound(*disp.shape),
     )
     return row, med_plain
+
+
+def _first_row(rows: dict, name: str, make) -> None:
+    """``rows[name] = make()`` unless the row was already measured (a
+    second patch of the same form is compared, not timed again)."""
+    if name not in rows:
+        rows[name] = make()
+
+
+def banded_rows(dev, left, right, cfg, split, tag: str = "cfg4") -> dict:
+    """Every kernel form ``build_banded_pipeline(cfg, left.shape, **split)``
+    launches, on each of its patches at the patch's whole shape, against
+    the plain version on the same patch: K1 (census) or K5 (SAD), K2 unless
+    the config has no paths, K3 and K4. Returns the rows by KERNEL_INFO
+    name, ``<kernel>/<tag>/<H>x<W>[/framed|/qr]``."""
+    h, w = left.shape
+    d, md = cfg.num_disparities, int(cfg.min_disparity)
+    plan = plan_bands(cfg, (h, w), **split)
+    plain = cfg.replace(backend="torch")
+    rows: dict = {}
+    for _, _, e0, e1 in plan.rows:
+        for x0, x1, f0, f1 in plan.cols:
+            ctx = right_context_of(cfg, f0) if plan.stitched else 0
+            own = (x0 - f0, x1 - f0) if plan.stitched else None
+            pl_, pr_ = left[e0:e1, f0:f1], right[e0:e1, f0 - ctx:f1]
+            ph, pw = pl_.shape
+            shape = f"{ph}x{pw}"
+            frame = dict(x_offset=f0, image_width=w)
+
+            if cfg.cost_fn == "sad":
+                cost, cost_plain = _banded_sad(
+                    rows, f"sad_cost/{tag}/{shape}", pl_, pr_, cfg, f0)
+            else:
+                cost, cost_plain = _banded_census(
+                    rows, f"census_cost/{tag}/{shape}", pl_, pr_, cfg, f0, ctx)
+
+            if cfg.num_paths == 0:
+                # no SGM: S is the cost itself
+                s, s_plain = cost, cost_plain
+            else:
+                s, s_plain = _banded_paths(
+                    dev, rows, f"sgm_paths/{tag}/{shape}", cost, cost_plain,
+                    cfg)
+            del cost, cost_plain
+
+            # K3: base on the whole frame, framed on a legacy patch, the
+            # emit_qr form with the patch's own range on a stitched one
+            kw = dict(frame, emit_qr=plan.stitched, own=own)
+            suffix = ("/qr" if plan.stitched
+                      else "/framed" if (f0, f1) != (0, w) else "")
+            name = f"sgm_select/{tag}/{shape}{suffix}"
+            got = held(name, lambda: sgm_select(s, cfg, **kw))
+            want = synced(lambda: select_disparity(s_plain, plain, **kw))
+            err = max(require_equal(f"{name} output {i}", g, w_)
+                      for i, (g, w_) in enumerate(zip(got, want)))
+            _first_row(rows, name, lambda: dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: sgm_select(s, cfg, **kw), reps=5),
+                plain_ms=cuda_ms(lambda: select_disparity(s_plain, plain,
+                                                          **kw), reps=2),
+                **select_bound(ph, pw, d, spill=spill_width(d, md)
+                               if plan.stitched else 0)))
+            del s, s_plain
+
+            # K4 on the patch's disparity
+            name = f"median3x3/{tag}/{shape}"
+            med = held(name, lambda: median3x3(got[0]))
+            err = require_equal(name, med, median_3x3(want[0]))
+            _first_row(rows, name, lambda: dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: median3x3(got[0]), reps=10),
+                plain_ms=cuda_ms(lambda: median_3x3(want[0]), reps=3),
+                **median_bound(ph, pw)))
+    return rows
+
+
+def _banded_census(rows, name, pl_, pr_, cfg, f0, ctx):
+    """K1 on one patch, with its origin and right context; returns (the
+    patch's volume, its plain volume)."""
+    plain = cfg.replace(backend="torch")
+    ph, pw = pl_.shape
+    name += "/framed" if f0 or ctx else ""
+    cl = census_transform(pl_, cfg.census_window)
+    cr = census_transform(pr_, cfg.census_window)
+    cost = held(name, lambda: census_cost(cl, cr, cfg, f0, ctx))
+    cost_plain = synced(lambda: census_cost_volume(pl_, pr_, plain, f0, ctx))
+    err = require_equal(name, cost, cost_plain)
+    _first_row(rows, name, lambda: dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: census_cost(cl, cr, cfg, f0, ctx), reps=5),
+        plain_ms=cuda_ms(lambda: census_cost_volume(pl_, pr_, plain, f0, ctx),
+                         reps=2),
+        **cost_bound(ph, pw, cfg.num_disparities, cfg.census_words, 5, ctx)))
+    return cost, cost_plain
+
+
+def _banded_sad(rows, name, pl_, pr_, cfg, f0):
+    """K5 on one patch, with its origin; returns as ``_banded_census``."""
+    plain = cfg.replace(backend="torch")
+    ph, pw = pl_.shape
+    name += "/framed" if f0 else ""
+    cost = held(name, lambda: sad_cost(pl_, pr_, cfg, f0))
+    cost_plain = synced(lambda: sad_cost_volume(pl_, pr_, plain, f0))
+    err = require_equal(name, cost, cost_plain)
+    _first_row(rows, name, lambda: dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: sad_cost(pl_, pr_, cfg, f0), reps=10),
+        plain_ms=cuda_ms(lambda: sad_cost_volume(pl_, pr_, plain, f0),
+                         reps=3),
+        **sad_bound(ph, pw, cfg.num_disparities, cfg.sad_window)))
+    return cost, cost_plain
+
+
+def _banded_paths(dev, rows, name, cost, cost_plain, cfg):
+    """K2 on a patch's costs against plain SGM on the same; returns (the
+    patch's S, its plain S). The plain version is timed once, after the
+    run that was compared (it takes seconds on a full-size patch)."""
+    plain = cfg.replace(backend="torch")
+    s = held(name, lambda: sgm_paths(cost, cfg))
+    s_plain = synced(lambda: sgm_aggregate(cost_plain, plain))
+    err = require_equal(name, s, s_plain)
+    if name not in rows:
+        scratch = torch.empty_like(s)
+        print(f"{name} per direction (dy,dx) ms: " + json.dumps(
+            per_direction_ms(dev, cost, scratch, None, cfg)))
+        del scratch
+        rows[name] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: sgm_paths(cost, cfg), reps=3),
+            plain_ms=cuda_ms(lambda: sgm_aggregate(cost_plain, plain),
+                             reps=1, warmup=0),
+            **paths_bound(cost, cfg))
+    return s, s_plain
+
+
+def peak_rows(dev) -> dict:
+    """K6 in both element types at the anchor's programs, against its plain
+    version (the chain's closed form) on quarter steps in [0, 64)."""
+    rows = {}
+    for dtype in (torch.float32, torch.int32):
+        name_t = str(dtype).split(".")[1]
+        for n_rows, k, chains in ANCHOR_PROGRAMS:
+            name = f"alu_peak/{name_t}/k{k}"
+            n = n_rows * 64 * 128
+            x = (torch.arange(n, device=dev) % 256).to(dtype)
+            if dtype == torch.float32:
+                x = x / 4
+            got = held(name, lambda: alu_peak(x, k, chains))
+            rows[name] = dict(
+                max_abs_err=require_equal(name, got,
+                                          alu_peak_plain(x, k, chains)),
+                ms=cuda_ms(lambda: alu_peak(x, k, chains), reps=20),
+                plain_ms=cuda_ms(lambda: alu_peak_plain(x, k, chains), reps=5),
+                **peak_bound(n, k))
+    return rows
 
 
 def phase_kernels(dev) -> dict:
@@ -665,6 +921,20 @@ def phase_kernels(dev) -> dict:
         "sgm_select/d16", sad, sad_plain, SAD)
     rows["median3x3/288x384"], _ = median_row(
         "median3x3/288x384", tdisp, tdisp_plain)
+    del sad, sad_plain, hsad, hsad_plain, hcost, hcost_plain, hs, hs_plain
+
+    # Config 4 through the banded runner: every patch of the three splits,
+    # at 497x720 and at 1988x2880.
+    for shape in ((497, 720), (1988, 2880)):
+        bl, br = to_dev(cfg4_pair(shape)(0), dev)
+        for split, _, _ in CFG4_SPLITS.values():
+            rows.update(banded_rows(dev, bl, br, CFG4, split))
+            torch.cuda.empty_cache()
+        del bl, br
+    torch.cuda.empty_cache()
+    # tsukuba_sad16 in two column patches: K5 and K3 with a column origin.
+    rows.update(banded_rows(dev, tl, tr, SAD, SAD_SPLIT, tag="bands"))
+    rows.update(peak_rows(dev))
 
     for name, r in rows.items():
         print(f"kernel {name}: equal to plain; {r['ms']:.4f} ms (plain "
@@ -673,9 +943,11 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
-def run_slice(dev, sl: Slice) -> Dict[str, int]:
+def run_slice(dev, sl: Slice, frame0: Dict[str, tuple]) -> Dict[str, int]:
     """The slice's requests through the entry points a user calls; returns
-    the launches of that run alone, by kernel form, as counted."""
+    the launches of that run alone, by kernel form, as counted. ``frame0``
+    keeps frame 0's (disp, valid) of the slices that a later one names in
+    ``differs_from``."""
     fx, cfg, model = load_slice(sl)
     pairs = {seed: sl.pair(seed) for seed in set(sl.seeds)}
     fn = model.build(dev)
@@ -709,6 +981,14 @@ def run_slice(dev, sl: Slice) -> Dict[str, int]:
         print(f"{sl.fixture} frame {i} seed {seed}: device "
               f"{device_ms[-1]:.3f} ms, end to end {e2e_ms[-1]:.3f} ms, bad3 "
               f"{m['bad3']:.6f}, density {m['density']:.6f}")
+        if i == 0 and sl.differs_from:
+            base_disp, base_valid = frame0[sl.differs_from]
+            differ = (res.disp != base_disp) | (res.valid != base_valid)
+            print(f"{sl.fixture}: {float(differ.float().mean()):.6f} of the "
+                  f"pixels differ from {sl.differs_from} (SGM warm-up at "
+                  f"patch edges)")
+        elif i == 0 and any(sl.fixture == o.differs_from for o in SLICES):
+            frame0[sl.fixture] = (res.disp, res.valid)
         if seed == 0:
             want = ((fx["disp"], fx["valid"]), (fx["post_disp"],
                                                  fx["post_valid"]))
@@ -785,27 +1065,102 @@ def phase_hard_suite(dev) -> Dict[str, int]:
     return launches
 
 
-def main() -> int:
+def phase_anchor(dev):
+    """The ALU anchor through its entry point; returns the best rate per
+    element type and K6's launches by kernel form, as counted."""
+    reset_launch_counts()
+    peak = measure_alu_peak(dev, iters=20)
+    torch.cuda.synchronize()
+    counts = counted_launches("anchor")
+    print("alu peak, best per type, Gop/s: " + json.dumps(
+        {k: v / 1e9 for k, v in peak.items()}))
+    return peak, counts
+
+
+def write_fixtures(dev, out_dir: Path) -> None:
+    """Make the full-size config-4 fixtures on the card: each split through
+    the plain torch path and through the kernels, which must agree."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shape = (1988, 2880)
+    pair = cfg4_pair(shape)(0)
+    for tag, (split, _, _) in CFG4_SPLITS.items():
+        results = {}
+        for backend in ("torch", "auto"):
+            t0 = time.perf_counter()
+            fn = build_banded_pipeline(CFG4.replace(backend=backend), shape,
+                                       device=dev, **split)
+            res = fn(pair.left, pair.right)
+            torch.cuda.synchronize()
+            results[backend] = (res.disp.cpu(), res.valid.cpu())
+            del res
+            torch.cuda.empty_cache()
+            print(f"{tag or 'whole'} backend={backend}: "
+                  f"{time.perf_counter() - t0:.1f} s, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        disp, valid = results["torch"]
+        if not (torch.equal(disp, results["auto"][0])
+                and torch.equal(valid, results["auto"][1])):
+            raise AssertionError(f"{tag}: kernels differ from the plain path")
+        pdisp, pvalid = host_postprocess(disp, valid, CFG4)
+        m = evaluate_disparity(pdisp, pair.gt_disp, pair.gt_valid, pvalid)
+        record = dict(
+            source="stereo_tpu_torch build_banded_pipeline(cfg(backend="
+                   "'torch'), shape, **bands) + host_postprocess + "
+                   "evaluate_disparity",
+            made_by="the port's plain torch path on "
+                    f"{torch.cuda.get_device_name(0)} (chip_smoke.py "
+                    "--write-fixtures), equal to its kernel path; the "
+                    "quarter-size fixtures tie that path to the reference",
+            preset="middlebury_full_256_tiled", bands=split,
+            pair="make_pair((1988, 2880), max_disp=200, kind='shapes', "
+                 "texture='cloud', seed=0)",
+            hash="sha256(array.tobytes()).hexdigest()[:16]",
+            shape=list(shape), disp=sha16(disp), valid=sha16(valid),
+            n_valid=int(valid.sum()), post_disp=sha16(pdisp),
+            post_valid=sha16(pvalid), post_n_valid=int(pvalid.sum()),
+            bad3=m["bad3"], density=m["density"])
+        path = out_dir / f"middlebury_full_256_tiled{tag}_seed0.json"
+        path.write_text(json.dumps(record, indent=2) + "\n")
+        print(f"wrote {path}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--write-fixtures", type=Path, metavar="DIR",
+                    help="make the full-size config-4 fixtures into DIR "
+                         "instead of running the phases")
+    args = ap.parse_args(argv)
     phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
+    if args.write_fixtures is not None:
+        write_fixtures(dev, args.write_fixtures)
+        return 0
     rows = phase_kernels(dev)
     # From here on every launch is one a wrapper counted on a main path.
     launches = dict.fromkeys(KERNEL_INFO, 0)
-    for counts in (*(run_slice(dev, sl) for sl in SLICES),
+    frame0: Dict[str, tuple] = {}
+    for counts in (*(run_slice(dev, sl, frame0) for sl in SLICES),
                    phase_hard_suite(dev)):
         for form, n in counts.items():
             launches[form] += n
+    peak, anchor_counts = phase_anchor(dev)
+    for form, n in anchor_counts.items():
+        launches[form] += n
     missing = [form for form, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"no main path launched {missing}")
-    kernels = [
-        dict(name=form, route="cuda", source=KERNEL_INFO[form][1],
-             replaces=KERNEL_INFO[form][2], launches=launches[form],
-             **rows[form])
-        for form in KERNEL_INFO
-    ]
+    kernels = []
+    for form in KERNEL_INFO:
+        # The median's exchanges are float32 mins and maxes; every other
+        # kernel's operations are integer.
+        anchor = "float32" if form.startswith(("median3x3",
+                                               "alu_peak/float32")) else "int32"
+        kernels.append(dict(
+            name=form, route="cuda", source=KERNEL_INFO[form][1],
+            replaces=KERNEL_INFO[form][2], launches=launches[form],
+            **rows[form], **sol_fractions(rows[form], peak[anchor])))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,18 +138,37 @@ def from_reference(d: dict) -> StereoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
-    """Spatial tiling of the distributed pipeline (not ported yet; kept so
-    configs carry across unchanged)."""
+    """Spatial tiling, field for field the reference's. The banded runner
+    (``parallel/bands.py``) takes its default halo from ``resolved_halo``;
+    ``mesh_shape`` and ``batch_axis`` describe the distributed pipeline,
+    which is not ported yet, and are kept so configs carry across."""
 
     mesh_shape: Tuple[int, int] = (1, 1)
     halo: Optional[int] = None
     batch_axis: bool = False
 
     def resolved_halo(self, cfg: StereoConfig) -> int:
+        """The overlap width: ``halo`` if set, else the descriptor window's
+        radius plus a 16-pixel strip in which SGM path costs settle before
+        they enter the patch's interior."""
         if self.halo is not None:
             return self.halo
         warmup = 16
         return cfg.window_radius + warmup
+
+
+def tile_from_reference(d: dict) -> TileConfig:
+    """The port's TileConfig for a reference TileConfig given as a plain
+    dict (``dataclasses.asdict``, possibly through JSON: lists become
+    tuples again)."""
+    names = {f.name for f in dataclasses.fields(TileConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown TileConfig fields {sorted(unknown)}")
+    kw = dict(d)
+    if "mesh_shape" in kw:
+        kw["mesh_shape"] = tuple(kw["mesh_shape"])
+    return TileConfig(**kw)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,11 @@
 //   C(y, x, d)  = floor(sum_{|dy| <= ry, |dx| <= rx}
 //                       AD(clamp(y + dy), clamp(x + dx), d) / (wy * wx))
 //
-// and max_unary_cost where x - md - d < 0, into an int16 [H, W, D] volume
-// (stereo_tpu/ops/cost.py:98-125). The golden box filter edge-replicates
+// and max_unary_cost where the global column x_off + x - md - d < 0 (x_off:
+// the block's origin in a larger frame, 0 for a whole frame; the legacy
+// banded runner's patches), into an int16 [H, W, D] volume
+// (stereo_tpu/ops/cost.py:98-125). Right context is not taken, as in the
+// TPU kernel (cost_kernel.py:680-683). The golden box filter edge-replicates
 // the AD array, not the image: past column w-1 the window repeats AD(w-1),
 // whose right sample is R(w-1-md-d), where a replicated image would read
 // R(w-md-d) and give another value. Clamping the AD index, as here, is
@@ -32,14 +35,15 @@ constexpr int kThreads = 256;
 __global__ void sad_cost_kernel(const int* __restrict__ left,
                                 const int* __restrict__ right,
                                 int16_t* __restrict__ out, int h, int w, int d,
-                                int md, int ry, int rx, int area, int maxc) {
+                                int md, int ry, int rx, int area, int maxc,
+                                int x_off) {
   const int y = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;  // x * d + lane
   if (i >= w * d) return;
   const int x = i / d;
   const int shift = md + (i - x * d);
   int c = maxc;
-  if (x - shift >= 0) {
+  if (x_off + x - shift >= 0) {
     int sum = 0;
     for (int oy = -ry; oy <= ry; ++oy) {
       const size_t row = (size_t)min(max(y + oy, 0), h - 1) * w;
@@ -59,8 +63,9 @@ __global__ void sad_cost_kernel(const int* __restrict__ left,
 // left, right: [H, W] int32 images; out: [H, W, D] int16.
 extern "C" int stpu_sad_cost(const void* left, const void* right, void* out,
                              int h, int w, int d, int md, int wy, int wx,
-                             int maxc, void* stream) {
-  if (h <= 0 || h > 65535 || w <= 0 || d <= 0 || md < 0 || wy <= 0 ||
+                             int maxc, int x_off, void* stream) {
+  if (h <= 0 || h > 65535 || w <= 0 || d <= 0 || md < 0 || x_off < 0 ||
+      wy <= 0 ||
       wx <= 0 || wy % 2 == 0 || wx % 2 == 0 ||
       (long long)w * d > (1LL << 31) - 1) {
     return (int)cudaErrorInvalidValue;
@@ -68,6 +73,7 @@ extern "C" int stpu_sad_cost(const void* left, const void* right, void* out,
   const dim3 grid((unsigned)(((long long)w * d + kThreads - 1) / kThreads), h);
   sad_cost_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(left), static_cast<const int*>(right),
-      static_cast<int16_t*>(out), h, w, d, md, wy / 2, wx / 2, wy * wx, maxc);
+      static_cast<int16_t*>(out), h, w, d, md, wy / 2, wx / 2, wy * wx, maxc,
+      x_off);
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,14 @@ from .cost import (
 from .postprocess import (
     apply_postprocess,
     lr_consistency,
+    lr_gate_from_right_map,
     median_3x3,
     right_disparity_from_volume,
+    right_view_partial_min,
+    right_view_spill,
     select_disparity,
+    spill_width,
+    unpack_partial_min,
 )
 from .sgm import adaptive_p2_map, sgm_aggregate
 from .wta import wta_with_aux
@@ -36,4 +41,9 @@ __all__ = [
     "median_3x3",
     "right_disparity_from_volume",
     "select_disparity",
+    "spill_width",
+    "right_view_partial_min",
+    "right_view_spill",
+    "unpack_partial_min",
+    "lr_gate_from_right_map",
 ]

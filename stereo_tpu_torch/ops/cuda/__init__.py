@@ -1,17 +1,18 @@
-"""Hand-written Hopper (sm_90a) CUDA kernels of the main path, one wrapper
-each. Every wrapper counts its launches in ``<wrapper>.forms``, a Counter
-keyed by the launched form: the tensors' shape and whatever else picks the
+"""Hand-written Hopper (sm_90a) CUDA kernels of the main paths and the ALU
+peak anchor, one wrapper each. Every wrapper counts its launches in
+``<wrapper>.forms``, a Counter keyed by the launched form: the tensors' shape and whatever else picks the
 kernel's instantiation (``launch.count_launch``)."""
 
 from typing import Dict, Tuple
 
 from .cost_kernel import census_cost, rank_cost, sad_cost
 from .filter_kernel import median3x3
+from .peak_kernel import alu_peak
 from .sgm_kernel import sgm_paths, sgm_select
 
-#: The kernel wrappers in main-path order.
+#: The kernel wrappers in main-path order, then the anchor.
 KERNELS = (census_cost, rank_cost, sad_cost, sgm_paths, sgm_select,
-           median3x3)
+           median3x3, alu_peak)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -37,6 +38,7 @@ __all__ = [
     "sgm_paths",
     "sgm_select",
     "median3x3",
+    "alu_peak",
     "KERNELS",
     "launch_counts",
     "launch_forms",

@@ -31,25 +31,33 @@ NVCC_FLAGS = [
 ]
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_cl = ctypes.c_longlong
 
-#: C entry points of the kernel library: argument types (all return int,
-#: the launch's cudaError_t).
+#: C entry points of the kernel library: argument types (all return int:
+#: the launch's cudaError_t, or the answer of the one query).
 KERNEL_SIGNATURES = {
-    # cl, cr, out, h, w, d, words, combine, md, maxc, stream
+    # w, sp -> 1 if K3's row fits a block's shared memory
+    "stpu_sgm_select_fits": [_ci, _ci],
+    # cl, cr, out, h, w, d, words, combine, md, maxc, ctx, x_off, stream
     "stpu_census_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
-                         _vp],
-    # left, right, out, h, w, d, md, wy, wx, maxc, stream
-    "stpu_sad_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
+                         _ci, _ci, _vp],
+    # left, right, out, h, w, d, md, wy, wx, maxc, x_off, stream
+    "stpu_sad_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+                      _vp],
     # cost, cost_bytes, image (NULL: fixed P2), sum, h, w, d, step_y,
     # step_x, p1, p2, p2_min, grad_floor, accumulate, stream
     "stpu_sgm_path": [_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                       _ci, _ci, _ci, _vp],
     # sum, disp, valid, d0 (NULL: not emitted), h, w, d, md, subpixel,
-    # uniqueness, uniq_f, lr_check, lr_tau, stream
+    # uniqueness, uniq_f, lr_check, lr_tau, x0, iw, lr_bit, qr (NULL: not
+    # the emit_qr form), spill, own_lo, own_hi, sp, stream
     "stpu_sgm_select": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci,
-                        _cf, _ci, _cf, _vp],
+                        _cf, _ci, _cf, _ci, _ci, _vp, _vp, _vp, _ci, _ci,
+                        _ci, _vp],
     # in, out, h, w, stream
     "stpu_median3x3": [_vp, _vp, _ci, _ci, _vp],
+    # x, out, n, k, chains, is_int, stream
+    "stpu_alu_peak": [_vp, _vp, _cl, _ci, _ci, _ci, _vp],
 }
 
 _lock = threading.Lock()

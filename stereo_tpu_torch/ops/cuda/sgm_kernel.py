@@ -3,11 +3,12 @@ disparity selection (csrc/sgm_select.cu).
 
 K2 replaces ``stereo_tpu/ops/pallas/sgm_kernel.py:_h_kernel``,
 ``_v_kernel`` and the path half of ``_v_fused_kernel``, fixed and adaptive
-P2; K3 replaces the selection epilogue of ``_v_fused_kernel`` (its base and
-``emit_d0`` forms). Together they compute what ``sgm_wta_fused_pallas``
-does, with S materialized once in int16 between them; ``sgm_paths`` alone
-is the staged S of ``sgm_aggregate_pallas`` (the pyramid model's residual
-volume at D=16).
+P2; K3 replaces the selection epilogue of ``_v_fused_kernel`` (its base,
+``emit_d0`` and ``emit_qr`` forms, whole frames and column patches of a
+larger frame). Together they compute what ``sgm_wta_fused_pallas`` does,
+with S materialized once in int16 between them; ``sgm_paths`` alone is the
+staged S of ``sgm_aggregate_pallas`` (the pyramid model's residual volume
+at D=16).
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ from typing import Optional, Tuple
 import torch
 
 from ...config import StereoConfig
-from ..postprocess import select_disparity
+from ..postprocess import select_disparity, spill_width
 from ..sgm import PATH_STEPS, sgm_aggregate
+from .build import load_kernels
 from .launch import count_launch, on_cpu, require, require_disparities, run
 
 
@@ -75,35 +77,81 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
 sgm_paths.forms = Counter()
 
 
-def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False
+def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False,
+               x_offset: int = 0, image_width: Optional[int] = None,
+               emit_qr: bool = False,
+               own: Optional[Tuple[int, int]] = None,
                ) -> Tuple[torch.Tensor, ...]:
     """(disp [H, W] float32, valid [H, W] bool) from S: first-min WTA,
     uniqueness, subpixel and the cheap LR check (off with ``lr_exact``),
     median excluded. ``emit_d0`` adds the integer winner lane d0 ([H, W]
-    int32, md excluded), the form the exact LR check compares. Any D in
-    [1, 256]; a negative ``min_disparity`` only with the cheap LR check
-    off. CPU tensors take the plain version
-    (``ops.postprocess.select_disparity``)."""
-    if on_cpu(s):
-        return select_disparity(s, cfg, emit_d0=emit_d0)
-    require(s, "s", torch.int16, 3)
+    int32, md excluded), the form the exact LR check compares.
+    ``x_offset`` / ``image_width`` place the block in a larger frame.
+
+    ``emit_qr`` (a column patch whose LR check is stitched across patches;
+    needs the cheap LR check and a block at least D + md wide) returns
+    (disp, ok_nolr, lr_bit, d0, qr, spill) as
+    ``ops.postprocess.select_disparity`` does, the right view fed by the
+    source columns in ``own`` only.
+
+    Any D in [1, 256]; a negative ``min_disparity`` only with the cheap LR
+    check off. CPU tensors take the plain version (``select_disparity``).
+    """
     h, w, d = s.shape
-    require_disparities(d)
+    md = int(cfg.min_disparity)
+    if image_width is None:
+        image_width = x_offset + w
+    if x_offset < 0 or image_width < x_offset + w:
+        raise ValueError(f"block [{x_offset}, {x_offset + w}) leaves the "
+                         f"frame [0, {image_width})")
     cheap_lr = cfg.lr_check and not cfg.lr_exact
-    if cfg.min_disparity < 0 and cheap_lr:
+    own_lo, own_hi = own if own is not None else (0, w)
+    if emit_qr:
+        if not cheap_lr:
+            raise ValueError("emit_qr needs the cheap LR check (lr_check "
+                             "without lr_exact)")
+        if w < d + md:
+            raise ValueError(f"emit_qr requires block width >= D + "
+                             f"min_disparity ({d + md}), got {w}")
+        if not 0 <= own_lo <= own_hi <= w:
+            raise ValueError(f"own {own} is not a range of [0, {w}]")
+    if on_cpu(s):
+        return select_disparity(s, cfg, emit_d0=emit_d0, x_offset=x_offset,
+                                image_width=image_width, emit_qr=emit_qr,
+                                own=own)
+    require(s, "s", torch.int16, 3)
+    require_disparities(d)
+    if md < 0 and cheap_lr:
         raise ValueError("the CUDA select kernel takes min_disparity < 0 "
                          "only with the cheap LR check off")
-    disp = torch.empty((h, w), dtype=torch.float32, device=s.device)
-    valid = torch.empty((h, w), dtype=torch.bool, device=s.device)
-    d0 = (torch.empty((h, w), dtype=torch.int32, device=s.device)
-          if emit_d0 else None)
+    sp = spill_width(d, md) if emit_qr else 0
+    if not load_kernels().stpu_sgm_select_fits(w, sp):
+        raise ValueError(f"the CUDA select kernel keeps a row in shared "
+                         f"memory: width {w} is too large")
+
+    def out(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=s.device)
+
+    disp = out((h, w), torch.float32)
+    valid = out((h, w), torch.bool)
+    d0 = out((h, w), torch.int32) if emit_d0 or emit_qr else None
+    lr_bit = out((h, w), torch.bool) if emit_qr else None
+    qr = out((h, w), torch.float32) if emit_qr else None
+    spill = out((h, sp), torch.float32) if emit_qr else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     run("stpu_sgm_select", s.device, s.data_ptr(), disp.data_ptr(),
-        valid.data_ptr(), None if d0 is None else d0.data_ptr(), h, w, d,
-        int(cfg.min_disparity), int(cfg.subpixel),
+        valid.data_ptr(), ptr(d0), h, w, d, md, int(cfg.subpixel),
         int(cfg.uniqueness_ratio > 0), 1.0 + cfg.uniqueness_ratio,
-        int(cheap_lr), cfg.lr_tau)
-    count_launch(sgm_select, h, w, d, int(cfg.min_disparity), cfg.subpixel,
-                 cfg.uniqueness_ratio > 0, cheap_lr, emit_d0)
+        int(cheap_lr), cfg.lr_tau, x_offset, image_width, ptr(lr_bit),
+        ptr(qr), ptr(spill), own_lo, own_hi, sp)
+    framed = cheap_lr and (x_offset != 0 or image_width != w)
+    count_launch(sgm_select, h, w, d, md, cfg.subpixel,
+                 cfg.uniqueness_ratio > 0, cheap_lr, emit_d0, framed, emit_qr)
+    if emit_qr:
+        return disp, valid, lr_bit, d0, qr, spill
     return (disp, valid) if d0 is None else (disp, valid, d0)
 
 

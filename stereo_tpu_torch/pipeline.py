@@ -1,4 +1,5 @@
-"""End-to-end stereo pipeline on whole frames.
+"""End-to-end stereo pipeline on whole frames and on column patches of a
+larger frame.
 
 On CUDA tensors ``compute_disparity`` runs the hand-written kernels in
 order: the cost volume (K1 after the census or rank transform, which stays
@@ -10,11 +11,18 @@ torch on [H, W] maps, as it runs in XLA on the TPU. On CPU tensors it runs
 the plain staged path (cost volume, SGM, WTA, post-processing), the same
 composition as the reference's ``compute_disparity`` with
 ``backend="jnp"``; both give the same bits.
+
+A static column patch (``parallel/bands.py``) passes its global column
+origin ``x_offset``, the frame's ``image_width`` and, for census and rank
+costs, ``right_context`` frame-true columns in front of the right image, so
+that disparity-range masking and LR framing are the whole frame's;
+``compute_patch_parts`` is the patch whose LR check the stitched runner
+reassembles across patches.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +38,12 @@ from .ops.cuda import (
     sgm_paths,
     sgm_select,
 )
-from .ops.postprocess import apply_postprocess, lr_consistency
+from .ops.postprocess import (
+    apply_postprocess,
+    lr_consistency,
+    median_3x3,
+    select_disparity,
+)
 from .ops.sgm import sgm_aggregate
 
 
@@ -53,57 +66,121 @@ def use_kernels(cfg: StereoConfig, device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+def _kernel_cost(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
+                 x_offset: int = 0, right_context: int = 0) -> torch.Tensor:
+    """The cost volume of one reference view through K1 (after the census
+    or rank transform, which runs on ``tgt`` with its context columns) or
+    K5."""
+    if cfg.cost_fn == "sad":
+        if right_context:
+            raise NotImplementedError(
+                "the SAD kernel takes no right_context (as the reference's); "
+                "use backend='torch'")
+        return sad_cost(ref, tgt, cfg, x_offset)
+    if cfg.cost_fn == "rank":
+        return rank_cost(rank_transform(ref, cfg.census_window),
+                         rank_transform(tgt, cfg.census_window), cfg,
+                         x_offset, right_context)
+    return census_cost(census_transform(ref, cfg.census_window),
+                       census_transform(tgt, cfg.census_window), cfg,
+                       x_offset, right_context)
+
+
 def _kernel_view(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
-                 emit_d0: bool = False):
+                 emit_d0: bool = False, x_offset: int = 0,
+                 image_width: Optional[int] = None, right_context: int = 0):
     """One reference view through the kernels: cost volume (K1 or K5),
     then ``kernel_select``."""
-    if cfg.cost_fn == "sad":
-        cost = sad_cost(ref, tgt, cfg)
-    elif cfg.cost_fn == "rank":
-        cost = rank_cost(rank_transform(ref, cfg.census_window),
-                         rank_transform(tgt, cfg.census_window), cfg)
-    else:
-        cost = census_cost(census_transform(ref, cfg.census_window),
-                           census_transform(tgt, cfg.census_window), cfg)
-    return kernel_select(cost, cfg, ref, emit_d0=emit_d0)
+    cost = _kernel_cost(ref, tgt, cfg, x_offset, right_context)
+    return kernel_select(cost, cfg, ref, emit_d0=emit_d0, x_offset=x_offset,
+                         image_width=image_width)
+
+
+def kernel_sum(cost: torch.Tensor, cfg: StereoConfig, image: torch.Tensor
+               ) -> torch.Tensor:
+    """S in int16: K2 per direction on a cost volume, or the cost itself
+    for num_paths=0."""
+    if cfg.num_paths == 0:
+        return cost.to(torch.int16)
+    return sgm_paths(cost, cfg, image=image)
 
 
 def kernel_select(cost: torch.Tensor, cfg: StereoConfig, image: torch.Tensor,
-                  emit_d0: bool = False):
-    """K2 per direction on a cost volume (S is the cost itself for
-    num_paths=0), then K3. Returns ``sgm_select``'s outputs."""
-    if cfg.num_paths == 0:
-        s = cost.to(torch.int16)
-    else:
-        s = sgm_paths(cost, cfg, image=image)
-    return sgm_select(s, cfg, emit_d0=emit_d0)
+                  emit_d0: bool = False, x_offset: int = 0,
+                  image_width: Optional[int] = None):
+    """``kernel_sum``, then K3. Returns ``sgm_select``'s outputs."""
+    return sgm_select(kernel_sum(cost, cfg, image), cfg, emit_d0=emit_d0,
+                      x_offset=x_offset, image_width=image_width)
 
 
-def _kernel_path(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
+def _kernel_path(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
+                 x_offset: int, image_width: int, right_context: int
                  ) -> StereoResult:
     if cfg.lr_check and cfg.lr_exact:
         # As the reference's fused lr_exact: the left view keeps its
         # uniqueness gate and integer winners; the flipped pair gives the
         # right view's integer winners (subpixel and uniqueness affect
-        # nothing the compare reads).
+        # nothing the compare reads). On a patch the flipped pair sits at
+        # the flipped global origin.
         disp, ok, d0 = _kernel_view(
-            left, right, cfg.replace(lr_check=False), emit_d0=True)
+            left, right, cfg.replace(lr_check=False), emit_d0=True,
+            x_offset=x_offset)
         cfg_r = cfg.replace(lr_check=False, subpixel=False,
                             uniqueness_ratio=0.0)
-        disp_rf, _ = _kernel_view(right.flip(1), left.flip(1), cfg_r)
+        disp_rf, _ = _kernel_view(
+            right.flip(1), left.flip(1), cfg_r,
+            x_offset=image_width - x_offset - left.shape[1])
         d_int_l = d0.to(torch.float32) + cfg.min_disparity
-        ok = ok & lr_consistency(d_int_l, disp_rf.flip(1), cfg)
+        ok = ok & lr_consistency(d_int_l, disp_rf.flip(1), cfg, x_offset,
+                                 image_width)
     else:
-        disp, ok = _kernel_view(left, right, cfg)
+        disp, ok = _kernel_view(left, right, cfg, x_offset=x_offset,
+                                image_width=image_width,
+                                right_context=right_context)
     if cfg.median_filter:
         disp = median3x3(disp)
     return StereoResult(disp=disp, valid=ok)
 
 
-def _aggregate(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig
-               ) -> torch.Tensor:
+def _aggregate(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
+               x_offset: int = 0, right_context: int = 0) -> torch.Tensor:
     """Plain cost volume + SGM for one reference view."""
-    return sgm_aggregate(cost_volume(left, right, cfg), cfg, image=left)
+    cost = cost_volume(left, right, cfg, x_offset, right_context)
+    return sgm_aggregate(cost, cfg, image=left)
+
+
+def _check_block(left: torch.Tensor, right: torch.Tensor, x_offset: int,
+                 image_width: Optional[int], right_context: int,
+                 tile_mode: bool) -> int:
+    """Validate one block of a frame and its framing; returns the frame's
+    width. ``tile_mode``: the caller passed one of the reference's
+    rectangular-tile or masking arguments."""
+    if left.ndim != 2 or right.ndim != 2 or (
+        left.shape[0] != right.shape[0]
+        or left.shape[1] + right_context != right.shape[1]
+    ):
+        raise ValueError(
+            f"expected [H, W] left and [H, W + right_context] right, got "
+            f"left {tuple(left.shape)} vs right {tuple(right.shape)} "
+            f"(right_context={right_context})"
+        )
+    if left.device != right.device:
+        raise ValueError(f"images on {left.device} and {right.device}")
+    if tile_mode:
+        raise NotImplementedError(
+            "masked frames and rectangular tiles (valid, constrain, "
+            "y_offset, image_height) are not ported yet (ROADMAP Queue 1: "
+            "tiles over torch.distributed)"
+        )
+    if not isinstance(x_offset, int) or x_offset < 0 or right_context < 0:
+        raise ValueError("x_offset and right_context must be ints >= 0")
+    if image_width is None:
+        image_width = x_offset + left.shape[1]
+    if image_width < x_offset + left.shape[1]:
+        raise ValueError(
+            f"block [{x_offset}, {x_offset + left.shape[1]}) leaves the "
+            f"frame [0, {image_width})")
+    return image_width
 
 
 def compute_disparity(
@@ -118,49 +195,116 @@ def compute_disparity(
     image_height: Optional[int] = None,
     right_context: int = 0,
 ) -> StereoResult:
-    """Full pipeline on one rectified pair of whole frames.
+    """Full pipeline on one rectified pair: a whole frame, or a static
+    column patch of a larger frame.
 
     Args:
-      left, right: [H, W] uint8 (or float) grayscale images on one device.
+      left: [H, W] uint8 (or float) grayscale image.
+      right: [H, W + right_context], on the same device: ``right_context``
+        frame-true columns preceding the block are prepended, so the
+        disparity search reads real neighbours without extending the SGM
+        domain (census and rank costs).
       cfg: static StereoConfig; ``cfg.backend`` picks kernels or plain ops.
-      valid, constrain, x_offset, image_width, y_offset, image_height,
-        right_context: the reference's tile and patch framing; only the
-        whole-frame defaults are ported, anything else raises.
+      x_offset, image_width: the block's global column origin and the
+        frame's width (default: the block ends the frame), so that
+        disparity-range masking and LR framing match the whole frame's.
+      valid, constrain, y_offset, image_height: the reference's masks and
+        rectangular-tile mode; not ported, anything but the defaults
+        raises.
 
     Returns: StereoResult(disp [H, W] float32, valid [H, W] bool).
     """
-    if left.ndim != 2 or left.shape != right.shape:
-        raise ValueError(
-            f"expected two [H, W] images, got {tuple(left.shape)} and "
-            f"{tuple(right.shape)}"
-        )
-    if left.device != right.device:
-        raise ValueError(f"images on {left.device} and {right.device}")
-    framed = (
-        valid is not None or constrain is not None or x_offset != 0
-        or image_width not in (None, left.shape[1]) or y_offset != 0
-        or image_height is not None or right_context != 0
-    )
-    if framed:
+    tile_mode = (valid is not None or constrain is not None or y_offset != 0
+                 or image_height is not None)
+    iw = _check_block(left, right, x_offset, image_width, right_context,
+                      tile_mode)
+    if right_context and cfg.lr_exact:
         raise NotImplementedError(
-            "tiles, patches and masked frames (valid, constrain, x_offset, "
-            "image_width, y_offset, image_height, right_context) are not "
-            "ported yet (ROADMAP Queue 1: multi-GPU, tiles, patches and "
-            "framing)"
-        )
+            "right_context supports the cheap LR check only (no lr_exact "
+            "flipped pass)")
     if use_kernels(cfg, left.device):
-        return _kernel_path(left, right, cfg)
+        return _kernel_path(left, right, cfg, x_offset, iw, right_context)
 
-    s = _aggregate(left, right, cfg)
+    s = _aggregate(left, right, cfg, x_offset, right_context)
     disp, ok, d_int = wta_with_aux(s, cfg)
     if cfg.lr_check and cfg.lr_exact:
         # The reference's staged exact check: the right view matched as
-        # the flipped pair, integer winners compared on both sides.
-        s_r = _aggregate(right.flip(1), left.flip(1), cfg)
+        # the flipped pair (at the flipped global origin), integer winners
+        # compared on both sides.
+        s_r = _aggregate(right.flip(1), left.flip(1), cfg,
+                         x_offset=iw - x_offset - left.shape[1])
         _, _, d_int_r = wta_with_aux(s_r, cfg)
-        ok = ok & lr_consistency(d_int, d_int_r.flip(1), cfg)
-    disp, ok = apply_postprocess(disp, ok, s, cfg, disp_int=d_int)
+        ok = ok & lr_consistency(d_int, d_int_r.flip(1), cfg, x_offset, iw)
+    disp, ok = apply_postprocess(disp, ok, s, cfg, x_offset, iw,
+                                 disp_int=d_int)
     return StereoResult(disp=disp, valid=ok)
+
+
+class PatchParts(NamedTuple):
+    """One column patch with its LR check left open for stitching
+    (``parallel/bands.py``).
+
+    disp: [H, W] float32 final disparity (subpixel + median applied).
+    ok_nolr: [H, W] bool uniqueness gate (LR excluded).
+    lr_bit: [H, W] bool LR verdict against the patch's own partial map
+      (the stitcher replaces it near interior patch edges).
+    d0: [H, W] int32 integer winner LANE (min_disparity excluded).
+    qr: [H, W] float32 packed right-view partial min, min-combinable
+      across patches (``ops.postprocess.right_view_partial_min``).
+    spill: [H, SP] float32 the same at block-local positions [-SP, 0): this
+      patch's contribution to the PREVIOUS patch's map.
+    """
+
+    disp: torch.Tensor
+    ok_nolr: torch.Tensor
+    lr_bit: torch.Tensor
+    d0: torch.Tensor
+    qr: torch.Tensor
+    spill: torch.Tensor
+
+
+def compute_patch_parts(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    cfg: StereoConfig,
+    x_offset: int = 0,
+    image_width: Optional[int] = None,
+    right_context: int = 0,
+    own: Optional[Tuple[int, int]] = None,
+    valid: Optional[torch.Tensor] = None,
+    y_offset: int = 0,
+    image_height: Optional[int] = None,
+) -> PatchParts:
+    """One column patch of a larger frame, gates left open for stitching.
+
+    Arguments as ``compute_disparity``; ``own`` is the block-local column
+    range (lo, hi) the patch OWNS (default the whole patch): its packed
+    partial mins draw sources only from it, so the stitcher's min over
+    patches counts every frame column exactly once. On CUDA tensors this
+    is K1, K2, K3 in its ``emit_qr`` form and K4; on CPU tensors the plain
+    composition; bit-identical either way.
+    """
+    if not (cfg.lr_check and not cfg.lr_exact and cfg.num_paths > 0):
+        raise ValueError(
+            "compute_patch_parts requires lr_check (re-index mode) + SGM"
+        )
+    tile_mode = (valid is not None or y_offset != 0
+                 or image_height is not None)
+    iw = _check_block(left, right, x_offset, image_width, right_context,
+                      tile_mode)
+    if use_kernels(cfg, left.device):
+        cost = _kernel_cost(left, right, cfg, x_offset, right_context)
+        parts = sgm_select(kernel_sum(cost, cfg, left), cfg,
+                           x_offset=x_offset, image_width=iw, emit_qr=True,
+                           own=own)
+        median = median3x3
+    else:
+        s = _aggregate(left, right, cfg, x_offset, right_context)
+        parts = select_disparity(s, cfg, x_offset=x_offset, image_width=iw,
+                                 emit_qr=True, own=own)
+        median = median_3x3
+    disp = median(parts[0]) if cfg.median_filter else parts[0]
+    return PatchParts(disp, *parts[1:])
 
 
 def build_pipeline(cfg: StereoConfig, device="cuda"):

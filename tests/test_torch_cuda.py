@@ -35,6 +35,7 @@ from stereo_tpu_torch.ops import (
     sgm_aggregate,
 )
 from stereo_tpu_torch.ops.cuda import (
+    alu_peak,
     census_cost,
     launch_counts,
     launch_forms,
@@ -45,6 +46,10 @@ from stereo_tpu_torch.ops.cuda import (
     sgm_paths,
     sgm_select,
 )
+
+from stereo_tpu_torch.ops.cuda.peak_kernel import PROGRAMS, alu_peak_plain
+from stereo_tpu_torch.parallel import build_banded_pipeline
+from stereo_tpu_torch.pipeline import compute_disparity, compute_patch_parts
 
 pytestmark = pytest.mark.cuda
 
@@ -170,12 +175,14 @@ def test_pipeline_runs_the_kernels(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"census_cost": 1, "rank_cost": 0,
                                "sad_cost": 0, "sgm_paths": 8,
-                               "sgm_select": 1, "median3x3": 1}
-    # by form: the shape and what picks the kernel's instantiation
+                               "sgm_select": 1, "median3x3": 1,
+                               "alu_peak": 0}
+    # by form: the shape and what picks the kernel's instantiation or path
     assert launch_forms() == {
-        ("census_cost", 48, 160, 32, 2): 1,
+        ("census_cost", 48, 160, 32, 2, False): 1,
         ("sgm_paths", 48, 160, 32, "torch.int8", 8, False): 8,
-        ("sgm_select", 48, 160, 32, 0, True, True, True, False): 1,
+        ("sgm_select", 48, 160, 32, 0, True, True, True, False, False,
+         False): 1,
         ("median3x3", 48, 160): 1,
     }
     want = build_pipeline(cfg.replace(backend="torch"), dev)(
@@ -361,3 +368,219 @@ def test_kernels_reject_unsupported_disparities(dev):
     with pytest.raises(TypeError, match="int8 or int16"):
         sgm_paths(cost[:, :, :32].contiguous().to(torch.int32),
                   cfg.replace(num_disparities=32))
+
+
+# --- column patches: origins, context, the emit_qr form; D = 256; K6 --------
+
+_ORIGINS = [(0, 24, 0), (2, 24, 17), (3, 7, 7), (0, 300, 255), (5, 130, 0)]
+
+
+@pytest.mark.parametrize("md, x_offset, ctx", _ORIGINS)
+@pytest.mark.parametrize("d, window, h, w", [(16, (5, 5), 9, 150),
+                                             (128, (9, 7), 7, 257),
+                                             (256, (9, 7), 5, 300),
+                                             (33, (7, 7), 6, 131)])
+def test_census_cost_kernel_origins(dev, d, window, h, w, md, x_offset, ctx):
+    cfg = StereoConfig(census_window=window, num_disparities=d,
+                       min_disparity=md)
+    left = _images(d + ctx, h, w, dev)[0]
+    right = _images(d + md, h, w + ctx, dev)[0]
+    got = census_cost(census_transform(left, window),
+                      census_transform(right, window), cfg, x_offset, ctx)
+    torch.cuda.synchronize()
+    want = census_cost_volume(left, right, cfg, x_offset, ctx)
+    assert torch.equal(got.to(torch.int32), want)
+
+
+@pytest.mark.parametrize("md, x_offset, ctx", _ORIGINS)
+def test_rank_cost_kernel_origins(dev, md, x_offset, ctx):
+    cfg = StereoConfig(cost_fn="rank", census_window=(9, 7),
+                       num_disparities=64, min_disparity=md)
+    left = _images(ctx, 9, 140, dev)[0]
+    right = _images(md, 9, 140 + ctx, dev)[0]
+    got = rank_cost(rank_transform(left, (9, 7)),
+                    rank_transform(right, (9, 7)), cfg, x_offset, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(got.to(torch.int32),
+                       rank_cost_volume(left, right, cfg, x_offset, ctx))
+
+
+@pytest.mark.parametrize("md, x_offset", [(0, 24), (3, 7), (2, 300)])
+@pytest.mark.parametrize("d", [16, 128])
+def test_sad_cost_kernel_origin(dev, d, md, x_offset):
+    cfg = TSUKUBA_SAD16.replace(num_disparities=d, min_disparity=md,
+                                sad_window=(5, 7))
+    left, right = _images(d + md, 11, 70, dev)
+    got = sad_cost(left, right, cfg, x_offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got.to(torch.int32),
+                       sad_cost_volume(left, right, cfg, x_offset))
+
+
+def _sums(seed, h, w, d, levels, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, levels, size=(h, w, d),
+                                         dtype=np.int16)).to(dev)
+
+
+@pytest.mark.parametrize("x_offset, iw", [(0, 150), (24, 400), (0, 400),
+                                          (250, 400), (60, 215)])
+@pytest.mark.parametrize("d, md", [(64, 0), (64, 3), (16, 2), (40, 0),
+                                   (256, 1)])
+@pytest.mark.parametrize("levels", [5, 1400])
+def test_sgm_select_kernel_framed(dev, d, md, x_offset, iw, levels):
+    # Blocks that start and end inside the frame, at its edges, and one
+    # that ends a few columns before the edge (a partial right clamp).
+    w = 150
+    cfg = KITTI_SGM8_128.replace(num_disparities=d, min_disparity=md)
+    s = _sums(levels + d, 7, w, d, levels, dev)
+    got = sgm_select(s, cfg, x_offset=x_offset, image_width=iw)
+    torch.cuda.synchronize()
+    want = select_disparity(s, cfg, x_offset=x_offset, image_width=iw)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("own", [None, (16, 100), (8, 120), (0, 144),
+                                 (30, 30)])
+@pytest.mark.parametrize("x_offset, iw", [(0, None), (60, 400), (256, 400)])
+@pytest.mark.parametrize("d, md, kw", [
+    (16, 0, dict()), (16, 3, dict(uniqueness_ratio=0.05)), (16, 2, dict()),
+    (64, 0, dict(subpixel=False)), (100, 5, dict()), (1, 0, dict()),
+    (128, 1, dict(lr_tau=0.0)),
+])
+@pytest.mark.parametrize("levels", [5, 900])
+def test_sgm_select_kernel_emit_qr(dev, d, md, kw, x_offset, iw, own, levels):
+    w = 144
+    cfg = KITTI_SGM8_128.replace(num_disparities=d, min_disparity=md, **kw)
+    s = _sums(levels + d + md, 6, w, d, levels, dev)
+    got = sgm_select(s, cfg, x_offset=x_offset, image_width=iw, emit_qr=True,
+                     own=own)
+    torch.cuda.synchronize()
+    want = select_disparity(s, cfg, x_offset=x_offset, image_width=iw,
+                            emit_qr=True, own=own)
+    assert [g.dtype for g in got] == [w_.dtype for w_ in want]
+    for name, g, w_ in zip(("disp", "ok_nolr", "lr_bit", "d0", "qr", "spill"),
+                           got, want):
+        assert torch.equal(g, w_), name
+    assert bool((got[4] >= 3e38).any()) or own in (None, (0, 144))
+
+
+def test_sgm_select_kernel_rejects(dev):
+    s = torch.zeros((4, 40, 16), dtype=torch.int16, device=dev)
+    cfg = StereoConfig(num_disparities=16)
+    with pytest.raises(ValueError, match="block width"):
+        sgm_select(s[:, :12].contiguous(), cfg, emit_qr=True)
+    with pytest.raises(ValueError, match="leaves the frame"):
+        sgm_select(s, cfg, x_offset=30, image_width=60)
+    wide = torch.zeros((1, 20000, 1), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        sgm_select(wide, StereoConfig(num_disparities=1))
+
+
+@pytest.mark.parametrize("h, w", [(9, 700), (40, 333)])
+def test_kernels_at_256_disparities(dev, h, w):
+    # Config 4's D: 8 disparities per lane, keys up to 2^23.
+    cfg = KITTI_SGM8_128.replace(num_disparities=256)
+    left, right = _images(h, h, w, dev)
+    cost = census_cost(census_transform(left, cfg.census_window),
+                       census_transform(right, cfg.census_window), cfg)
+    s = sgm_paths(cost, cfg)
+    got = sgm_select(s, cfg)
+    torch.cuda.synchronize()
+    cost_plain = census_cost_volume(left, right, cfg)
+    assert torch.equal(cost.to(torch.int32), cost_plain)
+    s_plain = sgm_aggregate(cost_plain, cfg)
+    assert torch.equal(s.to(torch.int32), s_plain)
+    for g, w_ in zip(got, select_disparity(s_plain, cfg)):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("k, chains", PROGRAMS)
+def test_alu_peak_kernel(dev, dtype, k, chains):
+    x = (torch.arange(70001, device=dev) % 256).to(dtype)
+    if dtype == torch.float32:
+        x = x / 4
+    reset_launch_counts()
+    got = alu_peak(x, k, chains)
+    torch.cuda.synchronize()
+    assert launch_forms() == {("alu_peak", 70001, str(dtype), k, chains): 1}
+    assert torch.equal(got, alu_peak_plain(x, k, chains))
+    # saturation: a chain that starts near BIG stays there
+    top = torch.full((64,), 3e38 if dtype == torch.float32 else (1 << 30) - 3,
+                     dtype=dtype, device=dev)
+    assert torch.equal(alu_peak(top, k, chains), alu_peak_plain(top, k, chains))
+    with pytest.raises(ValueError, match="one of"):
+        alu_peak(x, 100, 4)
+
+
+@pytest.mark.parametrize(
+    "kw, split, counts",
+    [
+        (dict(), dict(n_bands=2, n_cols=1),
+         dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
+        (dict(), dict(n_bands=1, n_cols=2),
+         dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
+        (dict(min_disparity=2), dict(n_bands=2, n_cols=3),
+         dict(census_cost=6, sgm_paths=48, sgm_select=6, median3x3=6)),
+        (dict(), dict(n_bands=2, n_cols=2, lr_stitch=False),
+         dict(census_cost=4, sgm_paths=32, sgm_select=4, median3x3=4)),
+        (dict(cost_fn="rank"), dict(n_bands=1, n_cols=2),
+         dict(rank_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
+        (dict(cost_fn="sad"), dict(n_bands=1, n_cols=2),
+         dict(sad_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
+        (dict(lr_exact=True), dict(n_bands=1, n_cols=2),
+         dict(census_cost=4, sgm_paths=32, sgm_select=4, median3x3=2)),
+    ],
+    ids=["bands", "stitched", "stitched_2x3_md2", "legacy_2x2", "rank",
+         "sad_legacy", "lr_exact_legacy"],
+)
+def test_banded_runner_runs_the_kernels(dev, kw, split, counts):
+    pair = make_pair((64, 384), max_disp=20, texture="cloud", seed=5)
+    cfg = KITTI_SGM8_128.replace(num_disparities=32, **kw)
+    reset_launch_counts()
+    got = build_banded_pipeline(cfg, (64, 384), device=dev, **split)(
+        pair.left, pair.right)
+    torch.cuda.synchronize()
+    want_counts = dict.fromkeys(launch_counts(), 0)
+    want_counts.update(counts)
+    assert launch_counts() == want_counts
+    stitched = split.get("lr_stitch") is None and split["n_cols"] > 1 and (
+        kw.get("cost_fn", "census") != "sad" and not kw.get("lr_exact"))
+    assert stitched == any(form[-1] is True for form in launch_forms()
+                           if form[0] == "sgm_select")
+    want = build_banded_pipeline(cfg.replace(backend="torch"), (64, 384),
+                                 device=dev, **split)(pair.left, pair.right)
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.disp, want.disp)
+
+
+def test_patch_parts_run_the_kernels(dev):
+    pair = make_pair((32, 320), max_disp=12, kind="shapes", seed=9)
+    cfg = StereoConfig(num_disparities=16, num_paths=8)
+    f0, f1, ctx = 142, 250, 15
+    left = torch.from_numpy(pair.left[:, f0:f1].copy()).to(dev)
+    right = torch.from_numpy(pair.right[:, f0 - ctx:f1].copy()).to(dev)
+    call = dict(x_offset=f0, image_width=320, right_context=ctx,
+                own=(18, 98))
+    reset_launch_counts()
+    got = compute_patch_parts(left, right, cfg, **call)
+    torch.cuda.synchronize()
+    assert launch_forms() == {
+        ("census_cost", 32, 108, 16, 1, True): 1,
+        ("sgm_paths", 32, 108, 16, "torch.int8", 8, False): 8,
+        ("sgm_select", 32, 108, 16, 0, True, False, True, False, True,
+         True): 1,
+        ("median3x3", 32, 108): 1,
+    }
+    want = compute_patch_parts(left, right, cfg.replace(backend="torch"),
+                               **call)
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    framed = compute_disparity(left, right, cfg, x_offset=f0, image_width=320,
+                               right_context=ctx)
+    plain = compute_disparity(left, right, cfg.replace(backend="torch"),
+                              x_offset=f0, image_width=320, right_context=ctx)
+    assert torch.equal(framed.disp, plain.disp)
+    assert torch.equal(framed.valid, plain.valid)

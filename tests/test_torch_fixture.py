@@ -37,10 +37,16 @@ from stereo_tpu.data import kitti_like_pair  # noqa: E402
 from stereo_tpu.eval import hard_suite as jsuite  # noqa: E402
 from stereo_tpu.eval.metrics import evaluate_disparity  # noqa: E402
 from stereo_tpu.models import get_model  # noqa: E402
+from stereo_tpu.parallel.bands import build_banded_pipeline  # noqa: E402
 from stereo_tpu.pipeline.pipeline import host_postprocess  # noqa: E402
 from stereo_tpu_torch import PRESETS as TPRESETS  # noqa: E402
 from stereo_tpu_torch import data as tdata  # noqa: E402
 from stereo_tpu_torch.eval import hard_suite as tsuite  # noqa: E402
+from stereo_tpu_torch.eval import evaluate_disparity as t_evaluate  # noqa: E402
+from stereo_tpu_torch.parallel import (  # noqa: E402
+    build_banded_pipeline as t_banded,
+)
+from stereo_tpu_torch.pipeline import host_postprocess as t_post  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -99,6 +105,34 @@ SLICES = {
                             {}, _kitti, "kitti_like_pair(seed=0)"),
 }
 
+#: The banded runner's fixtures: name -> (preset, pair, the pair's
+#: description, the runner's split). Config 4 (middlebury_full_256_tiled)
+#: at a quarter of the resolution and the full D: the whole frame (the
+#: reference bench's form), two column patches (stitched by default) and
+#: 2x2 patches in the legacy overlap. tsukuba_sad16 in two column patches:
+#: a SAD cost always takes the legacy overlap, with a column origin.
+_CFG4_Q = ("middlebury_full_256_tiled", _shapes_pair((497, 720), 200),
+           "make_pair((497, 720), max_disp=200, kind='shapes', "
+           "texture='cloud', seed=0)")
+_TSUKUBA = ("tsukuba_sad16", _shapes_pair((288, 384), 14),
+            "make_pair((288, 384), max_disp=14, kind='shapes', "
+            "texture='cloud', seed=0)")
+BANDED = {
+    "middlebury_full_256_tiled_q": (*_CFG4_Q, dict(n_bands=1, n_cols=1)),
+    "middlebury_full_256_tiled_q_1x2": (*_CFG4_Q, dict(n_bands=1, n_cols=2)),
+    "middlebury_full_256_tiled_q_2x2_legacy": (
+        *_CFG4_Q, dict(n_bands=2, n_cols=2, lr_stitch=False)),
+    "tsukuba_sad16_1x2": (*_TSUKUBA, dict(n_bands=1, n_cols=2)),
+}
+#: The same three splits at 1988x2880, the bench's size. Their int32
+#: volumes are 5.9 GB each, too much for a CPU test run, so they are
+#: made on the card by the port's plain path (``chip_smoke.py
+#: --write-fixtures``), which the quarter-size fixtures tie to the
+#: reference; each says so in ``made_by``.
+FULL_SIZE = {name.replace("_q", ""): split
+             for name, (preset, *_, split) in BANDED.items()
+             if preset == _CFG4_Q[0]}
+
 #: The hard-suite fixtures: the reference bench's suite-scale sweep.
 SUITE_FIXTURE = TESTDATA / "hard_suite_kitti_sgm8_128_quality.json"
 SUITE = dict(preset="kitti_sgm8_128_quality", shape=[160, 288],
@@ -109,6 +143,9 @@ ROBUSTNESS = dict(preset="kitti_sgm8_128", shape=[160, 288], seeds=[0])
 SLICE_KEYS = {"source", "preset", "overrides", "model", "model_kwargs", "pair",
               "shape", "hash", "disp", "valid", "n_valid", "post_disp",
               "post_valid", "post_n_valid", "bad3", "density"}
+#: A banded fixture names its split instead of a model; a full-size one
+#: says who made it.
+BANDED_KEYS = (SLICE_KEYS - {"overrides", "model", "model_kwargs"}) | {"bands"}
 
 
 def _hash(a) -> str:
@@ -126,16 +163,32 @@ def _golden_record(cfg, pair, model="classic", model_kwargs=None) -> dict:
     before and after host_postprocess."""
     fn = get_model(model, cfg=cfg.replace(backend="jnp"),
                    **(model_kwargs or {})).build()
-    res = fn(pair.left, pair.right)
+    return _record(cfg, pair, fn(pair.left, pair.right), host_postprocess,
+                   evaluate_disparity)
+
+
+def _record(cfg, pair, res, post, evaluate) -> dict:
+    """Hashes, counts and metrics of one result, before and after the
+    host post-filters."""
     disp, valid = np.asarray(res.disp), np.asarray(res.valid)
-    pdisp, pvalid = host_postprocess(disp, valid, cfg)
-    m = evaluate_disparity(pdisp, pair.gt_disp, pair.gt_valid, pvalid)
+    pdisp, pvalid = post(disp, valid, cfg)
+    m = evaluate(pdisp, pair.gt_disp, pair.gt_valid, pvalid)
     return dict(
         shape=list(pair.left.shape), disp=_hash(disp), valid=_hash(valid),
         n_valid=int(valid.sum()), post_disp=_hash(pdisp),
         post_valid=_hash(pvalid), post_n_valid=int(pvalid.sum()),
         bad3=m["bad3"], density=m["density"],
     )
+
+
+def _banded_golden_record(name: str) -> dict:
+    """The JAX golden banded runner on the fixture's pair."""
+    preset, make, _, split = BANDED[name]
+    cfg = PRESETS[preset].replace(backend="jnp")
+    pair = make(jdata)
+    fn = build_banded_pipeline(cfg, pair.left.shape, **split)
+    return _record(cfg, pair, fn(pair.left, pair.right), host_postprocess,
+                   evaluate_disparity)
 
 
 def _check_golden(fx: dict, cfg, pair) -> None:
@@ -191,6 +244,54 @@ def test_slice_fixture_is_well_formed(name):
     assert 0.0 <= fx["bad3"] < 0.1 and 0.5 < fx["density"] <= 1.0
 
 
+@pytest.mark.parametrize("name", sorted(BANDED))
+def test_reference_reproduces_banded_fixture(name):
+    """The JAX golden banded runner on config 4 at 497x720, D=256, and on
+    tsukuba_sad16 at 288x384, gives the stored hashes."""
+    fx = json.loads((TESTDATA / f"{name}_seed0.json").read_text())
+    preset, *_, split = BANDED[name]
+    assert fx["bands"] == split and fx["preset"] == preset
+    got = _banded_golden_record(name)
+    assert got == {k: fx[k] for k in got}
+
+
+@pytest.mark.parametrize("name", ["middlebury_full_256_tiled_q_1x2",
+                                  "tsukuba_sad16_1x2"])
+def test_port_cpu_path_reproduces_banded_fixture(name):
+    """The port's banded runner on the CPU (plain ops) reproduces the
+    stitched quarter-size config-4 fixture and the SAD one: the same
+    hashes, counts and metrics as the JAX golden path, host post-filters
+    included."""
+    fx = json.loads((TESTDATA / f"{name}_seed0.json").read_text())
+    cfg = TPRESETS[fx["preset"]]
+    pair = BANDED[name][1](tdata)
+    fn = t_banded(cfg, pair.left.shape, device="cpu", **fx["bands"])
+    got = _record(cfg, pair, fn(pair.left, pair.right), t_post, t_evaluate)
+    assert got == {k: fx[k] for k in got}
+
+
+@pytest.mark.parametrize("name", sorted({**BANDED, **FULL_SIZE}))
+def test_banded_fixture_is_well_formed(name):
+    """Every banded fixture names the preset, the pair, the split and all
+    the hashes the GPU run compares; a full-size one says who made it."""
+    fx = json.loads((TESTDATA / f"{name}_seed0.json").read_text())
+    full = name in FULL_SIZE
+    assert set(fx) == BANDED_KEYS | ({"made_by"} if full else set())
+    if full:
+        preset, split, shape = _CFG4_Q[0], FULL_SIZE[name], [1988, 2880]
+    else:
+        preset, make, _, split = BANDED[name]
+        shape = list(make(tdata).left.shape)
+    assert fx["preset"] == preset and fx["preset"] in TPRESETS
+    assert fx["bands"] == split
+    assert fx["shape"] == shape
+    for key in ("disp", "valid", "post_disp", "post_valid"):
+        assert re.fullmatch(r"[0-9a-f]{16}", fx[key])
+    h, w = fx["shape"]
+    assert 0 < fx["post_n_valid"] <= fx["n_valid"] <= h * w
+    assert 0.0 <= fx["bad3"] < 0.1 and 0.5 < fx["density"] <= 1.0
+
+
 def test_hard_suite_fixture_is_well_formed():
     """Ten scenario rows of three pairs each, with both score sets."""
     fx = json.loads(SUITE_FIXTURE.read_text())
@@ -234,6 +335,8 @@ def test_port_imports_no_jax():
         "import stereo_tpu_torch.cli, stereo_tpu_torch.native\n"
         "import stereo_tpu_torch.models, stereo_tpu_torch.eval.hard_suite\n"
         "import stereo_tpu_torch.eval.harness, stereo_tpu_torch.utils.viz\n"
+        "import stereo_tpu_torch.eval.roofline, stereo_tpu_torch.parallel\n"
+        "import stereo_tpu_torch.ops.cuda.peak_kernel\n"
         "import chip_smoke, profile_paths\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stereo_tpu')]\n"
@@ -286,9 +389,18 @@ def _write(path: Path, record: dict) -> None:
 def write_fixtures(names) -> None:
     """Make the named fixtures (all when none is named) from the JAX
     golden path and store them under ``stereo_tpu_torch/testdata``."""
-    names = list(names) or [*SLICES, "hard_suite", "census_vs_sad"]
+    names = list(names) or [*SLICES, *BANDED, "hard_suite", "census_vs_sad"]
     for name in names:
-        if name == "hard_suite":
+        if name in BANDED:
+            _write(TESTDATA / f"{name}_seed0.json", dict(
+                source="stereo_tpu build_banded_pipeline(cfg(backend='jnp'), "
+                       "shape, **bands) + host_postprocess + "
+                       "evaluate_disparity",
+                preset=BANDED[name][0], bands=BANDED[name][3],
+                pair=BANDED[name][2],
+                hash="sha256(array.tobytes()).hexdigest()[:16]",
+                **_banded_golden_record(name)))
+        elif name == "hard_suite":
             rows = jsuite.run_hard_suite(
                 PRESETS[SUITE["preset"]].replace(backend="jnp"),
                 shape=tuple(SUITE["shape"]), seeds=tuple(SUITE["seeds"]))

@@ -77,10 +77,12 @@ def test_launches_are_counted_by_form():
         count_launch(median3x3, 4, 5)
         count_launch(median3x3, 4, 5)
         count_launch(median3x3, 8, 5)
-        count_launch(sgm_select, 8, 5, 16, -8, True, False, False)
+        count_launch(sgm_select, 8, 5, 16, -8, True, False, False, False,
+                     False, False)
         assert launch_forms() == {
             ("median3x3", 4, 5): 2, ("median3x3", 8, 5): 1,
-            ("sgm_select", 8, 5, 16, -8, True, False, False): 1}
+            ("sgm_select", 8, 5, 16, -8, True, False, False, False, False,
+             False): 1}
         assert launch_counts()["median3x3"] == 3
         assert launch_counts()["sgm_select"] == 1
     finally:
@@ -324,3 +326,110 @@ def test_sgm_select_negative_origin_matches_reference():
     assert launch_counts() == before
     np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
     np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))
+
+
+_jit_fused_qr = jax.jit(sgm_wta_fused_pallas, static_argnums=1,
+                        static_argnames=("interpret", "emit_qr", "qr_src",
+                                         "x_offset", "image_width"))
+
+
+@pytest.mark.parametrize(
+    "kw, own, x_offset, iw",
+    [
+        (dict(), None, 0, None),
+        (dict(min_disparity=3, uniqueness_ratio=0.05), None, 0, None),
+        (dict(), (16, 100), 0, None),
+        (dict(min_disparity=2), (8, 120), 0, None),
+        (dict(), (20, 124), 60, 400),
+        (dict(min_disparity=3, uniqueness_ratio=0.05), (0, 130), 256, 400),
+    ],
+)
+def test_sgm_select_emit_qr_matches_fused_pallas(kw, own, x_offset, iw):
+    """K3's emit_qr form (its plain version, on the CPU) against the TPU
+    kernel in interpret mode at 16x144x16: the TPU packs ok + 2 lr + 4 d0
+    into one word; its lr_bit is compared past the first D + md columns
+    only, where its mod-W wrap does not reach."""
+    rng = np.random.default_rng(5)
+    h, w, d = 16, 144, 16
+    cost = rng.integers(0, 25, size=(h, w, d)).astype(np.int16)
+    ckw = dict(num_disparities=d, num_paths=8, p1=3, p2=20,
+               median_filter=False, lr_check=True, **kw)
+    want_disp, packed, want_qr, want_spill = _jit_fused_qr(
+        cost, JCfg(**ckw), interpret=True, emit_qr=True, qr_src=own,
+        x_offset=x_offset, image_width=iw)
+    packed = np.asarray(packed)
+    cfg = TCfg(**ckw)
+    before = launch_counts()
+    disp, ok, lr_bit, d0, qr, spill = sgm_select(
+        sgm_paths(_t(cost), cfg), cfg, x_offset=x_offset, image_width=iw,
+        emit_qr=True, own=own)
+    assert launch_counts() == before
+    np.testing.assert_array_equal(qr.numpy(), np.asarray(want_qr))
+    np.testing.assert_array_equal(spill.numpy(), np.asarray(want_spill))
+    np.testing.assert_array_equal(ok.numpy(), (packed & 1).astype(bool))
+    np.testing.assert_array_equal(d0.numpy(), packed >> 2)
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))
+    cut = d + cfg.min_disparity
+    np.testing.assert_array_equal(lr_bit.numpy()[:, cut:],
+                                  ((packed >> 1) & 1).astype(bool)[:, cut:])
+
+
+def test_sgm_select_emit_qr_rejects():
+    """emit_qr needs the cheap LR check, a block at least D + md wide and
+    an own range inside the block; a block must lie inside its frame."""
+    s = torch.zeros((4, 40, 16), dtype=torch.int16)
+    cfg = TCfg(num_disparities=16)
+    with pytest.raises(ValueError, match="cheap LR"):
+        sgm_select(s, cfg.replace(lr_exact=True), emit_qr=True)
+    with pytest.raises(ValueError, match="block width"):
+        sgm_select(s[:, :12], cfg, emit_qr=True)
+    with pytest.raises(ValueError, match="own"):
+        sgm_select(s, cfg, emit_qr=True, own=(8, 50))
+    with pytest.raises(ValueError, match="leaves the frame"):
+        sgm_select(s, cfg, x_offset=30, image_width=60)
+
+
+@pytest.mark.parametrize("x_offset, iw", [(24, 200), (0, 100), (60, 130)])
+def test_sgm_select_framed_matches_fused_pallas(x_offset, iw):
+    """K3's base form on a column patch (x_offset, image_width), its plain
+    version against the TPU kernel in interpret mode. The two differ only
+    where the golden lookups clamp into the block and the TPU's shifts wrap
+    mod W: the first D + md columns of a block that starts inside the frame
+    and the last D + md of one that ends inside it, which every caller
+    crops."""
+    rng = np.random.default_rng(17)
+    h, w, d = 16, 70, 16
+    cost = rng.integers(0, 25, size=(h, w, d)).astype(np.int16)
+    ckw = dict(num_disparities=d, num_paths=8, p1=3, p2=20,
+               uniqueness_ratio=0.05, median_filter=False, lr_check=True)
+    want_disp, want_ok = _jit_fused_qr(cost, JCfg(**ckw), interpret=True,
+                                       x_offset=x_offset, image_width=iw)
+    cfg = TCfg(**ckw)
+    disp, ok = sgm_select(sgm_paths(_t(cost), cfg), cfg, x_offset=x_offset,
+                          image_width=iw)
+    lo = d if x_offset else 0
+    hi = w if x_offset + w == iw else w - d
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))
+    np.testing.assert_array_equal(ok.numpy()[:, lo:hi],
+                                  np.asarray(want_ok)[:, lo:hi])
+
+
+@pytest.mark.parametrize("md, x_offset, ctx", [(0, 24, 0), (2, 24, 17),
+                                               (0, 40, 15)])
+def test_framed_census_cost_matches_pallas(md, x_offset, ctx):
+    """K1 with x_offset and right_context (plain version) against the TPU
+    kernel in interpret mode, from the same descriptors' images."""
+    rng = np.random.default_rng(md + ctx)
+    h, w = 19, 70
+    left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    right = rng.integers(0, 256, size=(h, w + ctx)).astype(np.uint8)
+    kw = dict(census_window=(9, 7), num_disparities=16, min_disparity=md)
+    want, _ = census_cost_volume_pallas(
+        left, right, JCfg(**kw), interpret=True, out_dtype=np.int8,
+        x_offset=x_offset, right_context=ctx)
+    cfg = TCfg(**kw)
+    got = census_cost(census_transform(_t(left), cfg.census_window),
+                      census_transform(_t(right), cfg.census_window), cfg,
+                      x_offset=x_offset, right_context=ctx)
+    assert got.dtype == torch.int8 and got.shape == (h, w, 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:h, :w])

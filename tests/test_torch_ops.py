@@ -269,3 +269,175 @@ def test_select_disparity_negative_origin(kw):
     np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
     np.testing.assert_array_equal(disp.numpy(), np.asarray(want_disp))
     assert float(disp.min()) < 0
+
+
+# --- framing: a column patch of a larger frame ------------------------------
+
+from stereo_tpu.ops import postprocess as jpost  # noqa: E402
+from stereo_tpu_torch.ops import postprocess as tpost  # noqa: E402
+
+#: (min_disparity, x_offset, right_context): whole frame, a legacy patch
+#: (origin only), stitched patches (origin and context), odd origins.
+_FRAMES = [(0, 0, 0), (0, 24, 0), (2, 24, 17), (3, 7, 7), (0, 40, 15)]
+
+
+@pytest.mark.parametrize("md, x_offset, ctx", _FRAMES)
+@pytest.mark.parametrize("cost_fn", ["census", "rank", "sad"])
+def test_framed_cost_volume(cost_fn, md, x_offset, ctx):
+    """``x_offset`` / ``right_context`` on all three costs: the right image
+    carries ctx leading columns, invalidity is global."""
+    rng = np.random.default_rng(31 + md + x_offset)
+    h, w, d = 13, 45, 16
+    left = _image(rng, h, w)
+    right = _image(rng, h, w + ctx)
+    kw = dict(cost_fn=cost_fn, census_window=(7, 5), sad_window=(5, 5),
+              num_disparities=d, min_disparity=md)
+    want = np.asarray(jops.cost_volume(left, right, JCfg(**kw),
+                                       x_offset=x_offset, right_context=ctx))
+    got = tops.cost_volume(_t(left), _t(right), TCfg(**kw), x_offset=x_offset,
+                           right_context=ctx)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_descriptor_cost_in_row_chunks(monkeypatch):
+    """The row-chunked descriptor cost equals the one-piece volume."""
+    from stereo_tpu_torch.ops import cost as tcost
+
+    rng = np.random.default_rng(2)
+    left, right = _image(rng, 23, 31), _image(rng, 23, 31 + 9)
+    cfg = TCfg(census_window=(9, 7), num_disparities=16, min_disparity=1)
+    whole = tops.census_cost_volume(_t(left), _t(right), cfg, 12, 9)
+    monkeypatch.setattr(tcost, "_CHUNK_VOXELS", 5 * 31 * 16)
+    chunked = tops.census_cost_volume(_t(left), _t(right), cfg, 12, 9)
+    assert torch.equal(whole, chunked)
+
+
+def test_framed_cost_rejects_wrong_context_width():
+    cfg = TCfg(num_disparities=16)
+    with pytest.raises(ValueError, match="right_context"):
+        tops.census_cost_volume(torch.zeros(4, 20), torch.zeros(4, 20), cfg,
+                                right_context=3)
+
+
+@pytest.mark.parametrize("md, x_offset, iw", [(0, 0, None), (0, 30, 200),
+                                              (3, 30, 70), (2, 0, 64)])
+def test_framed_right_disparity_and_lr(md, x_offset, iw):
+    """``x_offset`` / ``image_width`` on the right-view map, the LR compare
+    and ``apply_postprocess``."""
+    rng = np.random.default_rng(41 + md)
+    h, w, d = 9, 40, 16
+    s = rng.integers(0, 30, size=(h, w, d)).astype(np.int32)
+    kw = dict(num_disparities=d, min_disparity=md, median_filter=False)
+    want_r = np.asarray(jops.right_disparity_from_volume(
+        s, JCfg(**kw), x_offset, iw))
+    got_r = tops.right_disparity_from_volume(_t(s), TCfg(**kw), x_offset, iw)
+    np.testing.assert_array_equal(got_r.numpy(), want_r)
+
+    disp_l = (rng.integers(0, d, size=(h, w)) + md).astype(np.float32)
+    want = np.asarray(jops.lr_consistency(disp_l, want_r, JCfg(**kw),
+                                          x_offset, iw))
+    got = tops.lr_consistency(_t(disp_l), got_r, TCfg(**kw), x_offset, iw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    ok = rng.integers(0, 2, size=(h, w)).astype(bool)
+    want_d, want_v = jops.apply_postprocess(disp_l, ok, s, JCfg(**kw),
+                                            x_offset, iw, disp_int=disp_l)
+    got_d, got_v = tops.apply_postprocess(_t(disp_l), _t(ok), _t(s),
+                                          TCfg(**kw), x_offset, iw,
+                                          disp_int=_t(disp_l))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+
+
+@pytest.mark.parametrize("d, md", [(16, 0), (16, 2), (16, 3), (100, 0),
+                                   (128, 1), (200, 60)])
+def test_spill_width(d, md):
+    assert tpost.spill_width(d, md) == jpost.spill_width(d, md)
+
+
+#: (config keywords, own range, x_offset, image_width): the parameter sets
+#: of the reference's emit_qr test, then framed ones.
+_PARTIALS = [
+    (dict(), None, 0, None),
+    (dict(min_disparity=3, uniqueness_ratio=0.05), None, 0, None),
+    (dict(), (16, 100), 0, None),
+    (dict(min_disparity=2), (8, 120), 0, None),
+    (dict(), (20, 124), 60, 400),
+    (dict(min_disparity=3), (0, 130), 256, 400),
+]
+
+
+@pytest.mark.parametrize("kw, own, x_offset, iw", _PARTIALS)
+def test_right_view_partials(kw, own, x_offset, iw):
+    """The packed partial min, its left spill, the unpacked winner lanes
+    and the LR gate from them, map for map."""
+    rng = np.random.default_rng(5)
+    h, w, d = 16, 144, 16
+    s = rng.integers(0, 900, size=(h, w, d)).astype(np.int32)
+    jc, tc = JCfg(num_disparities=d, **kw), TCfg(num_disparities=d, **kw)
+    want_qr = np.asarray(jpost.right_view_partial_min(s, jc, x_offset, iw,
+                                                      src=own))
+    want_sp = np.asarray(jpost.right_view_spill(s, jc, x_offset, iw, src=own))
+    got_qr = tpost.right_view_partial_min(_t(s), tc, x_offset, iw, src=own)
+    got_sp = tpost.right_view_spill(_t(s), tc, x_offset, iw, src=own)
+    np.testing.assert_array_equal(got_qr.numpy(), want_qr)
+    np.testing.assert_array_equal(got_sp.numpy(), want_sp)
+    assert got_sp.shape == (h, jpost.spill_width(d, jc.min_disparity))
+    assert (want_qr >= 3e38).any() or own is None
+
+    want_dr = np.array(jpost.unpack_partial_min(want_qr, d))
+    got_dr = tpost.unpack_partial_min(got_qr, d)
+    np.testing.assert_array_equal(got_dr.numpy(), want_dr)
+    np.testing.assert_array_equal(
+        tpost.unpack_partial_min(got_sp, d).numpy(),
+        np.asarray(jpost.unpack_partial_min(want_sp, d)))
+
+    d0 = rng.integers(0, d, size=(h, w)).astype(np.int32)
+    gate_iw = iw if iw is not None else w
+    for r_offset, d_r in [(x_offset, want_dr), (max(0, x_offset - 40),
+                                                 np.tile(want_dr, (1, 2)))]:
+        want_g = np.asarray(jpost.lr_gate_from_right_map(
+            d0, d_r, jc, x_offset=x_offset, image_width=gate_iw,
+            r_offset=r_offset))
+        got_g = tpost.lr_gate_from_right_map(
+            _t(d0), _t(d_r), tc, x_offset=x_offset, image_width=gate_iw,
+            r_offset=r_offset)
+        np.testing.assert_array_equal(got_g.numpy(), want_g)
+
+
+@pytest.mark.parametrize("kw, own, x_offset, iw", _PARTIALS)
+def test_select_disparity_emit_qr_composition(kw, own, x_offset, iw):
+    """``select_disparity(emit_qr=True)`` is the reference's golden patch
+    composition: WTA, the two partial maps, and the gate from the patch's
+    own map."""
+    rng = np.random.default_rng(8)
+    h, w, d = 12, 144, 16
+    s = rng.integers(0, 60, size=(h, w, d)).astype(np.int32)
+    jc, tc = JCfg(num_disparities=d, **kw), TCfg(num_disparities=d, **kw)
+    disp, ok, lr_bit, d0, qr, spill = tpost.select_disparity(
+        _t(s), tc, x_offset=x_offset, image_width=iw, emit_qr=True, own=own)
+    full_iw = iw if iw is not None else x_offset + w
+    j_disp, j_ok, j_dint = j_wta_with_aux(s, jc)
+    j_d0 = np.asarray(j_dint) - jc.min_disparity
+    j_qr = jpost.right_view_partial_min(s, jc, x_offset, full_iw, src=own)
+    j_lr = jpost.lr_gate_from_right_map(
+        j_d0, jpost.unpack_partial_min(j_qr, d), jc, x_offset=x_offset,
+        image_width=full_iw, r_offset=x_offset)
+    assert ok.dtype == lr_bit.dtype == torch.bool and d0.dtype == torch.int32
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(j_disp))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(j_ok))
+    np.testing.assert_array_equal(d0.numpy(), j_d0)
+    np.testing.assert_array_equal(qr.numpy(), np.asarray(j_qr))
+    np.testing.assert_array_equal(lr_bit.numpy(), np.asarray(j_lr))
+    np.testing.assert_array_equal(
+        spill.numpy(),
+        np.asarray(jpost.right_view_spill(s, jc, x_offset, full_iw, src=own)))
+
+
+def test_select_disparity_emit_qr_needs_cheap_lr():
+    s = torch.zeros((4, 40, 16), dtype=torch.int32)
+    for kw in (dict(lr_check=False), dict(lr_exact=True)):
+        with pytest.raises(ValueError, match="emit_qr"):
+            tpost.select_disparity(s, TCfg(num_disparities=16, **kw),
+                                   emit_qr=True)

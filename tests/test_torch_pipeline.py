@@ -188,16 +188,24 @@ def test_sad_through_sgm_matches_reference(paths):
     "kw, call_kw",
     [
         ({}, dict(y_offset=2)),
-        ({}, dict(x_offset=8)),
-        ({}, dict(right_context=4)),
+        ({}, dict(valid=torch.ones((8, 40), dtype=torch.bool))),
+        ({}, dict(constrain=(None, None))),
         ({}, dict(image_height=64)),
     ],
 )
 def test_unported_modes_raise(kw, call_kw):
+    """Masks and the rectangular-tile mode stay unported, and the message
+    names only those; column patches (x_offset, image_width,
+    right_context) run."""
     cfg = tconfig.KITTI_SGM8_128.replace(num_disparities=32, **kw)
     img = torch.zeros((8, 40), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         tpipe.compute_disparity(img, img, cfg, **call_kw)
+    assert "x_offset" not in str(err.value)
+    assert "right_context" not in str(err.value)
+    if "valid" not in call_kw and "constrain" not in call_kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpipe.compute_patch_parts(img, img, cfg, **call_kw)
 
 
 def test_cuda_backend_rejects_cpu_tensors():
@@ -259,3 +267,110 @@ def test_cli_run_demo_models(capsys, args):
 def test_cli_rejects_unknown_model():
     with pytest.raises(SystemExit):
         cli.main(["run", "--demo", "--model", "learned"])
+
+
+def _patch(pair, f0, f1, ctx):
+    return pair.left[:, f0:f1], pair.right[:, f0 - ctx:f1]
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize(
+    "kw, f0, f1, ctx",
+    [
+        (dict(num_disparities=16, num_paths=8), 142, 250, 15),
+        (dict(num_disparities=16, num_paths=8), 142, 250, 0),
+        (dict(num_disparities=16, num_paths=4, min_disparity=2,
+              uniqueness_ratio=0.05), 0, 120, 0),
+        (dict(num_disparities=16, num_paths=8, cost_fn="rank"), 200, 320, 15),
+    ],
+)
+def test_framed_compute_disparity_matches_reference(kw, f0, f1, ctx, backend):
+    """A static column patch (x_offset, image_width, right_context) through
+    ``compute_disparity``. Against the Pallas kernels the validity is
+    compared away from the block's first and last D + md columns, where
+    their shifts wrap and the golden lookups clamp."""
+    pair = make_pair((32, 320), max_disp=12, kind="shapes", seed=9)
+    left, right = _patch(pair, f0, f1, ctx)
+    call = dict(x_offset=f0, image_width=320, right_context=ctx)
+    want = jpipe.compute_disparity(
+        left, right, jconfig.StereoConfig(backend=backend, **kw), **call)
+    got = tpipe.compute_disparity(
+        torch.from_numpy(left.copy()), torch.from_numpy(right.copy()),
+        tconfig.StereoConfig(**kw), **call)
+    np.testing.assert_array_equal(got.disp.numpy(), np.asarray(want.disp))
+    cut = 0 if backend == "jnp" else 16 + kw.get("min_disparity", 0)
+    w = f1 - f0
+    np.testing.assert_array_equal(
+        got.valid.numpy()[:, cut:w - cut],
+        np.asarray(want.valid)[:, cut:w - cut])
+
+
+@pytest.mark.parametrize("f0, f1", [(142, 250), (0, 130), (200, 320)])
+def test_framed_lr_exact_matches_reference(f0, f1):
+    """The exact LR check on a column patch: the flipped pass sits at the
+    flipped global origin ``image_width - x_offset - w``."""
+    pair = make_pair((32, 320), max_disp=12, kind="shapes", seed=9)
+    left, right = _patch(pair, f0, f1, 0)
+    kw = dict(num_disparities=16, num_paths=4, lr_exact=True)
+    call = dict(x_offset=f0, image_width=320)
+    want = jpipe.compute_disparity(
+        left, right, jconfig.StereoConfig(backend="jnp", **kw), **call)
+    got = tpipe.compute_disparity(
+        torch.from_numpy(left.copy()), torch.from_numpy(right.copy()),
+        tconfig.StereoConfig(**kw), **call)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize(
+    "kw, f0, f1, x0, x1",
+    [
+        (dict(num_disparities=16, num_paths=8), 142, 250, 160, 240),
+        (dict(num_disparities=16, num_paths=8, min_disparity=3,
+              uniqueness_ratio=0.05), 0, 180, 0, 160),
+        (dict(num_disparities=32, num_paths=4, cost_fn="rank"), 140, 320,
+         160, 320),
+    ],
+)
+def test_compute_patch_parts_matches_reference(kw, f0, f1, x0, x1, backend):
+    """``compute_patch_parts`` on an interior, a first and a last patch
+    with right context and an owned range: every part equal, the Pallas
+    kernel's lr_bit past its wrap region (the first D + md columns)."""
+    pair = make_pair((32, 320), max_disp=12, kind="shapes", seed=9)
+    d, md = kw["num_disparities"], kw.get("min_disparity", 0)
+    ctx = f0 - max(0, f0 - (d - 1 + md))
+    left, right = _patch(pair, f0, f1, ctx)
+    call = dict(x_offset=f0, image_width=320, right_context=ctx,
+                own=(x0 - f0, x1 - f0))
+    want = jpipe.compute_patch_parts(
+        left, right, jconfig.StereoConfig(backend=backend, **kw), **call)
+    got = tpipe.compute_patch_parts(
+        torch.from_numpy(left.copy()), torch.from_numpy(right.copy()),
+        tconfig.StereoConfig(**kw), **call)
+    for name in ("disp", "d0", "qr", "spill"):
+        np.testing.assert_array_equal(
+            getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+            err_msg=name)
+    np.testing.assert_array_equal(got.ok_nolr.numpy(),
+                                  np.asarray(want.ok_nolr).astype(bool))
+    cut = 0 if backend == "jnp" else d + md
+    np.testing.assert_array_equal(
+        got.lr_bit.numpy()[:, cut:],
+        np.asarray(want.lr_bit).astype(bool)[:, cut:])
+
+
+def test_compute_patch_parts_rejects():
+    img = torch.zeros((8, 40), dtype=torch.uint8)
+    for kw in (dict(lr_check=False), dict(lr_exact=True), dict(num_paths=0)):
+        with pytest.raises(ValueError, match="compute_patch_parts"):
+            tpipe.compute_patch_parts(
+                img, img, tconfig.StereoConfig(num_disparities=16, **kw))
+    with pytest.raises(ValueError, match="right_context"):
+        tpipe.compute_patch_parts(img, img,
+                                  tconfig.StereoConfig(num_disparities=16),
+                                  right_context=4)
+    with pytest.raises(NotImplementedError, match="lr_exact"):
+        tpipe.compute_disparity(
+            img, torch.zeros((8, 44), dtype=torch.uint8),
+            tconfig.StereoConfig(num_disparities=16, lr_exact=True),
+            right_context=4)
