@@ -9,7 +9,9 @@ result line):
      card's name and power limit as nvidia-smi reports them;
   2. build: compiles the six CUDA kernels (nvcc, sm_90a, one compiler per
      source, all at once) and the host speckle and fill library (g++) from
-     the sources in this checkout;
+     the sources in this checkout; prints ptxas's registers and spills of
+     every K2 instance with its ring (pixels staged per warp, shared memory
+     per block);
   3. kernels: runs each kernel form and its plain torch version on the card
      at every shape a path below gives it, requires bit-equal results,
      times both with CUDA events (medians) and computes the form's bound on
@@ -31,7 +33,9 @@ result line):
        - K1, K2 (fixed and adaptive P2), K3, K4, K5 sad_cost at D=128 and
          K2 on its int16 costs on the hard suite's radiometric pair
          (160x288, D=128);
-       - K5, K3 at D=16 and K4 on the tsukuba_sad16 pair (288x384);
+       - K5, K3 at D=16 and K4 on the tsukuba_sad16 pair (288x384), and
+         K5 with a right context on its right half (sad_cost/ctx, a form
+         that no path below launches yet: 0 launches per frame);
        - config 4 (middlebury_full_256_tiled, D=256) through the banded
          runner: every patch of the three splits below, at 497x720 and at
          1988x2880, through K1 (with x_offset and right_context where the
@@ -96,6 +100,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -226,6 +231,8 @@ KERNEL_INFO = {
                                "stereo_tpu/ops/pallas/sgm_kernel.py:905"),
     "sgm_paths/int16": ("sgm_paths", _PATHS_CU,
                         "stereo_tpu/ops/pallas/sgm_kernel.py:399"),
+    "sad_cost/ctx": ("sad_cost", _SAD_CU,
+                     "stereo_tpu/ops/pallas/cost_kernel.py:584"),
     "sgm_select": ("sgm_select", _SELECT_CU,
                    "stereo_tpu/ops/pallas/sgm_kernel.py:992"),
     "sgm_select/d0": ("sgm_select", _SELECT_CU,
@@ -321,6 +328,9 @@ for _name in SAD_SPLIT_FORMS:
 for _rows, _k, _chains in ANCHOR_PROGRAMS:
     for _type in ("float32", "int32"):
         KERNEL_INFO[f"alu_peak/{_type}/k{_k}"] = ("alu_peak", _PEAK_CU, _PEAK)
+
+#: Rows held against their plain version that no path launches yet.
+OFF_PATH = {"sad_cost/ctx"}
 
 #: (wrapper, *form) as the wrappers count their launches -> the KERNEL_INFO
 #: row whose comparison in the kernels phase launched that form.
@@ -518,6 +528,49 @@ def phase_build() -> None:
     native.load()
     print(f"build: kernels + speckle library in "
           f"{time.perf_counter() - t0:.2f} s")
+    print("K2 instances (ptxas registers and spill bytes; ring: pixels "
+          "staged per warp, shared bytes per block): "
+          + json.dumps(k2_instances()))
+
+
+#: A K2 instance's mangled name: DPL, PARTIAL, ADAPTIVE, cost type.
+_K2_NAME = re.compile(r"sgm_path_kernelILi(\d)ELb([01])ELb([01])E([as])E")
+
+
+def k2_instances() -> Dict[str, dict]:
+    """Each K2 instance's registers and spills, from the ptxas report the
+    build keeps beside the library, and its ring from the C queries."""
+    lib = load_kernels()
+    found: Dict[str, dict] = {}
+    row = None
+    for line in Path(lib._name + ".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function "
+                      r"properties for (\S+)", line)
+        if m:
+            k = _K2_NAME.search(m.group(1) or m.group(2))
+            row = None
+            if k:
+                dpl, partial, adaptive, t = k.groups()
+                cost_bytes = 1 if t == "a" else 2
+                name = (f"dpl{dpl}{'/partial' * (partial == '1')}"
+                        f"{'/adaptive' * (adaptive == '1')}/int{8 * cost_bytes}")
+                d = 32 * int(dpl)
+                row = found.setdefault(name, dict(
+                    stages=lib.stpu_sgm_path_stages(d),
+                    smem=lib.stpu_sgm_path_smem(d, cost_bytes)))
+            continue
+        if row is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row["spill_stores"], row["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+    if len(found) != 64 or not all("registers" in r for r in found.values()):
+        raise AssertionError(f"ptxas report: {len(found)} K2 instances")
+    return dict(sorted(found.items()))
 
 
 def per_direction_ms(dev, cost, scratch, image_ptr, cfg) -> Dict[str, float]:
@@ -921,6 +974,21 @@ def phase_kernels(dev) -> dict:
         "sgm_select/d16", sad, sad_plain, SAD)
     rows["median3x3/288x384"], _ = median_row(
         "median3x3/288x384", tdisp, tdisp_plain)
+    # K5 with a right context: the frame's right half with the 20 columns
+    # before it in the right view (no path launches this form yet).
+    f0, ctx = tl.shape[1] // 2, 20
+    cl_, cr_ = tl[:, f0:].contiguous(), tr[:, f0 - ctx:].contiguous()
+    plain = SAD.replace(backend="torch")
+    cost = held("sad_cost/ctx", lambda: sad_cost(cl_, cr_, SAD, f0, ctx))
+    rows["sad_cost/ctx"] = dict(
+        max_abs_err=require_equal(
+            "sad_cost/ctx", cost.to(torch.int32),
+            synced(lambda: sad_cost_volume(cl_, cr_, plain, f0, ctx))),
+        ms=cuda_ms(lambda: sad_cost(cl_, cr_, SAD, f0, ctx), reps=20),
+        plain_ms=cuda_ms(lambda: sad_cost_volume(cl_, cr_, plain, f0, ctx),
+                         reps=5),
+        **sad_bound(*cl_.shape, SAD.num_disparities, SAD.sad_window, ctx))
+    del cost
     del sad, sad_plain, hsad, hsad_plain, hcost, hcost_plain, hs, hs_plain
 
     # Config 4 through the banded runner: every patch of the three splits,
@@ -1148,7 +1216,8 @@ def main(argv=None) -> int:
     peak, anchor_counts = phase_anchor(dev)
     for form, n in anchor_counts.items():
         launches[form] += n
-    missing = [form for form, n in launches.items() if n == 0]
+    missing = [form for form, n in launches.items()
+               if n == 0 and form not in OFF_PATH]
     if missing:
         raise AssertionError(f"no main path launched {missing}")
     kernels = []

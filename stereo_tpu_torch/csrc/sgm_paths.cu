@@ -14,43 +14,47 @@
 // and `cp_mode` forms): given the reference image, each step replaces P2
 // with max(p2_min, P2 / g) where g = |I(p) - I(p-r)| - grad_floor > 0 (P2
 // where g <= 0). The TPU precomputes eight [H, W] maps in XLA because it
-// has no integer divide; here the warp reads I(p) once per step (one
-// broadcast load, prefetched with the next pixel's C) and divides in
-// registers, so no map touches device memory. The diagonals' predecessor
-// is the diagonal neighbour for the image as for the carry; a scanline's
-// first pixel has none and reads no gradient.
+// has no integer divide; here the warp stages I(p) with the pixel's C and
+// divides in registers, so no map touches device memory. The diagonals'
+// predecessor is the diagonal neighbour for the image as for the carry; a
+// scanline's first pixel has none and reads no gradient.
 //
 // Any D in [1, 256] and int8 or int16 costs: lanes hold DPL = ceil(D / 32)
 // consecutive disparities, and the registers past D (half the warp at D =
 // 16, the pyramid model's residual volume; the TPU packs several pixels'
-// disparities into one vector there, `seg=`) load a cost of 2^24 instead of
-// reading memory. Such a register's L stays in [2^24, 2^24 + P2]: it never
+// disparities into one vector there, `seg=`) take a cost of 2^24 instead of
+// a staged one. Such a register's L stays in [2^24, 2^24 + P2]: it never
 // wins min_k L and, plus P1, never beats min_k L + P2 as the d+-1 neighbour
 // of a real disparity, so the edge rule at d = D-1 (skip the missing
 // neighbour) holds at any lane; it is never stored. D = 32 * DPL is a form
-// of its own (a template parameter) with no dead registers and, at D = 128,
-// where every lane's 4 values are aligned, 4-wide vector loads and stores:
-// guarding every load at run time made the D = 128 form a third slower on
-// an H100 (700 W). This is also the staged S of sgm_aggregate_pallas (its
-// _h_kernel and _v_kernel calls): S lands in device memory either way, and
-// the selection kernel is a separate launch. SAD costs (up to 255) come as
-// int16 and are read as such; S stays int16 under the same bound.
+// of its own (a template parameter, not PARTIAL) whose loads and stores are
+// vectors. This is also the staged S of sgm_aggregate_pallas (its _h_kernel
+// and _v_kernel calls): S lands in device memory either way, and the
+// selection kernel is a separate launch. SAD costs (up to 255) come as
+// int16; S stays int16 under the same bound.
 //
 // Bound on the H100: each direction reads C (59.6 MB int8 at 375x1242x128)
 // and reads and writes S (2 x 119 MB int16), about 90 us at the 3.35 TB/s
-// published for an H100 SXM at 700 W. The horizontal directions have only H
-// = 375 scanlines, so they are latency-bound: one dependent step per pixel
-// along 1242 columns with few warps in flight (splitting lines or batching
-// rows per warp would help). Design (the GPU SGM of arXiv 1610.04121): one
+// published for an H100 SXM at 700 W. Each scanline is a chain of
+// dependent steps, so a direction is bound by the length of one step times
+// the longest scanline where scanlines are few (the horizontals at KITTI
+// size: 375 warps for 132 SMs, 1242 steps) and by the bytes in flight where
+// they are many. Design (the GPU SGM of arXiv 1610.04121, deep-staged): one
 // warp per scanline, each lane holding D/32 consecutive disparities of the
-// carry in registers; min_k L takes 5 xor shuffles, the d+-1 neighbours at
-// lane edges come from shfl_up/down, and a missing neighbour at d=0 or d=D-1
-// is skipped (the golden edge replicate adds P1 to L itself, which never
-// wins). The next pixel's C and S are loaded before the current step's
-// arithmetic, so their latency overlaps it. Directions run in sequence on
-// one stream and one warp owns each pixel per direction, so the S update
-// needs no atomics; 8 * (max_unary_cost + max(P2, p2_min)) < 2^15 keeps
-// int16 exact (checked by the wrapper).
+// carry in registers, one warp per block so that few scanlines still reach
+// every SM. Each warp owns a ring of kStages slots in shared memory and
+// keeps the C, S (when accumulating) and I(p) (adaptive) of its scanline's
+// next three rounds of pixels in flight with cp.async: 16-byte copies for
+// rows of whole 16-byte chunks, the 4-byte words that cover the row
+// otherwise (its start then lies 0-3 bytes into the slot). A round reads
+// its pixels' inputs into registers after one wait, then runs their steps
+// back to back: min_k L in one __reduce_min_sync, the d+-1 neighbours at
+// lane edges from shfl_up/down, the adaptive divide off the chain, S stored
+// from registers. A missing neighbour at d=0 or d=D-1 is skipped (the
+// golden edge replicate adds P1 to L itself, which never wins). Directions
+// run in sequence on one stream and one warp owns each pixel per
+// direction, so the S update needs no atomics; 8 * (max_unary_cost +
+// max(P2, p2_min)) < 2^15 keeps int16 exact (checked by the wrapper).
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -58,37 +62,127 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 // A register past D holds this cost (see the header).
 constexpr int kDeadCost = 1 << 24;
 
-// N values of T at p into v. Not PARTIAL: all N lie below D, and N == 4
-// takes one vector load. PARTIAL: entries at or past `live` take `dead`
-// and read nothing.
+// Pixels a warp handles per round (see the kernel's loop), for D = 32 *
+// dpl disparities: the carry's registers grow with dpl * round.
+__host__ __device__ constexpr int round_pixels(int dpl) {
+  return dpl <= 2 ? 8 : 4;
+}
+
+// Pixels in a warp's ring: four rounds, the current one and three in
+// flight.
+__host__ __device__ constexpr int ring_stages(int dpl) {
+  return 4 * round_pixels(dpl);
+}
+
+// One ring slot: a pixel's C, its S and I(p), each part a multiple of 16
+// bytes, with room for the 0-3 leading bytes of a word-aligned copy.
+__host__ __device__ constexpr int slot_c(int dpl, int cost_bytes) {
+  return 32 * dpl * cost_bytes + 16;
+}
+__host__ __device__ constexpr int slot_s(int dpl) { return 64 * dpl + 16; }
+__host__ __device__ constexpr int slot_bytes(int dpl, int cost_bytes) {
+  return slot_c(dpl, cost_bytes) + slot_s(dpl) + 16;
+}
+__host__ __device__ constexpr int block_smem(int dpl, int cost_bytes) {
+  return ring_stages(dpl) * slot_bytes(dpl, cost_bytes);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The warp copies a row of `bytes` bytes at `src` into `dst`. A row of
+// whole 16-byte chunks (at most 512 bytes; src is then 16-byte aligned, as
+// every row of a 16-byte aligned volume is) takes one 16-byte copy per
+// lane. Any other row takes the 4-byte words that cover it, from the word
+// holding src, so its bytes start at dst + (src & 3).
+__device__ __forceinline__ void stage_bytes(char* dst, const void* src,
+                                            int bytes, int lane) {
+  if (bytes % 16 == 0) {
+    if (lane * 16 < bytes) {
+      cp_async16(dst + lane * 16, static_cast<const char*>(src) + lane * 16);
+    }
+  } else {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+    const char* base = reinterpret_cast<const char*>(a & ~uintptr_t(3));
+    const int n = (int)(a & 3) + bytes;
+    for (int i = lane * 4; i < n; i += 32 * 4) cp_async4(dst + i, base + i);
+  }
+}
+
+// Element j of type T in little-endian words w.
+template <typename T, int W>
+__device__ __forceinline__ int element(const uint32_t (&w)[W], int j) {
+  if constexpr (sizeof(T) == 1) {
+    return (int)(int8_t)(w[j >> 2] >> (8 * (j & 3)));
+  } else {
+    return (int)(int16_t)(w[j >> 1] >> (16 * (j & 1)));
+  }
+}
+
+// N values of T at p (shared memory) into v. Not PARTIAL: all N lie below
+// D and p is aligned to N * sizeof(T), so rows of 4, 8 or 16 bytes take one
+// vector read. PARTIAL: entries at or past `live` take `dead` and read
+// nothing.
 template <int N, bool PARTIAL, typename T>
-__device__ __forceinline__ void load_lane(const T* p, int (&v)[N], int live,
+__device__ __forceinline__ void read_lane(const T* p, int (&v)[N], int live,
                                           int dead) {
+  constexpr int kRow = N * (int)sizeof(T);
   if constexpr (PARTIAL) {
 #pragma unroll
     for (int j = 0; j < N; ++j) v[j] = j < live ? (int)p[j] : dead;
-  } else if constexpr (N == 4 && sizeof(T) == 1) {
-    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (kRow == 4 || kRow == 8 || kRow == 16) {
+    uint32_t w[kRow / 4];
+    if constexpr (kRow == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else if constexpr (kRow == 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x;
+      w[1] = u.y;
+    } else {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x;
+      w[1] = u.y;
+      w[2] = u.z;
+      w[3] = u.w;
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = (int)(int8_t)(u >> (8 * j));
-  } else if constexpr (N == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    v[0] = (int)(int16_t)(u.x & 0xffff);
-    v[1] = (int)(int16_t)(u.x >> 16);
-    v[2] = (int)(int16_t)(u.y & 0xffff);
-    v[3] = (int)(int16_t)(u.y >> 16);
+    for (int j = 0; j < N; ++j) v[j] = element<T>(w, j);
   } else {
 #pragma unroll
     for (int j = 0; j < N; ++j) v[j] = p[j];
   }
 }
 
+// N sums to p (device memory), as read_lane reads them.
 template <int N, bool PARTIAL>
 __device__ __forceinline__ void store_sum(int16_t* p, const int (&s)[N],
                                           int live) {
@@ -97,41 +191,50 @@ __device__ __forceinline__ void store_sum(int16_t* p, const int (&s)[N],
     for (int j = 0; j < N; ++j) {
       if (j < live) p[j] = (int16_t)s[j];
     }
-  } else if constexpr (N == 4) {
-    uint2 v;
-    v.x = (uint32_t)(uint16_t)s[0] | ((uint32_t)(uint16_t)s[1] << 16);
-    v.y = (uint32_t)(uint16_t)s[2] | ((uint32_t)(uint16_t)s[3] << 16);
-    *reinterpret_cast<uint2*>(p) = v;
+  } else if constexpr (N == 2 || N == 4 || N == 8) {
+    uint32_t w[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      w[i] = (uint32_t)(uint16_t)s[2 * i] |
+             ((uint32_t)(uint16_t)s[2 * i + 1] << 16);
+    }
+    if constexpr (N == 2) {
+      *reinterpret_cast<uint32_t*>(p) = w[0];
+    } else if constexpr (N == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < N; ++j) p[j] = (int16_t)s[j];
   }
 }
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
 // DPL = disparities per lane, ceil(D / 32); PARTIAL: D = d < 32 * DPL
 // (registers past D are dead); ADAPTIVE: P2 from the image; CostT: int8
 // (census, rank) or int16 (SAD) costs.
 template <int DPL, bool PARTIAL, bool ADAPTIVE, typename CostT>
-__global__ void sgm_path_kernel(const CostT* __restrict__ cost,
-                                const int* __restrict__ image,
-                                int16_t* __restrict__ sum, int h, int w,
-                                int d, int step_y, int step_x, int p1, int p2,
-                                int p2_min, int grad_floor, int accumulate,
-                                int n_lines) {
+__global__ void __launch_bounds__(32)
+    sgm_path_kernel(const CostT* __restrict__ cost,
+                    const int* __restrict__ image, int16_t* __restrict__ sum,
+                    int h, int w, int d, int step_y, int step_x, int p1,
+                    int p2, int p2_min, int grad_floor, int accumulate) {
+  constexpr int kCB = (int)sizeof(CostT);
+  constexpr int kStages = ring_stages(DPL);
+  constexpr int kRound = round_pixels(DPL);
+  static_assert(kStages % kRound == 0 && kStages > kRound, "ring");
+  constexpr int kSlot = slot_bytes(DPL, kCB);
+  constexpr int kC = slot_c(DPL, kCB);
+  constexpr int kS = slot_s(DPL);
+  extern __shared__ __align__(16) char ring[];  // kStages slots
   const int D = PARTIAL ? d : 32 * DPL;
-  const int lane = threadIdx.x & 31;
-  const int line = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (line >= n_lines) return;  // uniform over the warp
+  const int lane = threadIdx.x;
+  const int line = blockIdx.x;  // one block, one warp, per scanline
 
   // First pixel of this scanline: the pixels whose predecessor p - r is
   // out of frame. Diagonals start on the entry row (W lines), then on the
-  // entry column below or above the corner (H - 1 lines).
+  // entry column below or above the corner (H - 1 lines). n: its pixels.
   int y, x;
   if (step_y == 0) {
     y = line;
@@ -144,45 +247,102 @@ __global__ void sgm_path_kernel(const CostT* __restrict__ cost,
     x = step_x > 0 ? 0 : w - 1;
     y = step_y > 0 ? k : h - 1 - k;
   }
-
+  int n = step_x == 0 ? h : w;
+  if (step_y != 0 && step_x != 0) {
+    n = min(step_y > 0 ? h - y : y + 1, step_x > 0 ? w - x : x + 1);
+  }
+  const ptrdiff_t pix_step = (ptrdiff_t)step_y * w + step_x;
+  const ptrdiff_t voxel_step = pix_step * D;
+  const ptrdiff_t pix0 = (ptrdiff_t)y * w + x;
+  const ptrdiff_t off0 = pix0 * D;
   const int live = D - lane * DPL;  // this lane's registers below D
-  const ptrdiff_t voxel_step = ((ptrdiff_t)step_y * w + step_x) * D;
-  ptrdiff_t off = ((ptrdiff_t)y * w + x) * D + lane * DPL;
-  int c[DPL], s_old[DPL] = {}, L[DPL];
-  load_lane<DPL, PARTIAL>(cost + off, c, live, kDeadCost);
-  if (accumulate) load_lane<DPL, PARTIAL>(sum + off, s_old, live, 0);
-  int img = 0, img_prev = 0, img_next = 0;  // I(p), I(p - r), I(p + r)
-  if (ADAPTIVE) img = __ldg(image + (ptrdiff_t)y * w + x);
 
-  bool first = true;
-  while (true) {
-    const int ny = y + step_y, nx = x + step_x;
-    const bool more = ny >= 0 && ny < h && nx >= 0 && nx < w;
-    const ptrdiff_t noff = off + voxel_step;
-    int cn[DPL], sn[DPL] = {};
-    if (more) {
-      load_lane<DPL, PARTIAL>(cost + noff, cn, live, kDeadCost);
-      if (accumulate) load_lane<DPL, PARTIAL>(sum + noff, sn, live, 0);
-      if (ADAPTIVE) img_next = __ldg(image + (ptrdiff_t)ny * w + nx);
+  // Start pixel t's copies (pixel pix, its voxels at off) into its slot,
+  // as one commit group (an empty one past the scanline's end).
+  auto stage = [&](int t, ptrdiff_t pix, ptrdiff_t off) {
+    if (t < n) {
+      char* slot = ring + (t & (kStages - 1)) * kSlot;
+      stage_bytes(slot, cost + off, D * kCB, lane);
+      if (accumulate) stage_bytes(slot + kC, sum + off, 2 * D, lane);
+      if (ADAPTIVE && lane == 0) cp_async4(slot + kC + kS, image + pix);
+    }
+    cp_async_commit();
+  };
+  // Read pixel t's C, S and I(p) (voxels at off) from its slot.
+  auto read = [&](int t, ptrdiff_t off, int (&c)[DPL], int (&s_old)[DPL],
+                  int& img) {
+    const char* slot = ring + (t & (kStages - 1)) * kSlot;
+    const int c_shift =
+        PARTIAL ? (int)(reinterpret_cast<uintptr_t>(cost + off) & 3) : 0;
+    read_lane<DPL, PARTIAL>(
+        reinterpret_cast<const CostT*>(slot + c_shift) + lane * DPL, c, live,
+        kDeadCost);
+    if (accumulate) {
+      const int s_shift =
+          PARTIAL ? (int)(reinterpret_cast<uintptr_t>(sum + off) & 3) : 0;
+      read_lane<DPL, PARTIAL>(
+          reinterpret_cast<const int16_t*>(slot + kC + s_shift) + lane * DPL,
+          s_old, live, 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) s_old[j] = 0;
+    }
+    img = ADAPTIVE ? *reinterpret_cast<const int*>(slot + kC + kS) : 0;
+  };
+
+  // A round handles kRound pixels: it refills the kRound slots of the
+  // round before, waits once for its own pixels (the kStages - kRound
+  // newest groups may stay in flight), reads their C, S and I(p) into
+  // registers, and then runs their kRound steps back to back, so waits and
+  // shared-memory latency stay off the chain of dependent steps.
+  ptrdiff_t ahead_pix = pix0, ahead = off0;  // the pixel staged next
+#pragma unroll 1
+  for (int t = 0; t < kStages - kRound; ++t) {
+    stage(t, ahead_pix, ahead);
+    ahead_pix += pix_step;
+    ahead += voxel_step;
+  }
+
+  // L = 0 before the first pixel: the recurrence then gives L = C there
+  // (P1, P2 >= 0, so every candidate is >= 0 and min_k L = 0).
+  int L[DPL];
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) L[j] = 0;
+  int img_prev = 0;  // I(p - r)
+  ptrdiff_t off = off0;
+#pragma unroll 1
+  for (int t0 = 0; t0 < n; t0 += kRound) {
+    __syncwarp();  // every lane has read the slots refilled below
+#pragma unroll
+    for (int g = 0; g < kRound; ++g) {
+      stage(t0 + kStages - kRound + g, ahead_pix, ahead);
+      ahead_pix += pix_step;
+      ahead += voxel_step;
+    }
+    cp_async_wait<kStages - kRound>();
+    __syncwarp();
+    int c[kRound][DPL], s_old[kRound][DPL], img[kRound] = {};
+#pragma unroll
+    for (int g = 0; g < kRound; ++g) {
+      if (t0 + g < n) read(t0 + g, off + g * voxel_step, c[g], s_old[g], img[g]);
     }
 
-    if (first) {
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) L[j] = c[j];
-      first = false;
-    } else {
+    for (int g = 0; g < kRound; ++g) {
+      if (t0 + g >= n) break;  // uniform over the warp
       int p2e = p2;
       if (ADAPTIVE) {
-        const int grad = abs(img - img_prev) - grad_floor;
+        const int grad = abs(img[g] - (g > 0 ? img[g - 1] : img_prev)) -
+                         grad_floor;
         if (grad > 0) p2e = max(p2_min, p2 / grad);  // floor: both >= 0
       }
       int m = L[0];
 #pragma unroll
       for (int j = 1; j < DPL; ++j) m = min(m, L[j]);
-      m = warp_min(m);
+      m = __reduce_min_sync(kFull, m);
       const int below = __shfl_up_sync(kFull, L[DPL - 1], 1);  // d - 1
       const int above = __shfl_down_sync(kFull, L[0], 1);      // d + 1
-      int nl[DPL];
+      int out[DPL];
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         int cand = min(L[j], m + p2e);
@@ -196,35 +356,27 @@ __global__ void sgm_path_kernel(const CostT* __restrict__ cost,
         } else if (lane < 31) {
           cand = min(cand, above + p1);
         }
-        nl[j] = c[j] + cand - m;
+        out[j] = c[g][j] + cand - m;
       }
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) L[j] = nl[j];
+      for (int j = 0; j < DPL; ++j) {
+        L[j] = out[j];
+        out[j] += s_old[g][j];
+      }
+      store_sum<DPL, PARTIAL>(sum + off + g * voxel_step + lane * DPL, out,
+                              live);
     }
-
-    int out[DPL];
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) out[j] = s_old[j] + L[j];
-    store_sum<DPL, PARTIAL>(sum + off, out, live);
-
-    if (!more) break;
-    y = ny;
-    x = nx;
-    off = noff;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      c[j] = cn[j];
-      s_old[j] = sn[j];
-    }
-    img_prev = img;
-    img = img_next;
+    img_prev = img[kRound - 1];
+    off += kRound * voxel_step;
   }
+  cp_async_wait<0>();
 }
 
 template <int DPL, bool PARTIAL, typename CostT>
-void launch(const void* cost, const int* image, int16_t* sum, int h, int w,
-            int d, int step_y, int step_x, int p1, int p2, int p2_min,
-            int grad_floor, int accumulate, cudaStream_t s) {
+cudaError_t launch(const void* cost, const int* image, int16_t* sum, int h,
+                   int w, int d, int step_y, int step_x, int p1, int p2,
+                   int p2_min, int grad_floor, int accumulate,
+                   cudaStream_t s) {
   int n_lines;
   if (step_y == 0) {
     n_lines = h;
@@ -234,22 +386,35 @@ void launch(const void* cost, const int* image, int16_t* sum, int h, int w,
     n_lines = w + h - 1;
   }
   const auto* c = static_cast<const CostT*>(cost);
-  const int blocks = (n_lines + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (image != nullptr) {
-    sgm_path_kernel<DPL, PARTIAL, true, CostT><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-        c, image, sum, h, w, d, step_y, step_x, p1, p2, p2_min, grad_floor,
-        accumulate, n_lines);
-  } else {
-    sgm_path_kernel<DPL, PARTIAL, false, CostT><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-        c, image, sum, h, w, d, step_y, step_x, p1, p2, p2_min, grad_floor,
-        accumulate, n_lines);
+  constexpr int smem = block_smem(DPL, (int)sizeof(CostT));
+  auto* kernel = image != nullptr
+                     ? sgm_path_kernel<DPL, PARTIAL, true, CostT>
+                     : sgm_path_kernel<DPL, PARTIAL, false, CostT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
   }
+  kernel<<<n_lines, 32, smem, s>>>(c, image, sum, h, w, d, step_y, step_x, p1,
+                                  p2, p2_min, grad_floor, accumulate);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// The ring of the K2 form for d disparities: pixels staged per warp, and
+// (for cost_bytes-byte costs) dynamic shared memory per block.
+extern "C" int stpu_sgm_path_stages(int d) {
+  return ring_stages((d + 31) / 32);
+}
+
+extern "C" int stpu_sgm_path_smem(int d, int cost_bytes) {
+  return block_smem((d + 31) / 32, cost_bytes);
+}
+
 // cost: [H, W, D] int8 (cost_bytes 1) or int16 (cost_bytes 2); image: [H, W]
-// int32 reference view for adaptive P2, or NULL for fixed P2.
+// int32 reference view for adaptive P2, or NULL for fixed P2. cost and sum
+// are 16-byte aligned.
 extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
                              const void* image, void* sum, int h, int w,
                              int d, int step_y, int step_x, int p1, int p2,
@@ -261,25 +426,29 @@ extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
       p2_min < 0) {
     return (int)cudaErrorInvalidValue;
   }
+  if (((reinterpret_cast<uintptr_t>(cost) | reinterpret_cast<uintptr_t>(sum)) &
+       15) != 0 ||
+      (reinterpret_cast<uintptr_t>(image) & 3) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   const auto* im = static_cast<const int*>(image);
   auto* s = static_cast<int16_t*>(sum);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define STPU_PATH_AS(DPL, PARTIAL, T)                                       \
-  launch<DPL, PARTIAL, T>(cost, im, s, h, w, d, step_y, step_x, p1, p2,     \
-                          p2_min, grad_floor, accumulate, st)
+  return (int)launch<DPL, PARTIAL, T>(cost, im, s, h, w, d, step_y, step_x, \
+                                      p1, p2, p2_min, grad_floor,           \
+                                      accumulate, st)
 #define STPU_PATH(DPL)                                                      \
   if (d == 32 * DPL) {                                                      \
     if (cost_bytes == 1) {                                                  \
       STPU_PATH_AS(DPL, false, int8_t);                                     \
-    } else {                                                                \
-      STPU_PATH_AS(DPL, false, int16_t);                                    \
     }                                                                       \
-  } else if (cost_bytes == 1) {                                             \
-    STPU_PATH_AS(DPL, true, int8_t);                                        \
-  } else {                                                                  \
-    STPU_PATH_AS(DPL, true, int16_t);                                       \
+    STPU_PATH_AS(DPL, false, int16_t);                                      \
   }                                                                         \
-  break
+  if (cost_bytes == 1) {                                                    \
+    STPU_PATH_AS(DPL, true, int8_t);                                        \
+  }                                                                         \
+  STPU_PATH_AS(DPL, true, int16_t)
   switch ((d + 31) / 32) {
     case 1: STPU_PATH(1);
     case 2: STPU_PATH(2);
@@ -292,5 +461,5 @@ extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
   }
 #undef STPU_PATH
 #undef STPU_PATH_AS
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;  // not reached
 }

@@ -71,11 +71,13 @@ def cost_bound(h, w, d, words, ops_per_voxel, ctx=0):
                  h * w * d * ops_per_voxel)
 
 
-def sad_bound(h, w, d, window):
-    """K5: two int32 images in, int16 volume out; per voxel and window tap
-    a subtract, an absolute value and an add, then one divide."""
+def sad_bound(h, w, d, window, right_context=0):
+    """K5: two int32 images in (the right one ``right_context`` columns
+    wider), int16 volume out; per voxel and window tap a subtract, an
+    absolute value and an add, then one divide."""
     taps = window[0] * window[1]
-    return bound(2 * h * w * 4 + h * w * d * 2, h * w * d * (3 * taps + 1))
+    return bound((2 * w + right_context) * h * 4 + h * w * d * 2,
+                 h * w * d * (3 * taps + 1))
 
 
 def paths_bound(cost, cfg):

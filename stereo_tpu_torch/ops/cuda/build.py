@@ -34,16 +34,20 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _cl = ctypes.c_longlong
 
 #: C entry points of the kernel library: argument types (all return int:
-#: the launch's cudaError_t, or the answer of the one query).
+#: the launch's cudaError_t, or the answer of a query).
 KERNEL_SIGNATURES = {
     # w, sp -> 1 if K3's row fits a block's shared memory
     "stpu_sgm_select_fits": [_ci, _ci],
+    # d -> K2's pixels staged per warp; d, cost_bytes -> its shared memory
+    # per block (bytes)
+    "stpu_sgm_path_stages": [_ci],
+    "stpu_sgm_path_smem": [_ci, _ci],
     # cl, cr, out, h, w, d, words, combine, md, maxc, ctx, x_off, stream
     "stpu_census_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                          _ci, _ci, _vp],
-    # left, right, out, h, w, d, md, wy, wx, maxc, x_off, stream
+    # left, right, out, h, w, d, md, wy, wx, maxc, ctx, x_off, stream
     "stpu_sad_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
-                      _vp],
+                      _ci, _vp],
     # cost, cost_bytes, image (NULL: fixed P2), sum, h, w, d, step_y,
     # step_x, p1, p2, p2_min, grad_floor, accumulate, stream
     "stpu_sgm_path": [_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,

@@ -7,8 +7,8 @@ and rank transforms themselves stay plain torch, as they stay in XLA on
 the TPU. K5 replaces ``_sad_kernel`` (through ``sad_cost_volume_pallas``).
 
 For a block of a larger frame the wrappers take the block's global column
-origin ``x_offset`` and, K1 only, ``right_context`` frame-true columns that
-precede the block in the right descriptors (``ops.cost``).
+origin ``x_offset`` and ``right_context`` frame-true columns that precede
+the block in the right descriptors or image (``ops.cost``).
 """
 
 from __future__ import annotations
@@ -125,18 +125,19 @@ rank_cost.forms = Counter()
 
 
 def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
-             x_offset: int = 0) -> torch.Tensor:
-    """[H, W, D] int16 SAD cost volume of two [H, W] images, any D in
-    [1, 256]; ``x_offset`` is the block's global column origin. The kernel
-    takes no right context, as the TPU's does not. CPU tensors take the
-    plain version (``ops.cost``); CUDA tensors launch the kernel."""
+             x_offset: int = 0, right_context: int = 0) -> torch.Tensor:
+    """[H, W, D] int16 SAD cost volume of a left [H, W] and a right
+    [H, W + right_context] image, any D in [1, 256]; ``x_offset`` is the
+    block's global column origin. CPU tensors take the plain version
+    (``ops.cost``); CUDA tensors launch the kernel."""
     if left.ndim != 2:
         raise ValueError(f"expected [H, W] images: {left.shape}")
-    _check_framing("images", left, right, x_offset, 0)
+    _check_framing("images", left, right, x_offset, right_context)
     if cfg.cost_fn != "sad":
         raise ValueError(f"sad_cost needs cost_fn='sad', got {cfg.cost_fn}")
     if on_cpu(left, right):
-        return sad_cost_volume(left, right, cfg, x_offset).to(torch.int16)
+        return sad_cost_volume(left, right, cfg, x_offset,
+                               right_context).to(torch.int16)
     h, w = left.shape
     d = cfg.num_disparities
     wy, wx = cfg.sad_window
@@ -153,8 +154,9 @@ def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
     out = torch.empty((h, w, d), dtype=torch.int16, device=left.device)
     run("stpu_sad_cost", left.device, l32.data_ptr(), r32.data_ptr(),
         out.data_ptr(), h, w, d, int(cfg.min_disparity), wy, wx,
-        cfg.max_unary_cost, x_offset)
-    count_launch(sad_cost, h, w, d, wy, wx, bool(x_offset))
+        cfg.max_unary_cost, right_context, x_offset)
+    count_launch(sad_cost, h, w, d, wy, wx, bool(x_offset),
+                 bool(right_context))
     return out
 
 

@@ -13,8 +13,8 @@ composition as the reference's ``compute_disparity`` with
 ``backend="jnp"``; both give the same bits.
 
 A static column patch (``parallel/bands.py``) passes its global column
-origin ``x_offset``, the frame's ``image_width`` and, for census and rank
-costs, ``right_context`` frame-true columns in front of the right image, so
+origin ``x_offset``, the frame's ``image_width`` and ``right_context``
+frame-true columns in front of the right image (census, rank or SAD), so
 that disparity-range masking and LR framing are the whole frame's;
 ``compute_patch_parts`` is the patch whose LR check the stitched runner
 reassembles across patches.
@@ -72,11 +72,7 @@ def _kernel_cost(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
     or rank transform, which runs on ``tgt`` with its context columns) or
     K5."""
     if cfg.cost_fn == "sad":
-        if right_context:
-            raise NotImplementedError(
-                "the SAD kernel takes no right_context (as the reference's); "
-                "use backend='torch'")
-        return sad_cost(ref, tgt, cfg, x_offset)
+        return sad_cost(ref, tgt, cfg, x_offset, right_context)
     if cfg.cost_fn == "rank":
         return rank_cost(rank_transform(ref, cfg.census_window),
                          rank_transform(tgt, cfg.census_window), cfg,
@@ -203,7 +199,7 @@ def compute_disparity(
       right: [H, W + right_context], on the same device: ``right_context``
         frame-true columns preceding the block are prepended, so the
         disparity search reads real neighbours without extending the SGM
-        domain (census and rank costs).
+        domain (census, rank and SAD costs).
       cfg: static StereoConfig; ``cfg.backend`` picks kernels or plain ops.
       x_offset, image_width: the block's global column origin and the
         frame's width (default: the block ends the frame), so that

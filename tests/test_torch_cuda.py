@@ -102,12 +102,19 @@ def test_rank_cost_kernel(dev, d, md, window, h, w):
     assert torch.equal(got.to(torch.int32), rank_cost_volume(left, right, cfg))
 
 
+#: K2's ring holds 16 pixels of a scanline (csrc/sgm_paths.cu): frames
+#: whose rows, columns and diagonals are 1, 15, 16, 17 and 35 = 2 * 16 + 3
+#: pixels long, wider than high and higher than wide.
+_TAILS = [(1, 1, 35), (40, 35, 1), (128, 15, 17), (200, 16, 35),
+          (256, 17, 16), (16, 35, 15), (128, 1, 1), (40, 2, 37)]
+
+
 @pytest.mark.parametrize("paths", [4, 8])
 @pytest.mark.parametrize("d, h, w", [(32, 13, 29), (128, 21, 140),
                                      (256, 6, 300), (96, 40, 7),
                                      (16, 47, 155), (64, 47, 155),
                                      (1, 9, 12), (33, 11, 37), (100, 7, 45),
-                                     (250, 5, 33)])
+                                     (250, 5, 33), *_TAILS])
 def test_sgm_paths_kernel(dev, paths, d, h, w):
     cfg = StereoConfig(census_window=(9, 7), num_disparities=d,
                        num_paths=paths, p1=14, p2=120)
@@ -121,7 +128,9 @@ def test_sgm_paths_kernel(dev, paths, d, h, w):
 
 @pytest.mark.parametrize("paths", [4, 8])
 @pytest.mark.parametrize("d, h, w", [(128, 21, 140), (16, 47, 155),
-                                     (33, 11, 37)])
+                                     (33, 11, 37), (256, 17, 35),
+                                     (200, 15, 16), (40, 35, 1), (1, 16, 17),
+                                     (128, 2, 37)])
 def test_sgm_paths_int16_cost_kernel(dev, paths, d, h, w):
     # SAD costs reach 255: int16 in, and 8 * (255 + 120) < 2^15.
     cfg = StereoConfig(cost_fn="sad", num_disparities=d, num_paths=paths,
@@ -195,7 +204,9 @@ def test_pipeline_runs_the_kernels(dev):
     "paths, floor, p2_min", [(4, 0, 30), (8, 12, 30), (8, 3, 200)]
 )
 @pytest.mark.parametrize("d, h, w", [(32, 13, 29), (128, 21, 140),
-                                     (64, 40, 7), (16, 47, 155), (33, 11, 37)])
+                                     (64, 40, 7), (16, 47, 155), (33, 11, 37),
+                                     (16, 1, 35), (40, 35, 16), (128, 17, 35),
+                                     (256, 15, 17), (200, 16, 15)])
 def test_sgm_paths_adaptive_kernel(dev, paths, floor, p2_min, d, h, w):
     # Every direction of 8 paths on ragged shapes; p2_min=200 > p2.
     cfg = StereoConfig(num_disparities=d, num_paths=paths, p1=14, p2=120,
@@ -415,6 +426,49 @@ def test_sad_cost_kernel_origin(dev, d, md, x_offset):
     torch.cuda.synchronize()
     assert torch.equal(got.to(torch.int32),
                        sad_cost_volume(left, right, cfg, x_offset))
+
+
+@pytest.mark.parametrize("md, x_offset, ctx", [(0, 24, 24), (3, 40, 17),
+                                               (2, 300, 255), (0, 0, 5)])
+@pytest.mark.parametrize("d", [16, 128])
+def test_sad_cost_kernel_right_context(dev, d, md, x_offset, ctx):
+    # The right image carries ctx frame-true columns before the block.
+    cfg = TSUKUBA_SAD16.replace(num_disparities=d, min_disparity=md,
+                                sad_window=(5, 7))
+    left = _images(d + md, 11, 70, dev)[0]
+    right = _images(ctx, 11, 70 + ctx, dev)[1]
+    reset_launch_counts()
+    got = sad_cost(left, right, cfg, x_offset, ctx)
+    torch.cuda.synchronize()
+    assert launch_forms() == {
+        ("sad_cost", 11, 70, d, 5, 7, x_offset > 0, True): 1}
+    assert torch.equal(got.to(torch.int32),
+                       sad_cost_volume(left, right, cfg, x_offset, ctx))
+
+
+def test_sad_patch_with_context_runs_the_kernels(dev):
+    # A SAD column patch with right context through both entry points:
+    # K5 takes the context, as the plain path does.
+    pair = make_pair((32, 320), max_disp=12, kind="shapes", seed=4)
+    cfg = KITTI_SGM8_128.replace(cost_fn="sad", num_disparities=16)
+    f0, f1, ctx = 142, 250, 15
+    left = torch.from_numpy(pair.left[:, f0:f1].copy()).to(dev)
+    right = torch.from_numpy(pair.right[:, f0 - ctx:f1].copy()).to(dev)
+    call = dict(x_offset=f0, image_width=320, right_context=ctx)
+    plain = cfg.replace(backend="torch")
+    reset_launch_counts()
+    got = compute_disparity(left, right, cfg, **call)
+    parts = compute_patch_parts(left, right, cfg, own=(18, 98), **call)
+    torch.cuda.synchronize()
+    assert launch_counts()["sad_cost"] == 2
+    assert launch_forms()[("sad_cost", 32, 108, 16, *cfg.sad_window, True,
+                           True)] == 2
+    want = compute_disparity(left, right, plain, **call)
+    assert torch.equal(got.disp, want.disp)
+    assert torch.equal(got.valid, want.valid)
+    want_parts = compute_patch_parts(left, right, plain, own=(18, 98), **call)
+    for name in parts._fields:
+        assert torch.equal(getattr(parts, name), getattr(want_parts, name)), name
 
 
 def _sums(seed, h, w, d, levels, dev):

@@ -237,6 +237,24 @@ def test_sad_cost_matches_pallas(md, d, window):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:h, :w])
 
 
+@pytest.mark.parametrize("md, x_offset, ctx", [(0, 24, 24), (3, 40, 17)])
+def test_sad_cost_right_context_matches_reference(md, x_offset, ctx):
+    # The TPU kernel takes no right context: the reference computes SAD
+    # with one through its golden volume, and so does K5.
+    rng = np.random.default_rng(17 + ctx)
+    h, w = 11, 50
+    left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    right = rng.integers(0, 256, size=(h, w + ctx)).astype(np.uint8)
+    kw = dict(cost_fn="sad", sad_window=(5, 7), num_disparities=16,
+              min_disparity=md)
+    want = jops.sad_cost_volume(left, right, JCfg(**kw), x_offset, ctx)
+    before = launch_counts()
+    got = sad_cost(_t(left), _t(right), TCfg(**kw), x_offset, ctx)
+    assert launch_counts() == before
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_wrappers_reject_mixed_devices():
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         census_cost(torch.zeros((2, 3, 2), dtype=torch.int64),

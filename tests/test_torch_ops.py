@@ -69,8 +69,15 @@ def test_census_cost_volume(md):
 _jit_sgm = jax.jit(jops.sgm_aggregate, static_argnums=1)
 
 
+#: Scanline tails of the CUDA kernel's 16-pixel ring (csrc/sgm_paths.cu):
+#: one row, one column, two rows, one disparity, 40 (a partial lane).
+_TAIL_SHAPES = [(1, 35, 16), (35, 1, 16), (2, 37, 16), (9, 13, 1),
+                (9, 13, 40)]
+
+
 @pytest.mark.parametrize("paths", [4, 8])
-@pytest.mark.parametrize("shape", [(24, 40, 16), (21, 33, 128)])
+@pytest.mark.parametrize("shape", [(24, 40, 16), (21, 33, 128),
+                                   *_TAIL_SHAPES])
 def test_sgm_aggregate(paths, shape):
     rng = np.random.default_rng(paths)
     cost = rng.integers(0, 64, size=shape).astype(np.int32)
@@ -170,11 +177,17 @@ def test_adaptive_p2_map(dy, dx, floor):
         (8, dict(adaptive_grad_floor=0)),
         (8, dict(adaptive_grad_floor=12)),
         (8, dict(adaptive_grad_floor=3, p2_min=200)),   # p2_min > p2
+        # the scanline tails of test_sgm_aggregate
+        (8, dict(adaptive_grad_floor=12, shape=(1, 35, 16))),
+        (8, dict(adaptive_grad_floor=12, shape=(35, 1, 16))),
+        (4, dict(adaptive_grad_floor=0, shape=(2, 37, 16))),
+        (8, dict(adaptive_grad_floor=0, shape=(9, 13, 40))),
     ],
 )
 def test_sgm_aggregate_adaptive(paths, kw):
+    kw = dict(kw)
+    h, w, d = kw.pop("shape", (17, 29, 16))
     rng = np.random.default_rng(paths + kw["adaptive_grad_floor"])
-    h, w, d = 17, 29, 16
     cost = rng.integers(0, 64, size=(h, w, d)).astype(np.int32)
     # Smooth regions and sharp edges: gradients on both sides of the floor.
     img = (rng.integers(0, 4, size=(h, w)) * 20
