@@ -11,23 +11,27 @@ result line):
      source, all at once) and the host speckle and fill library (g++) from
      the sources in this checkout; prints ptxas's registers and spills of
      every K2 instance with its ring (pixels staged per warp, shared memory
-     per block);
+     per block), and of every K1 (transform and cost stage) and K3
+     instance;
   3. kernels: runs each kernel form and its plain torch version on the card
      at every shape a path below gives it, requires bit-equal results,
      times both with CUDA events (medians) and computes the form's bound on
      this card from the same shapes. A form is what the wrappers count
      their launches by: the shape and what picks the instantiation.
-       - K1 census_cost, K2 sgm_paths (fixed and adaptive P2), K3
-         sgm_select (base and the exact LR check's two forms: emit_d0, and
-         integer winners without uniqueness) and K4 median3x3 on
-         kitti_like_pair(seed=0) at 375x1242, D=128;
-       - K1's rank form at 375x1242x128;
+       - K1's transform stage (transform_words, each image of the pair)
+         and its cost stage census_cost, K2 sgm_paths (fixed and adaptive
+         P2), K3 sgm_select (base and the exact LR check's two forms:
+         emit_d0, and integer winners without uniqueness) and K4 median3x3
+         on kitti_like_pair(seed=0) at 375x1242, D=128;
+       - K1's rank form (transform and cost stage) at 375x1242x128;
        - the pyramid model's coarse pass on the 2x2-pooled pair (188x621,
          D=64): K1 on a 1-word 5x5 census, K2 (fixed and adaptive P2), K3
          without subpixel and LR, K4;
-       - K2 at D=16 (fixed and adaptive P2) and K3 with min_disparity=-8 on
-         the pyramid model's residual volume (375x1242x16), and the
-         plain-torch gather that builds that volume;
+       - K1's transform stage on a 5x5 window at 375x1242 (the residual
+         pass's descriptors), K2 at D=16 (fixed and adaptive P2) and K3
+         with min_disparity=-8 on the pyramid model's residual volume
+         (375x1242x16), and the plain-torch gather that builds that
+         volume;
        - K1 at D=64, K2 with 4 paths, K3 and K4 on the Middlebury pair
          (555x900);
        - K1, K2 (fixed and adaptive P2), K3, K4, K5 sad_cost at D=128 and
@@ -50,7 +54,8 @@ result line):
      host_postprocess and evaluate_disparity, with the launch counters set
      to 0 just before and read just after, by form; a launch of a form
      that phase 3 did not hold against its plain version fails (per frame,
-     K1/K5 K2 K3 K4):
+     K1/K5 K2 K3 K4; K1 stands for its cost stage, and its transform stage
+     adds one launch per image, two per K1):
      kitti_sgm8_128 (1 8 1 1), kitti_sgm8_128_quality (1 8 1 1),
      kitti_sgm8_128 with lr_exact (2 16 2 1), tsukuba_sad16 through the
      block_matching model (1 0 1 1) and through build_banded_pipeline in two
@@ -88,6 +93,12 @@ kernels, the two must agree bit for bit, and DIR/<fixture>_seed0.json gets
 the hashes (to be copied into stereo_tpu_torch/testdata). The quarter-size
 fixtures, which the reference package makes on the CPU, tie that plain
 path to the reference.
+
+K1's two stages are separate rows: ``census_transform*`` rows time the
+transform stage on one image (each image of a pair is one launch), and
+``census_cost*`` rows time the cost stage from the words the transform
+stage wrote; the plain versions are the plain torch transforms and the
+plain cost volume from the images.
 
 Prints, on the lines before the last, the card's name and power limit
 and one JSON object with each kernel form's launches on the main paths
@@ -142,6 +153,7 @@ from stereo_tpu_torch.eval.roofline import (  # noqa: E402
     sad_bound,
     select_bound,
     sol_fractions,
+    transform_bound,
 )
 from stereo_tpu_torch.models import get_model  # noqa: E402
 from stereo_tpu_torch.models.pyramid import (  # noqa: E402
@@ -151,13 +163,15 @@ from stereo_tpu_torch.models.pyramid import (  # noqa: E402
 from stereo_tpu_torch.ops import (  # noqa: E402
     adaptive_p2_map,
     census_cost_volume,
-    census_transform,
     median_3x3,
     rank_cost_volume,
-    rank_transform,
     sad_cost_volume,
     select_disparity,
     sgm_aggregate,
+)
+from stereo_tpu_torch.ops.census import (  # noqa: E402
+    census_transform_plain,
+    rank_transform_plain,
 )
 from stereo_tpu_torch.ops.cuda import (  # noqa: E402
     alu_peak,
@@ -169,6 +183,7 @@ from stereo_tpu_torch.ops.cuda import (  # noqa: E402
     sad_cost,
     sgm_paths,
     sgm_select,
+    transform_words,
 )
 from stereo_tpu_torch.ops.cuda.build import load_kernels  # noqa: E402
 from stereo_tpu_torch.ops.cuda.launch import run  # noqa: E402
@@ -205,10 +220,23 @@ _H_PATHS = "stereo_tpu/ops/pallas/sgm_kernel.py:399"
 _V_FUSED = "stereo_tpu/ops/pallas/sgm_kernel.py:992"
 _MEDIAN = "stereo_tpu/ops/pallas/filter_kernel.py:33"
 _EMIT_QR = "stereo_tpu/ops/pallas/sgm_kernel.py:1082"
+#: K1's transform stage replaces the transforms inside the reference's K1
+#: entry points (XLA there): census_cost_volume_pallas, rank_cost_volume_pallas.
+_CENSUS_T = "stereo_tpu/ops/pallas/cost_kernel.py:504"
+_RANK_T = "stereo_tpu/ops/pallas/cost_kernel.py:533"
 _PEAK = "stereo_tpu/eval/roofline.py:141"
 #: kernel form -> (wrapper, source, the TPU kernel it replaces). A row with
 #: a size in its name is a form of an earlier row at another path's shape.
 KERNEL_INFO = {
+    # K1's transform stage, one image at a time: kitti (9x7), rank, the
+    # pyramid's coarse pass (5x5 on the pooled pair) and residual pass
+    # (5x5), middlebury, the hard suite
+    "census_transform": ("transform_words", _COST_CU, _CENSUS_T),
+    "census_transform/rank": ("transform_words", _COST_CU, _RANK_T),
+    "census_transform/w1_d64": ("transform_words", _COST_CU, _CENSUS_T),
+    "census_transform/5x5": ("transform_words", _COST_CU, _CENSUS_T),
+    "census_transform/555x900": ("transform_words", _COST_CU, _CENSUS_T),
+    "census_transform/160x288": ("transform_words", _COST_CU, _CENSUS_T),
     "census_cost": ("census_cost", _COST_CU,
                     "stereo_tpu/ops/pallas/cost_kernel.py:206"),
     "census_cost/rank": ("rank_cost", _COST_CU,
@@ -264,13 +292,18 @@ KERNEL_INFO = {
 
 
 
-def _cfg4_forms(k1: Dict[str, int], shapes: Dict[str, int], k3: str
-                ) -> Dict[str, int]:
-    """Launches per frame of one config-4 split, by KERNEL_INFO row: ``k1``
-    maps a K1 row's suffix ("HxW" or "HxW/framed") to its launches,
-    ``shapes`` a patch shape "HxW" to the patches of that shape, ``k3`` is
-    the suffix of the split's K3 form ("", "/framed" or "/qr")."""
-    forms = {f"census_cost/cfg4/{suffix}": n for suffix, n in k1.items()}
+def _cfg4_forms(images: Dict[str, int], k1: Dict[str, int],
+                shapes: Dict[str, int], k3: str) -> Dict[str, int]:
+    """Launches per frame of one config-4 split, by KERNEL_INFO row:
+    ``images`` maps an image shape "HxW" (a right image with its context
+    columns included) to K1 transform launches, ``k1`` a K1 row's suffix
+    ("HxW" or "HxW/framed") to its launches, ``shapes`` a patch shape "HxW"
+    to the patches of that shape, ``k3`` is the suffix of the split's K3
+    form ("", "/framed" or "/qr")."""
+    forms = {f"census_transform/cfg4/{shape}": n
+             for shape, n in images.items()}
+    forms.update({f"census_cost/cfg4/{suffix}": n
+                  for suffix, n in k1.items()})
     for shape, n in shapes.items():
         forms[f"sgm_paths/cfg4/{shape}"] = 8 * n
         forms[f"sgm_select/cfg4/{shape}{k3}"] = n
@@ -282,27 +315,35 @@ def _cfg4_forms(k1: Dict[str, int], shapes: Dict[str, int], k3: str
 #: launches per frame at 497x720 and at 1988x2880. Stitched patches are
 #: 380 and 1460 columns wide (half the frame + the halo; the second reads
 #: 255 context columns); the legacy ones 636 and 1716 (+ halo + D on the
-#: inner side), in bands of 269 and 268, or 1014, rows.
+#: inner side), in bands of 269 and 268, or 1014, rows. K1's transform
+#: stage runs on both images of each patch: the stitched second patch's
+#: right image carries its 255 context columns (380 + 255, 1460 + 255).
 CFG4_SPLITS = {
     "": (dict(n_bands=1, n_cols=1),
-         _cfg4_forms({"497x720": 1}, {"497x720": 1}, ""),
-         _cfg4_forms({"1988x2880": 1}, {"1988x2880": 1}, "")),
+         _cfg4_forms({"497x720": 2}, {"497x720": 1}, {"497x720": 1}, ""),
+         _cfg4_forms({"1988x2880": 2}, {"1988x2880": 1}, {"1988x2880": 1},
+                     "")),
     "_1x2": (dict(n_bands=1, n_cols=2),
-             _cfg4_forms({"497x380": 1, "497x380/framed": 1}, {"497x380": 2},
+             _cfg4_forms({"497x380": 3, "497x635": 1},
+                         {"497x380": 1, "497x380/framed": 1}, {"497x380": 2},
                          "/qr"),
-             _cfg4_forms({"1988x1460": 1, "1988x1460/framed": 1},
+             _cfg4_forms({"1988x1460": 3, "1988x1715": 1},
+                         {"1988x1460": 1, "1988x1460/framed": 1},
                          {"1988x1460": 2}, "/qr")),
     "_2x2_legacy": (dict(n_bands=2, n_cols=2, lr_stitch=False),
-                    _cfg4_forms({"269x636": 1, "269x636/framed": 1,
+                    _cfg4_forms({"269x636": 4, "268x636": 4},
+                                {"269x636": 1, "269x636/framed": 1,
                                  "268x636": 1, "268x636/framed": 1},
                                 {"269x636": 2, "268x636": 2}, "/framed"),
-                    _cfg4_forms({"1014x1716": 2, "1014x1716/framed": 2},
+                    _cfg4_forms({"1014x1716": 8},
+                                {"1014x1716": 2, "1014x1716/framed": 2},
                                 {"1014x1716": 4}, "/framed")),
 }
 for _, _quarter, _full in CFG4_SPLITS.values():
     for _name in (*_quarter, *_full):
         _kernel = _name.split("/")[0]
         KERNEL_INFO[_name] = {
+            "census_transform": ("transform_words", _COST_CU, _CENSUS_T),
             "census_cost": ("census_cost", _COST_CU, _COST_X),
             "sgm_paths": ("sgm_paths", _PATHS_CU, _H_PATHS),
             "sgm_select": ("sgm_select", _SELECT_CU,
@@ -385,6 +426,7 @@ class BandedRunner(NamedTuple):
 #: A pyramid frame: the coarse pass at half size and D/2 (K1, K2 x 8, K3
 #: without LR, K4), then K2 x 8 and K3 on the residual volume, and K4.
 _PYRAMID_FORMS = {
+    "census_transform/w1_d64": 2, "census_transform/5x5": 2,
     "census_cost/w1_d64": 1, "sgm_paths/d64": 8, "sgm_select/coarse": 1,
     "median3x3/coarse": 1, "sgm_paths/d16": 8, "sgm_select/md-8": 1,
     "median3x3": 1,
@@ -392,12 +434,14 @@ _PYRAMID_FORMS = {
 
 SLICES = (
     Slice("kitti_sgm8_128", kitti_like_pair, (0, 1, 0, 1),
-          {"census_cost": 1, "sgm_paths": 8, "sgm_select": 1, "median3x3": 1}),
+          {"census_transform": 2, "census_cost": 1, "sgm_paths": 8,
+           "sgm_select": 1, "median3x3": 1}),
     Slice("kitti_sgm8_128_quality", kitti_like_pair, (0, 1, 0),
-          {"census_cost": 1, "sgm_paths/adaptive": 8, "sgm_select": 1,
-           "median3x3": 1}),
+          {"census_transform": 2, "census_cost": 1, "sgm_paths/adaptive": 8,
+           "sgm_select": 1, "median3x3": 1}),
     Slice("kitti_sgm8_128_lr_exact", kitti_like_pair, (0, 1, 0),
-          {"census_cost": 2, "sgm_paths": 16, "sgm_select/d0": 1,
+          {"census_transform": 4, "census_cost": 2, "sgm_paths": 16,
+           "sgm_select/d0": 1,
            "sgm_select/int": 1, "median3x3": 1}),
     Slice("tsukuba_sad16", tsukuba_pair, (0, 1, 2, 3, 0, 1, 2, 3),
           {"sad_cost": 1, "sgm_select/d16": 1, "median3x3/288x384": 1},
@@ -405,18 +449,19 @@ SLICES = (
     Slice("tsukuba_sad16_1x2", tsukuba_pair, (0, 1, 0), SAD_SPLIT_FORMS,
           differs_from="tsukuba_sad16"),
     Slice("middlebury_census_sgm4_64", middlebury_pair, (0, 1, 0, 1),
-          {"census_cost/d64": 1, "sgm_paths/4": 4, "sgm_select/d64": 1,
-           "median3x3/555x900": 1}),
+          {"census_transform/555x900": 2, "census_cost/d64": 1,
+           "sgm_paths/4": 4, "sgm_select/d64": 1, "median3x3/555x900": 1}),
     Slice("kitti_sgm8_128_pyramid55", kitti_like_pair, (0, 1, 0, 1),
           _PYRAMID_FORMS),
     Slice("kitti_sgm8_128_quality_pyramid55", kitti_like_pair, (0, 1, 0),
-          {"census_cost/w1_d64": 1, "sgm_paths/d64/adaptive": 8,
+          {"census_transform/w1_d64": 2, "census_transform/5x5": 2,
+           "census_cost/w1_d64": 1, "sgm_paths/d64/adaptive": 8,
            "sgm_select/coarse": 1, "median3x3/coarse": 1,
            "sgm_paths/d16/adaptive": 8, "sgm_select/md-8": 1,
            "median3x3": 1}),
     Slice("kitti_sgm8_128_rank", kitti_like_pair, (0, 1, 0),
-          {"census_cost/rank": 1, "sgm_paths": 8, "sgm_select": 1,
-           "median3x3": 1}),
+          {"census_transform/rank": 2, "census_cost/rank": 1, "sgm_paths": 8,
+           "sgm_select": 1, "median3x3": 1}),
     # config 4 through the banded runner, at a quarter of the resolution
     # (fixtures from the reference package) and at the bench's size
     *(Slice(f"middlebury_full_256_tiled_q{tag}", cfg4_pair((497, 720)),
@@ -531,33 +576,31 @@ def phase_build() -> None:
     print("K2 instances (ptxas registers and spill bytes; ring: pixels "
           "staged per warp, shared bytes per block): "
           + json.dumps(k2_instances()))
+    print("K1 and K3 instances (ptxas registers and spill bytes, by "
+          "template arguments): " + json.dumps({
+              kernel: kernel_instances(kernel) for kernel in (
+                  "census_transform_kernel", "census_cost_kernel",
+                  "sgm_select_kernel")}))
 
 
-#: A K2 instance's mangled name: DPL, PARTIAL, ADAPTIVE, cost type.
-_K2_NAME = re.compile(r"sgm_path_kernelILi(\d)ELb([01])ELb([01])E([as])E")
 
-
-def k2_instances() -> Dict[str, dict]:
-    """Each K2 instance's registers and spills, from the ptxas report the
-    build keeps beside the library, and its ring from the C queries."""
-    lib = load_kernels()
+def kernel_instances(kernel: str, log: str = "") -> Dict[str, dict]:
+    """Registers and spill bytes of every instance of ``kernel``, keyed by
+    its template arguments joined by "/" (numbers, or a mangled type: h
+    uint8, f float, i int, a int8, s int16), from the ptxas report the build
+    keeps beside the library (or ``log``)."""
+    if not log:
+        log = Path(load_kernels()._name + ".log").read_text()
     found: Dict[str, dict] = {}
     row = None
-    for line in Path(lib._name + ".log").read_text().splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'|Function "
                       r"properties for (\S+)", line)
         if m:
-            k = _K2_NAME.search(m.group(1) or m.group(2))
-            row = None
-            if k:
-                dpl, partial, adaptive, t = k.groups()
-                cost_bytes = 1 if t == "a" else 2
-                name = (f"dpl{dpl}{'/partial' * (partial == '1')}"
-                        f"{'/adaptive' * (adaptive == '1')}/int{8 * cost_bytes}")
-                d = 32 * int(dpl)
-                row = found.setdefault(name, dict(
-                    stages=lib.stpu_sgm_path_stages(d),
-                    smem=lib.stpu_sgm_path_smem(d, cost_bytes)))
+            k = re.search(kernel + r"I(.+?)Ev", m.group(1) or m.group(2))
+            args = re.sub(r"L[a-z](\d+)E", r"/\1/", k.group(1)) if k else ""
+            row = None if k is None else found.setdefault(
+                re.sub("/+", "/", args).rstrip("E").strip("/"), {})
             continue
         if row is None:
             continue
@@ -568,7 +611,26 @@ def k2_instances() -> Dict[str, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             row["registers"] = int(m.group(1))
-    if len(found) != 64 or not all("registers" in r for r in found.values()):
+    if not found or not all("registers" in r for r in found.values()):
+        raise AssertionError(f"ptxas report: {kernel} instances {found}")
+    return dict(sorted(found.items()))
+
+
+def k2_instances() -> Dict[str, dict]:
+    """Each K2 instance's registers and spills (``kernel_instances``; its
+    template arguments are DPL, PARTIAL, ADAPTIVE and the cost type) and
+    its ring from the C queries."""
+    lib = load_kernels()
+    found: Dict[str, dict] = {}
+    for args, row in kernel_instances("sgm_path_kernel").items():
+        dpl, partial, adaptive, t = args.split("/")
+        cost_bytes = 1 if t == "a" else 2
+        name = (f"dpl{dpl}{'/partial' * (partial == '1')}"
+                f"{'/adaptive' * (adaptive == '1')}/int{8 * cost_bytes}")
+        d = 32 * int(dpl)
+        found[name] = dict(stages=lib.stpu_sgm_path_stages(d),
+                           smem=lib.stpu_sgm_path_smem(d, cost_bytes), **row)
+    if len(found) != 64:
         raise AssertionError(f"ptxas report: {len(found)} K2 instances")
     return dict(sorted(found.items()))
 
@@ -592,12 +654,32 @@ def to_dev(pair, dev):
             torch.from_numpy(pair.right).to(dev))
 
 
-def census_row(name, left, right, cfg, reps=20):
-    """One K1 census form against the plain volume; returns (row, volume,
+def transform_row(rows, name, img, window, rank=False, reps=20):
+    """K1's transform stage on one image against the plain transform
+    (census words compared as int64 in [0, 2^32)); the first image of a
+    row is timed into ``rows[name]``. Returns the kernel's int32 words."""
+    plain_fn = rank_transform_plain if rank else census_transform_plain
+    got = held(name, lambda: transform_words(img, window, rank=rank))
+    want = synced(lambda: plain_fn(img, window))
+    err = require_equal(name, got if rank else got.to(torch.int64)
+                        & 0xFFFFFFFF, want)
+    _first_row(rows, name, lambda: dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: transform_words(img, window, rank=rank),
+                   reps=reps),
+        plain_ms=cuda_ms(lambda: plain_fn(img, window), reps=3),
+        **transform_bound(*img.shape, window, rank, img.element_size())))
+    return got
+
+
+def census_row(name, tname, rows, left, right, cfg, reps=20):
+    """One K1 census form: its transform stage on each image (row
+    ``tname``, ``transform_row``), then its cost stage from those words
+    against the plain volume from the images; returns (cost row, volume,
     plain volume)."""
     plain = cfg.replace(backend="torch")
-    cl = census_transform(left, cfg.census_window)
-    cr = census_transform(right, cfg.census_window)
+    cl = transform_row(rows, tname, left, cfg.census_window)
+    cr = transform_row(rows, tname, right, cfg.census_window)
     cost = held(name, lambda: census_cost(cl, cr, cfg))
     cost_plain = synced(lambda: census_cost_volume(left, right, plain))
     row = dict(
@@ -708,7 +790,7 @@ def banded_rows(dev, left, right, cfg, split, tag: str = "cfg4") -> dict:
                     rows, f"sad_cost/{tag}/{shape}", pl_, pr_, cfg, f0)
             else:
                 cost, cost_plain = _banded_census(
-                    rows, f"census_cost/{tag}/{shape}", pl_, pr_, cfg, f0, ctx)
+                    rows, tag, shape, pl_, pr_, cfg, f0, ctx)
 
             if cfg.num_paths == 0:
                 # no SGM: S is the cost itself
@@ -750,14 +832,18 @@ def banded_rows(dev, left, right, cfg, split, tag: str = "cfg4") -> dict:
     return rows
 
 
-def _banded_census(rows, name, pl_, pr_, cfg, f0, ctx):
-    """K1 on one patch, with its origin and right context; returns (the
-    patch's volume, its plain volume)."""
+def _banded_census(rows, tag, shape, pl_, pr_, cfg, f0, ctx):
+    """K1 on one patch, with its origin and right context: the transform
+    stage on each image (rows ``census_transform/<tag>/<H>x<W>``, the right
+    image with its context columns), then the cost stage (row
+    ``census_cost/<tag>/<shape>[/framed]``); returns (the patch's volume,
+    its plain volume)."""
     plain = cfg.replace(backend="torch")
     ph, pw = pl_.shape
-    name += "/framed" if f0 or ctx else ""
-    cl = census_transform(pl_, cfg.census_window)
-    cr = census_transform(pr_, cfg.census_window)
+    name = f"census_cost/{tag}/{shape}" + ("/framed" if f0 or ctx else "")
+    cl, cr = (transform_row(rows, f"census_transform/{tag}/{ph}x{iw}", img,
+                            cfg.census_window, reps=5)
+              for img, iw in ((pl_, pw), (pr_, pw + ctx)))
     cost = held(name, lambda: census_cost(cl, cr, cfg, f0, ctx))
     cost_plain = synced(lambda: census_cost_volume(pl_, pr_, plain, f0, ctx))
     err = require_equal(name, cost, cost_plain)
@@ -835,14 +921,15 @@ def phase_kernels(dev) -> dict:
     """Each kernel form against its plain version at its paths' shapes."""
     left, right = to_dev(kitti_like_pair(seed=0), dev)
     h, w = left.shape
-    one_view = cuda_ms(lambda: census_transform(left, CFG.census_window),
+    one_view = cuda_ms(lambda: census_transform_plain(left,
+                                                      CFG.census_window),
                        reps=10)
     print(f"census_transform (plain torch, both views): {2 * one_view:.4f} ms")
     rows = {}
 
     # kitti_sgm8_128, its quality preset and lr_exact: 375x1242, D=128.
     rows["census_cost"], cost, cost_plain = census_row(
-        "census_cost", left, right, CFG)
+        "census_cost", "census_transform", rows, left, right, CFG)
     rows["sgm_paths"], s, s_plain = paths_row(
         "sgm_paths", dev, cost, cost_plain, CFG)
     # K2 adaptive: the quality preset has the same census and D as CFG, so
@@ -872,9 +959,11 @@ def phase_kernels(dev) -> dict:
     del cost, cost_plain, s, s_plain
 
     # K1's rank form: one int32 rank per pixel, |rank_l - rank_r|.
-    rl = rank_transform(left, RANK.census_window)
-    rr = rank_transform(right, RANK.census_window)
-    rank_view = cuda_ms(lambda: rank_transform(left, RANK.census_window),
+    rl, rr = (transform_row(rows, "census_transform/rank", img,
+                            RANK.census_window, rank=True)
+              for img in (left, right))
+    rank_view = cuda_ms(lambda: rank_transform_plain(left,
+                                                     RANK.census_window),
                         reps=10)
     print(f"rank_transform (plain torch, both views): {2 * rank_view:.4f} ms")
     rplain = RANK.replace(backend="torch")
@@ -896,7 +985,8 @@ def phase_kernels(dev) -> dict:
     ccfg = pyramid.coarse_cfg()
     pleft, pright = _pool2(left), _pool2(right)
     rows["census_cost/w1_d64"], ccost, ccost_plain = census_row(
-        "census_cost/w1_d64", pleft, pright, ccfg)
+        "census_cost/w1_d64", "census_transform/w1_d64", rows, pleft, pright,
+        ccfg)
     rows["sgm_paths/d64"], cs, cs_plain = paths_row(
         "sgm_paths/d64", dev, ccost, ccost_plain, ccfg)
     rows["sgm_paths/d64/adaptive"], _, _ = paths_row(
@@ -912,8 +1002,9 @@ def phase_kernels(dev) -> dict:
     # then K2 at D=16 (the staged S) and K3 with min_disparity=-8; its
     # K4 is the 375x1242 form above.
     base, vol, res_cfg = synced(lambda: pyramid.residual_volume(left, right))
-    pcl = census_transform(left, (5, 5))
-    pcr = census_transform(right, (5, 5))
+    pcl, pcr = (transform_row(rows, "census_transform/5x5", img, (5, 5)
+                              ).to(torch.int64) & 0xFFFFFFFF
+                for img in (left, right))
     base_i = torch.round(base).to(torch.int32)
     gather_ms = cuda_ms(lambda: _residual_cost_volume(pcl, pcr, base_i, 8, 16),
                         reps=10)
@@ -936,7 +1027,7 @@ def phase_kernels(dev) -> dict:
     # middlebury_census_sgm4_64: 555x900, D=64, 4 paths.
     ml, mr = to_dev(middlebury_pair(0), dev)
     rows["census_cost/d64"], mcost, mcost_plain = census_row(
-        "census_cost/d64", ml, mr, MID)
+        "census_cost/d64", "census_transform/555x900", rows, ml, mr, MID)
     rows["sgm_paths/4"], ms_, ms_plain = paths_row(
         "sgm_paths/4", dev, mcost, mcost_plain, MID)
     rows["sgm_select/d64"], (mdisp, _), (mdisp_plain, _) = select_row(
@@ -951,7 +1042,7 @@ def phase_kernels(dev) -> dict:
     rp = make_pair((160, 288), max_disp=96, seed=0, **SCENARIOS["radiometric"])
     hl, hr = to_dev(rp, dev)
     rows["census_cost/160x288"], hcost, hcost_plain = census_row(
-        "census_cost/160x288", hl, hr, CFG)
+        "census_cost/160x288", "census_transform/160x288", rows, hl, hr, CFG)
     rows["sgm_paths/160x288"], hs, hs_plain = paths_row(
         "sgm_paths/160x288", dev, hcost, hcost_plain, CFG)
     rows["sgm_paths/adaptive/160x288"], _, _ = paths_row(
@@ -1080,9 +1171,11 @@ def run_slice(dev, sl: Slice, frame0: Dict[str, tuple]) -> Dict[str, int]:
 
 #: Kernel forms of one pair of the hard suite's two sweeps (the second
 #: runs a census and a SAD pipeline on each pair).
-_SUITE_FORMS = {"census_cost/160x288": 1, "sgm_paths/adaptive/160x288": 8,
-                "sgm_select/160x288": 1, "median3x3/160x288": 1}
-_ROBUST_FORMS = {"census_cost/160x288": 1, "sad_cost/d128": 1,
+_SUITE_FORMS = {"census_transform/160x288": 2, "census_cost/160x288": 1,
+                "sgm_paths/adaptive/160x288": 8, "sgm_select/160x288": 1,
+                "median3x3/160x288": 1}
+_ROBUST_FORMS = {"census_transform/160x288": 2, "census_cost/160x288": 1,
+                 "sad_cost/d128": 1,
                  "sgm_paths/160x288": 8, "sgm_paths/int16": 8,
                  "sgm_select/160x288": 2, "median3x3/160x288": 2}
 

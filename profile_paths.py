@@ -35,8 +35,9 @@ from stereo_tpu_torch.ops.cuda import median3x3, sgm_paths, sgm_select
 from stereo_tpu_torch.pipeline import compute_disparity
 
 #: Substrings of the port's kernel names, as the profiler reports them.
-KERNELS = ("census_cost_kernel", "sad_cost_kernel", "sgm_path_kernel",
-           "sgm_select_kernel", "median3x3_kernel")
+KERNELS = ("census_transform_kernel", "census_cost_kernel",
+           "sad_cost_kernel", "sgm_path_kernel", "sgm_select_kernel",
+           "median3x3_kernel")
 WARMUP = 3
 
 
@@ -103,7 +104,7 @@ def pyramid_stages(sl, dev: torch.device) -> dict:
         "coarse pass (K1, K2 x8, K3, K4 at half size, D/2)":
             lambda: compute_disparity(pl, pr, coarse_cfg),
         "upsample + min/max centre": lambda: _local_minmax_center(up),
-        "census transform x2":
+        "census transform x2 (K1's transform stage)":
             lambda: (census_transform(left, cfg.census_window),
                      census_transform(right, cfg.census_window)),
         "gather volume":

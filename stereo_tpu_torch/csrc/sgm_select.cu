@@ -47,30 +47,48 @@
 // taken with the cheap LR check off.
 //
 // Output: disp = d0 + offset + md (f32), valid (one byte, 0/1) and, if
-// its pointer is set, the integer winner lane d0 (int32; the emit_d0 form,
+// its pointer is set, the integer winner d0 (int32; the emit_d0 form,
 // which the TPU packs as ok + 2 * d0 into one word). The exact LR check
 // compares d0, since the subpixel disparity cannot be rounded back to it
 // (offsets reach +-0.5 on ties).
 //
-// Any D in [1, 256]: lanes hold ceil(D / 32) disparities each, and when D
-// is not a multiple of 32 (tsukuba_sad16 has D = 16) the lanes past D hold
-// INT_MAX, so they never win the argmin, never lower the uniqueness
-// runner-up and take no part in the right view. Keys stay below 2^23
-// (S < 2^15, PD <= 256).
+// Any D in [1, 256]; right-view keys are S * pd + d with pd the smallest
+// power of two >= D, the reference's packing, and stay below 2^23
+// (S < 2^15).
 //
 // Bound on the H100: one read of S, 119 MB int16 at 375x1242x128 (about 36
 // us at the 3.35 TB/s published for an H100 SXM at 700 W). Design: one block
-// per row. Phase 1 gives each warp whole pixels (lanes hold D/32 consecutive
-// disparities, one coalesced load per pixel): it reduces the left winner
-// with warp shuffles and keeps (d0, disp, unique) in shared memory, and it
-// folds the same registers into the right view, where source pixel x lane d
-// is a candidate for right column xr = x - md - d: a shared-memory atomicMin
-// of the integer key S * PD + d (PD = power of two >= D) keeps the smallest
-// cost and, among ties, the smallest d, i.e. the golden first argmin. After
-// __syncthreads, phase 2 runs the LR test per pixel from shared memory and
-// writes the row. S is read once instead of twice. Shared memory is 13 bytes
-// per column plus 4 per spill column (38.4 KB at W = 2880); rows too wide for
-// the card's 227 KB are refused.
+// per row, and one lane per pixel: a warp takes 64 consecutive columns, two
+// per lane (x and x + 32, two independent chains), and walks the
+// disparities in order. The per-pixel warp reductions of a
+// lane-per-disparity layout (three or more reductions and two shuffles per
+// pixel, and D / 32 shared-memory atomics per lane and pixel) become a few
+// integer instructions per (pixel, d), shared by the 32 pixels of an
+// instruction:
+//   * the left winner is a running strict minimum (first argmin), and the
+//     uniqueness runner-up is kept on the way: the prefix minimum up to
+//     d - 2 when a new minimum appears at d, then the minimum of the
+//     values from d + 2 on;
+//   * the right view is a diagonal minimum carried across lanes: lane L at
+//     step d holds the partial min for right column x - md - d, which at
+//     step d + 1 is lane L + 1's column, so one __shfl_up_sync per step
+//     moves the carries (lane 0 takes lane 31's, from x + 31 to x + 32);
+//     lane 0's first pixel starts a new column and the 64th pixel's leaves
+//     the warp with one single-lane shared-memory atomicMin into the row's
+//     keys (the other warps' partial mins for that column land there too;
+//     a sink slot takes the columns left of the spill, so the atomic needs
+//     no test);
+//   * the parabola's neighbours are two loads once d0 is known.
+// S reaches the lanes through shared memory: each warp double-buffers
+// chunks of its 64 pixels' next 32 disparities (4 KB each) with cp.async,
+// 16 coalesced bytes per lane, and each lane reads its pixels' rows there
+// 16 bytes at a time (rows swizzled so that 8 lanes' 16-byte reads hit
+// distinct banks). Rows that are not whole 16-byte units (D % 8 != 0) are
+// staged by element loads. (d0, disp, unique) go to shared memory; after
+// __syncthreads the LR test runs per pixel from shared memory and writes
+// the row. Shared memory is 13 bytes per column plus 4 per spill column
+// plus 64 KB of staging (101 KB at W = 2880); rows too wide for the
+// card's 227 KB are refused.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -78,30 +96,17 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPix = 2;                 // pixels per lane: x and x + 32
+constexpr int kGroup = 32 * kPix;       // columns per warp item
+constexpr int kChunk = 32;              // disparities per staged chunk
+constexpr int kUnits = kChunk / 8;      // 16-byte units per pixel and chunk
+constexpr int kStage = kGroup * kUnits;  // 16-byte units per staged chunk
+constexpr int kStages = 2;              // chunks a warp keeps in its ring
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on sm_90
 constexpr float kEmpty = 3e38f;      // an empty packed min, as the reference
-
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-template <int N>
-__device__ __forceinline__ void load_sum(const int16_t* p, int (&s)[N]) {
-  if constexpr (N == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    s[0] = (int)(int16_t)(v.x & 0xffff);
-    s[1] = (int)(int16_t)(v.x >> 16);
-    s[2] = (int)(int16_t)(v.y & 0xffff);
-    s[3] = (int)(int16_t)(v.y >> 16);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) s[j] = p[j];
-  }
-}
 
 __host__ __device__ constexpr int pow2_at_least(int n) {
   int p = 1;
@@ -120,178 +125,335 @@ struct Frame {
   float* spill;          // emit_qr: [H, SP] packed partial min
 };
 
-// A right-view key as the reference packs it: S * pd + d with pd the
-// smallest power of two >= D (the kernel's own radix PD is a power of two
-// >= 32 * DPL, which differs for D <= 16), or 3e38 for an empty column.
-__device__ __forceinline__ float packed_min(int key, int PD, int pd) {
-  if (key == INT_MAX) return kEmpty;
-  return (float)((key / PD) * pd + (key & (PD - 1)));
+// A right-view key as the reference packs it, or 3e38 for an empty column.
+__device__ __forceinline__ float packed_min(int key) {
+  return key == INT_MAX ? kEmpty : (float)key;
 }
 
+// Bytes before the staging buffers (rounded to 16), and in all.
+__host__ __device__ constexpr size_t row_bytes(int w, int sp) {
+  return ((size_t)(w + sp + 1) * 4 + (size_t)w * 9 + 15) / 16 * 16;
+}
 size_t smem_bytes(int w, int sp) {
-  return (size_t)(w + sp) * sizeof(int) +
-         (size_t)w * (sizeof(int) + sizeof(float) + sizeof(uint8_t));
+  return row_bytes(w, sp) + (size_t)kWarps * kStages * kStage * 16;
 }
 
-// DPL = disparities per lane; PARTIAL: D = d < 32 * DPL (masked lanes).
-template <int DPL, bool PARTIAL>
-__global__ void sgm_select_kernel(const int16_t* __restrict__ sum,
-                                  float* __restrict__ disp,
-                                  uint8_t* __restrict__ valid,
-                                  int* __restrict__ d0_out, int w, int d,
-                                  int md, int subpixel, int uniqueness,
-                                  float uniq_f, int lr_check, float lr_tau,
-                                  Frame f) {
-  const int D = PARTIAL ? d : 32 * DPL;
-  constexpr int PD = pow2_at_least(32 * DPL);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kStages - 1 of the calling lane's copy groups are
+// pending.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+}
+
+// Slot of pixel p's 16-byte unit u in a staged chunk: rows of kUnits
+// units, swizzled so that lanes 8k .. 8k + 7 reading one unit each hit 8
+// distinct 16-byte bank groups.
+__device__ __forceinline__ int slot(int p, int u) {
+  return p * kUnits + (u ^ ((p / (8 / kUnits)) & (kUnits - 1)));
+}
+
+// The warp stages disparities [dc, dc + kChunk) of the pixels
+// [xw, xw + kGroup) of row `srow` (columns past w repeat column w - 1)
+// into `buf`: with VEC (rows of whole 16-byte units) one cp.async per
+// unit, else element by element.
+template <bool VEC>
+__device__ __forceinline__ void stage(uint4* buf, const int16_t* srow,
+                                      int xw, int w, int D, int dc,
+                                      int lane) {
+  if (VEC) {
+    const int units = min(kUnits, (D - dc) / 8);
+#pragma unroll
+    for (int i = lane; i < kStage; i += 32) {
+      const int p = i / kUnits, u = i % kUnits;
+      if (u < units) {
+        cp_async16(buf + slot(p, u),
+                   srow + (size_t)min(xw + p, w - 1) * D + dc + 8 * u);
+      }
+    }
+  } else {
+    int16_t* b = reinterpret_cast<int16_t*>(buf);
+    for (int e = lane; e < kGroup * kChunk; e += 32) {
+      const int p = e / kChunk, j = e % kChunk;
+      if (dc + j < D) {
+        b[8 * slot(p, j / 8) + j % 8] =
+            srow[(size_t)min(xw + p, w - 1) * D + dc + j];
+      }
+    }
+  }
+}
+
+// The 8 sign-extended int16 values of a 16-byte unit, in order.
+__device__ __forceinline__ void unpack8(const uint4& u, int (&v)[8]) {
+  const unsigned q[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[2 * j] = (int)(int16_t)(q[j] & 0xffff);
+    v[2 * j + 1] = (int)(int16_t)(q[j] >> 16);
+  }
+}
+
+// VEC: D % 8 == 0; UNIQ: the uniqueness test; LR: the cheap LR check.
+template <bool VEC, bool UNIQ, bool LR>
+__global__ void __launch_bounds__(kThreads)
+sgm_select_kernel(const int16_t* __restrict__ sum, float* __restrict__ disp,
+                  uint8_t* __restrict__ valid, int* __restrict__ d0_out,
+                  int w, int D, int md, int subpixel, float uniq_f,
+                  float lr_tau, Frame f) {
   const bool emit_qr = f.qr != nullptr;
   const int sp = emit_qr ? f.sp : 0;
   const int pd = pow2_at_least(D);
-  extern __shared__ unsigned char smem[];
-  // Right-view keys of block-local columns [-sp, w): column xr at xr + sp.
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Right-view keys of block-local columns [-sp, w): column xr at
+  // xr + sp + 1; slot 0 is a sink for the columns left of -sp.
   int* rkey = reinterpret_cast<int*>(smem);
-  int* d0s = rkey + sp + w;                        // [w] left winner
+  int* d0s = rkey + sp + w + 1;                    // [w] left winner
   float* disps = reinterpret_cast<float*>(d0s + w);  // [w] refined disp
   uint8_t* oks = reinterpret_cast<uint8_t*>(disps + w);  // [w] unique
 
   const int y = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  // This warp's ring of staging buffers.
+  uint4* ring = reinterpret_cast<uint4*>(smem + row_bytes(w, sp)) +
+                warp * kStages * kStage;
   const size_t row = (size_t)y * w;
+  const int16_t* srow = sum + row * D;
   // Source columns that feed the right view: inside the frame and, with
   // emit_qr, owned.
   const int src_lo = emit_qr ? f.own_lo : 0;
   const int src_hi = min(emit_qr ? f.own_hi : w, f.iw - f.x0);
+  // Where right column xr's key lives: the sink left of -sp, and past the
+  // row (where only the empty key INT_MAX arrives) the last column.
+  auto key_at = [&](int xr) {
+    return rkey + min(max(xr + sp + 1, 0), sp + w);
+  };
 
-  for (int i = threadIdx.x; i < sp + w; i += blockDim.x) rkey[i] = INT_MAX;
+  for (int i = threadIdx.x; i < sp + w + 1; i += kThreads) rkey[i] = INT_MAX;
   __syncthreads();
 
-  for (int x = warp; x < w; x += nwarps) {
-    int v[DPL];
-    const int dbase = lane * DPL;
-    if (PARTIAL) {
-      const int16_t* p = sum + (row + x) * D;
+  // The warp's items: (group of kGroup columns, chunk of disparities),
+  // chunks fastest; items t + 1 .. t + kStages - 1 are in flight while
+  // item t is walked. Lane L holds pixels xw + L and xw + 32 + L.
+  const int nch = (D + kChunk - 1) / kChunk;
+  const int groups = (w + kGroup - 1) / kGroup;
+  const int mine = warp < groups ? (groups - warp + kWarps - 1) / kWarps : 0;
+  const int items = mine * nch;
+  auto fetch = [&](int t) {
+    if (t < items) {
+      stage<VEC>(ring + (t % kStages) * kStage, srow,
+                 kGroup * (warp + kWarps * (t / nch)), w, D,
+                 kChunk * (t % nch), lane);
+    }
+    cp_async_commit();  // one group per item, empty past the end
+  };
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        v[j] = dbase + j < D ? (int)p[dbase + j] : INT_MAX;
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+
+  int c0[kPix], d0[kPix], lft[kPix], q[kPix], pm1[kPix], pm2[kPix];
+  int carry[kPix], mask[kPix];
+  bool fresh[kPix];
+  for (int t = 0; t < items; ++t) {
+    fetch(t + kStages - 1);
+    cp_async_wait_ring();
+    __syncwarp();
+    const int xw = kGroup * (warp + kWarps * (t / nch));
+    const int dc = kChunk * (t % nch);
+    if (dc == 0) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        // A pixel's keys enter the right view iff it is a source column;
+        // the others carry INT_MAX (max with the mask keeps the key or
+        // INT_MAX).
+        const int x = xw + 32 * k + lane;
+        mask[k] = LR && x < w && x >= src_lo && x < src_hi ? INT_MIN
+                                                           : INT_MAX;
+        c0[k] = INT_MAX;
+        d0[k] = 0;
+        lft[k] = q[k] = pm1[k] = pm2[k] = carry[k] = INT_MAX;
+        fresh[k] = false;
       }
-    } else {
-      load_sum<DPL>(sum + (row + x) * D + dbase, v);
     }
-
-    int c0 = v[0];
+    const uint4* buf = ring + (t % kStages) * kStage;
+    const int n = min(kChunk, D - dc);
 #pragma unroll
-    for (int j = 1; j < DPL; ++j) c0 = min(c0, v[j]);
-    c0 = warp_min(c0);
-    int first = D;
+    for (int u = 0; u < kUnits; ++u) {
+      if (8 * u >= n) break;
+      int v[kPix][8];
 #pragma unroll
-    for (int j = DPL - 1; j >= 0; --j) {
-      if (v[j] == c0) first = dbase + j;
-    }
-    const int d0 = warp_min(first);
-
-    bool ok = true;
-    if (uniqueness) {
-      int c2 = INT_MAX;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        if (abs(dbase + j - d0) > 1) c2 = min(c2, v[j]);
+      for (int k = 0; k < kPix; ++k) {
+        unpack8(buf[slot(32 * k + lane, u)], v[k]);
       }
-      c2 = warp_min(c2);
-      ok = (float)c2 > __fmul_rn((float)c0, uniq_f);
-    }
-
-    float dv = (float)d0;
-    if (subpixel && d0 > 0 && d0 < D - 1) {  // uniform over the warp
-      int cm = INT_MAX, cp = INT_MAX;
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        if (dbase + j == d0 - 1) cm = v[j];
-        if (dbase + j == d0 + 1) cp = v[j];
-      }
-      cm = warp_min(cm);
-      cp = warp_min(cp);
-      const int denom = cp + cm - 2 * c0;
-      float off = 0.0f;
-      if (denom > 0) off = __fdiv_rn((float)(cm - cp), (float)(2 * denom));
-      off = fminf(fmaxf(off, -0.5f), 0.5f);
-      dv = __fadd_rn(dv, off);
-    }
-    dv = __fadd_rn(dv, (float)md);
-
-    if (lane == 0) {
-      d0s[x] = d0;
-      disps[x] = dv;
-      oks[x] = ok;
-    }
-    if (lr_check && x >= src_lo && x < src_hi) {
+      for (int j = 0; j < 8; ++j) {
+        const int d = dc + 8 * u + j;
+        if (!VEC && d >= D) break;
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        const int dd = dbase + j;
-        if (PARTIAL && dd >= D) continue;
-        const int key = v[j] * PD + dd;
-        const int xr = x - md - dd;
-        if (xr >= -sp) atomicMin(&rkey[xr + sp], key);
-        if (!emit_qr && x == w - 1) {
-          // Lanes whose source lies past the block but inside the frame
-          // read this last column: right columns up to the frame's edge.
-          const int last = min(w - 1, f.iw - 1 - f.x0 - md - dd);
-          for (int xc = max(xr + 1, 0); xc <= last; ++xc) {
-            atomicMin(&rkey[xc], key);
+        for (int k = 0; k < kPix; ++k) {
+          // Selects, not branches: lanes disagree on `lower`.
+          const int s = v[k][j];
+          const bool lower = s < c0[k];
+          if (UNIQ) {
+            // c2 = min(lft, q): lft the prefix min up to d0 - 2, q the
+            // min from d0 + 2 on (the step right after a new minimum,
+            // d0 + 1, is the one that does not fold).
+            const int qn = fresh[k] ? q[k] : min(q[k], s);
+            q[k] = lower ? INT_MAX : qn;
+            lft[k] = lower ? pm2[k] : lft[k];
+            fresh[k] = lower;
+            pm2[k] = pm1[k];
+            pm1[k] = min(pm1[k], s);
           }
+          c0[k] = lower ? s : c0[k];
+          d0[k] = lower ? d : d0[k];
+        }
+        if (LR) {
+          // After step d each carry moves up one pixel: pixel x carries
+          // right column x - md - d - 1, taken over from pixel x - 1. Lane
+          // 0's first pixel starts a new column, and the last pixel's
+          // column (xw + kGroup - 1 - md - d) leaves the warp, folded into
+          // the row's keys by lane 0.
+          int up[kPix];
+#pragma unroll
+          for (int k = 0; k < kPix; ++k) {
+            const int own = min(carry[k], max(v[k][j] * pd + d, mask[k]));
+            up[k] = __shfl_sync(kFull, own, (lane + 31) & 31);
+          }
+          if (lane == 0) {
+            atomicMin(key_at(xw + kGroup - 1 - md - d), up[kPix - 1]);
+          }
+#pragma unroll
+          for (int k = kPix - 1; k > 0; --k) {
+            carry[k] = lane == 0 ? up[k - 1] : up[k];
+          }
+          carry[0] = lane == 0 ? INT_MAX : up[0];
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with this buffer before its refill
+    if (dc + kChunk < D) continue;
+
+    // The group's last chunk: finish its pixels.
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      const int x = xw + 32 * k + lane;
+      const int16_t* p = srow + (size_t)min(x, w - 1) * D;
+      // The carry still in flight: pixel x holds column x - md - D.
+      if (LR) atomicMin(key_at(x - md - D), carry[k]);
+      bool ok = true;
+      if (UNIQ) {
+        ok = (float)min(lft[k], q[k]) > __fmul_rn((float)c0[k], uniq_f);
+      }
+      float dv = (float)d0[k];
+      if (subpixel && d0[k] > 0 && d0[k] < D - 1) {
+        const int cm = p[d0[k] - 1], cp = p[d0[k] + 1];
+        const int denom = cp + cm - 2 * c0[k];
+        float off = 0.0f;
+        if (denom > 0) off = __fdiv_rn((float)(cm - cp), (float)(2 * denom));
+        off = fminf(fmaxf(off, -0.5f), 0.5f);
+        dv = __fadd_rn(dv, off);
+      }
+      dv = __fadd_rn(dv, (float)md);
+      if (x < w) {
+        d0s[x] = d0[k];
+        disps[x] = dv;
+        oks[x] = ok;
+      }
+    }
+    if (LR && !emit_qr && xw + kGroup >= w && w - 1 >= src_lo &&
+        w - 1 < src_hi) {
+      // This group holds the block's last column, a source: sources past
+      // the block but inside the frame read it, so each of its keys is a
+      // candidate for every right column up to the frame's edge that such
+      // a source feeds (none for a whole frame). Lanes split the
+      // disparities.
+      const int16_t* p = srow + (size_t)(w - 1) * D;
+      for (int d = lane; d < D; d += 32) {
+        const int key = (int)p[d] * pd + d;
+        const int last = min(w - 1, f.iw - 1 - f.x0 - md - d);
+        for (int xc = max(w - md - d, 0); xc <= last; ++xc) {
+          atomicMin(key_at(xc), key);
         }
       }
     }
   }
   __syncthreads();
 
-  for (int x = threadIdx.x; x < w; x += blockDim.x) {
+  for (int x = threadIdx.x; x < w; x += kThreads) {
     bool ok = oks[x];
     bool lr_ok = true;
     int key = INT_MAX;
-    if (lr_check) {
+    if (LR) {
       const int d0 = d0s[x];
       const int xr = x - d0 - md;  // <= x: only the clamp at 0 can bind
-      const int dr_key = rkey[max(xr, 0) + sp];
-      const int dr = dr_key == INT_MAX ? 0 : (dr_key & (PD - 1));
+      const int dr_key = *key_at(max(xr, 0));
+      const int dr = dr_key == INT_MAX ? 0 : (dr_key & (pd - 1));
       lr_ok = f.x0 + xr >= 0 && f.x0 + xr < f.iw &&
               fabsf((float)(d0 - dr)) <= lr_tau;
-      key = rkey[x + sp];
+      key = *key_at(x);
     }
     disp[row + x] = disps[x];
     if (emit_qr) {
       valid[row + x] = ok ? 1 : 0;
       f.lr_bit[row + x] = lr_ok ? 1 : 0;
-      f.qr[row + x] = packed_min(key, PD, pd);
+      f.qr[row + x] = packed_min(key);
     } else {
       valid[row + x] = ok && lr_ok ? 1 : 0;
     }
     if (d0_out != nullptr) d0_out[row + x] = d0s[x];
   }
   if (emit_qr) {
-    for (int j = threadIdx.x; j < sp; j += blockDim.x) {
-      f.spill[(size_t)y * sp + j] = packed_min(rkey[j], PD, pd);
+    for (int j = threadIdx.x; j < sp; j += kThreads) {
+      f.spill[(size_t)y * sp + j] = packed_min(rkey[j + 1]);
     }
   }
 }
 
-template <int DPL, bool PARTIAL>
+template <bool VEC, bool UNIQ, bool LR>
 int launch(const int16_t* sum, float* disp, uint8_t* valid, int* d0, int h,
-           int w, int d, int md, int subpixel, int uniqueness, float uniq_f,
-           int lr_check, float lr_tau, const Frame& f, cudaStream_t s) {
+           int w, int d, int md, int subpixel, float uniq_f, float lr_tau,
+           const Frame& f, cudaStream_t s) {
   const size_t smem = smem_bytes(w, f.qr != nullptr ? f.sp : 0);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sgm_select_kernel<DPL, PARTIAL>,
+        sgm_select_kernel<VEC, UNIQ, LR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sgm_select_kernel<DPL, PARTIAL><<<h, kThreads, smem, s>>>(
-      sum, disp, valid, d0, w, d, md, subpixel, uniqueness, uniq_f, lr_check,
-      lr_tau, f);
+  sgm_select_kernel<VEC, UNIQ, LR><<<h, kThreads, smem, s>>>(
+      sum, disp, valid, d0, w, d, md, subpixel, uniq_f, lr_tau, f);
   return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_vec(const int16_t* sum, float* disp, uint8_t* valid, int* d0,
+               int h, int w, int d, int md, int subpixel, int uniqueness,
+               float uniq_f, int lr_check, float lr_tau, const Frame& f,
+               cudaStream_t s) {
+  if (uniqueness && lr_check) {
+    return launch<VEC, true, true>(sum, disp, valid, d0, h, w, d, md,
+                                   subpixel, uniq_f, lr_tau, f, s);
+  }
+  if (uniqueness) {
+    return launch<VEC, true, false>(sum, disp, valid, d0, h, w, d, md,
+                                    subpixel, uniq_f, lr_tau, f, s);
+  }
+  if (lr_check) {
+    return launch<VEC, false, true>(sum, disp, valid, d0, h, w, d, md,
+                                    subpixel, uniq_f, lr_tau, f, s);
+  }
+  return launch<VEC, false, false>(sum, disp, valid, d0, h, w, d, md,
+                                   subpixel, uniq_f, lr_tau, f, s);
 }
 
 }  // namespace
@@ -333,22 +495,10 @@ extern "C" int stpu_sgm_select(const void* sum, void* disp, void* valid,
   const Frame f{x0, iw, own_lo, own_hi, sp, static_cast<uint8_t*>(lr_bit),
                 static_cast<float*>(qr), static_cast<float*>(spill)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define STPU_SELECT(DPL)                                                    \
-  if (d % 32 == 0) {                                                        \
-    return launch<DPL, false>(s, o, v, w0, h, w, d, md, subpixel,           \
-                              uniqueness, uniq_f, lr_check, lr_tau, f, st); \
-  }                                                                         \
-  return launch<DPL, true>(s, o, v, w0, h, w, d, md, subpixel, uniqueness,  \
-                           uniq_f, lr_check, lr_tau, f, st)
-  switch ((d + 31) / 32) {
-    case 1: STPU_SELECT(1);
-    case 2: STPU_SELECT(2);
-    case 3: STPU_SELECT(3);
-    case 4: STPU_SELECT(4);
-    case 5: STPU_SELECT(5);
-    case 6: STPU_SELECT(6);
-    case 7: STPU_SELECT(7);
-    default: STPU_SELECT(8);
+  if (d % 8 == 0) {
+    return launch_vec<true>(s, o, v, w0, h, w, d, md, subpixel, uniqueness,
+                            uniq_f, lr_check, lr_tau, f, st);
   }
-#undef STPU_SELECT
+  return launch_vec<false>(s, o, v, w0, h, w, d, md, subpixel, uniqueness,
+                           uniq_f, lr_check, lr_tau, f, st);
 }

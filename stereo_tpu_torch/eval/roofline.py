@@ -65,10 +65,20 @@ def bound(nbytes: float, ops: float) -> Dict[str, object]:
 
 
 def cost_bound(h, w, d, words, ops_per_voxel, ctx=0):
-    """K1: a left [H, W, words] and a right [H, W + ctx, words] int32
-    descriptor plane in, int8 volume out."""
+    """K1's cost stage: a left [H, W, words] and a right [H, W + ctx, words]
+    int32 descriptor plane in (as the transform stage writes them), int8
+    volume out."""
     return bound((2 * w + ctx) * h * words * 4 + h * w * d,
                  h * w * d * ops_per_voxel)
+
+
+def transform_bound(h, w, window, rank=False, image_bytes=1):
+    """K1's transform stage on one [H, W] image of ``image_bytes`` per
+    pixel: the image in, the int32 census words (or rank) out; per pixel
+    and off-centre neighbour a compare and its bit's or (rank: an add)."""
+    wy, wx = window
+    words = 1 if rank else (wy * wx + 30) // 32
+    return bound(h * w * (image_bytes + 4 * words), h * w * (wy * wx - 1) * 2)
 
 
 def sad_bound(h, w, d, window, right_context=0):
@@ -208,8 +218,13 @@ def per_kernel_report(cfg: StereoConfig, shape: Tuple[int, int] = (375, 1242),
     columns: ms, bytes_mb, gops, achieved_tops, hbm_bound_ms, alu_bound_ms,
     binding, sol_fraction, sol_fraction_anchor."""
     from ..data import make_pair
-    from ..ops import census_transform
-    from ..ops.cuda import census_cost, median3x3, sgm_paths, sgm_select
+    from ..ops.cuda import (
+        census_cost,
+        median3x3,
+        sgm_paths,
+        sgm_select,
+        transform_words,
+    )
 
     if cfg.cost_fn != "census" or cfg.num_paths == 0 or cfg.lr_exact:
         raise NotImplementedError(
@@ -228,12 +243,17 @@ def per_kernel_report(cfg: StereoConfig, shape: Tuple[int, int] = (375, 1242),
                                             for k, v in alu_peak.items()}}),
               flush=True)
 
-    cl = census_transform(left, cfg.census_window)
-    cr = census_transform(right, cfg.census_window)
+    cl = transform_words(left, cfg.census_window)
+    cr = transform_words(right, cfg.census_window)
     cost = census_cost(cl, cr, cfg)
     s = sgm_paths(cost, cfg, image=left)
     disp, _ = sgm_select(s, cfg)
     stages = [
+        ("census transform x2", "int32",
+         lambda: (transform_words(left, cfg.census_window),
+                  transform_words(right, cfg.census_window)),
+         bound(*(2 * transform_bound(h, w, cfg.census_window)[k]
+                 for k in ("nbytes", "operations")))),
         ("census_cost", "int32", lambda: census_cost(cl, cr, cfg),
          cost_bound(h, w, d, cfg.census_words, 5)),
         (f"sgm_paths x{cfg.num_paths}", "int32",
@@ -264,8 +284,7 @@ def per_kernel_report(cfg: StereoConfig, shape: Tuple[int, int] = (375, 1242),
         "alu_peak_fixed_gops": PEAK_OPS_PER_S / 1e9,
         "adaptive_p2": bool(cfg.adaptive_p2),
         "note": "each kernel timed alone with CUDA events through its "
-                "wrapper; the census transforms (plain torch) are not in "
-                "the sum",
+                "wrapper (K1's transform stage on both images as one row)",
     })
     for r in rows:
         print(json.dumps(r), flush=True)

@@ -11,8 +11,10 @@ offsets around the upsampled coarse estimate:
     [H, W, R] residual volume is aggregated by the same SGM with
     min_disparity = -R/2, and the final disparity is base + residual.
 
-On CUDA tensors the coarse pass runs the pipeline's kernels, the residual
-volume is plain torch (an index gather, as it is plain XLA on the TPU; the
+On CUDA tensors the coarse pass runs the pipeline's kernels, the census
+descriptors of the residual pass come from K1's transform stage (through
+``census_transform``), the residual volume is plain torch (an index
+gather, as it is plain XLA on the TPU; the
 reference's one-hot matmul form exists because the TPU cannot gather), its
 aggregation is ``sgm_paths`` at D = R (the staged S of the reference's
 ``sgm_aggregate_pallas``), then ``sgm_select`` and ``median3x3``.
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 
 from ..config import KITTI_SGM8_128, StereoConfig
 from ..ops import census_transform, hamming_distance, median_3x3, sgm_aggregate
+from ..ops.census import census_transform_plain
 from ..ops.cuda import median3x3
 from ..ops.wta import wta_with_aux
 from ..pipeline import (
@@ -140,8 +143,10 @@ class PyramidSGM(StereoModel):
         base = _local_minmax_center(_upsample2(res_c.disp, h, w))
 
         # --- residual volume at full resolution over [-r/2, r/2) ---
-        cl = census_transform(left, cfg.census_window)
-        cr = census_transform(right, cfg.census_window)
+        transform = (census_transform if use_kernels(cfg, left.device)
+                     else census_transform_plain)
+        cl = transform(left, cfg.census_window)
+        cr = transform(right, cfg.census_window)
         base = base.clamp(0, d - 1)
         base_i = torch.round(base).to(torch.int32)
         vol = _residual_cost_volume(cl, cr, base_i, half, r)

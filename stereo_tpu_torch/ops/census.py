@@ -1,8 +1,12 @@
-"""Census and rank transforms and Hamming distance (plain torch).
+"""Census and rank transforms and Hamming distance.
 
 Twin of ``stereo_tpu/ops/census.py``. Descriptors keep the reference's
 ``[H, W, words]`` layout; each 32-bit word is held in an int64 with a value
 in ``[0, 2^32)``, because torch's uint32 supports few ops.
+
+``census_transform`` and ``rank_transform`` run their plain torch twins
+(``census_transform_plain``, ``rank_transform_plain``) on a CPU tensor and
+K1's transform stage (``ops.cuda.transform_words``) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -28,8 +32,30 @@ def _neighbors(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
     return img[rows[:, :, None], cols[:, None, :]]
 
 
+def _check_window(window: Tuple[int, int], what: str, bits: bool) -> None:
+    """Raise unless ``window`` is odd in both dims and, for a census
+    (``bits``), has at most 64 off-centre pixels."""
+    wy, wx = window
+    if wy % 2 == 0 or wx % 2 == 0:
+        raise ValueError(f"{what} window dims must be odd")
+    if bits and wy * wx - 1 > 64:
+        raise ValueError("census descriptor limited to 64 bits")
+
+
 def census_transform(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
-    """Census descriptor per pixel.
+    """Census descriptor per pixel, as ``census_transform_plain`` defines
+    it: the plain twin on a CPU tensor, K1's transform stage on a CUDA
+    tensor (its 32-bit words widened to int64 in [0, 2^32))."""
+    if img.device.type == "cpu":
+        return census_transform_plain(img, window)
+    from .cuda import transform_words
+
+    return transform_words(img, window).to(torch.int64) & 0xFFFFFFFF
+
+
+def census_transform_plain(img: torch.Tensor, window: Tuple[int, int]
+                           ) -> torch.Tensor:
+    """Census descriptor per pixel (plain torch, any device).
 
     Args:
       img: [H, W] image (uint8 or float); comparisons use raw values.
@@ -41,13 +67,8 @@ def census_transform(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor
       the center pixel; it lands in word k // 32 at bit k % 32. Borders
       replicate the edge pixel.
     """
-    wy, wx = window
-    if wy % 2 == 0 or wx % 2 == 0:
-        raise ValueError("census window dims must be odd")
-    bits = wy * wx - 1
-    if bits > 64:
-        raise ValueError("census descriptor limited to 64 bits")
-
+    _check_window(window, "census", bits=True)
+    bits = window[0] * window[1] - 1
     img = img.to(torch.int32)
     dev = img.device
     neighbors = _neighbors(img, window)                       # [bits, H, W]
@@ -75,11 +96,22 @@ def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rank_transform(img: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
-    """[H, W] int32 rank transform: the count of window neighbours strictly
-    below the centre pixel (the scalar cousin of census; its cost is the
-    absolute rank difference). Borders replicate the edge pixel."""
-    wy, wx = window
-    if wy % 2 == 0 or wx % 2 == 0:
-        raise ValueError("rank window dims must be odd")
+    """[H, W] int32 rank transform as ``rank_transform_plain`` defines it:
+    the plain twin on a CPU tensor, K1's transform stage on a CUDA
+    tensor."""
+    if img.device.type == "cpu":
+        return rank_transform_plain(img, window)
+    from .cuda import transform_words
+
+    return transform_words(img, window, rank=True)
+
+
+def rank_transform_plain(img: torch.Tensor, window: Tuple[int, int]
+                         ) -> torch.Tensor:
+    """[H, W] int32 rank transform (plain torch, any device): the count of
+    window neighbours strictly below the centre pixel (the scalar cousin of
+    census; its cost is the absolute rank difference). Borders replicate
+    the edge pixel."""
+    _check_window(window, "rank", bits=False)
     img = img.to(torch.int32)
     return (_neighbors(img, window) < img).sum(dim=0, dtype=torch.int32)

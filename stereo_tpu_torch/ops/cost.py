@@ -17,7 +17,11 @@ from typing import Tuple
 import torch
 
 from ..config import StereoConfig
-from .census import census_transform, hamming_distance, rank_transform
+from .census import (
+    census_transform_plain,
+    hamming_distance,
+    rank_transform_plain,
+)
 
 
 #: Voxels per row chunk of the descriptor costs: the gathered [rows, W, D,
@@ -85,8 +89,8 @@ def census_cost_volume(
     transform runs on it whole, so with context >= D - 1 + the census
     radius the interior costs are the whole frame's. Returns [H, W, D]
     int32 in [0, bits]."""
-    cl = census_transform(left, cfg.census_window)
-    cr = census_transform(right, cfg.census_window)
+    cl = census_transform_plain(left, cfg.census_window)
+    cr = census_transform_plain(right, cfg.census_window)
     return census_cost_from_descriptors(cl, cr, cfg, x_offset, right_context)
 
 
@@ -111,8 +115,8 @@ def rank_cost_volume(
     """Rank-transform cost volume |rank_l(x) - rank_r(x - md - d)| over
     ``cfg.census_window``; framing as in ``census_cost_volume``. Returns
     [H, W, D] int32 in [0, window area - 1]."""
-    rl = rank_transform(left, cfg.census_window)
-    rr = rank_transform(right, cfg.census_window)
+    rl = rank_transform_plain(left, cfg.census_window)
+    rr = rank_transform_plain(right, cfg.census_window)
     return rank_cost_from_descriptors(rl, rr, cfg, x_offset, right_context)
 
 

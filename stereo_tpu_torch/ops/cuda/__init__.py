@@ -5,14 +5,14 @@ kernel's instantiation (``launch.count_launch``)."""
 
 from typing import Dict, Tuple
 
-from .cost_kernel import census_cost, rank_cost, sad_cost
+from .cost_kernel import census_cost, rank_cost, sad_cost, transform_words
 from .filter_kernel import median3x3
 from .peak_kernel import alu_peak
 from .sgm_kernel import sgm_paths, sgm_select
 
 #: The kernel wrappers in main-path order, then the anchor.
-KERNELS = (census_cost, rank_cost, sad_cost, sgm_paths, sgm_select,
-           median3x3, alu_peak)
+KERNELS = (transform_words, census_cost, rank_cost, sad_cost, sgm_paths,
+           sgm_select, median3x3, alu_peak)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -32,6 +32,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "transform_words",
     "census_cost",
     "rank_cost",
     "sad_cost",

@@ -42,6 +42,8 @@ KERNEL_SIGNATURES = {
     # per block (bytes)
     "stpu_sgm_path_stages": [_ci],
     "stpu_sgm_path_smem": [_ci, _ci],
+    # img, out, h, w, wy, wx, image type, rank, stream
+    "stpu_census_transform": [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
     # cl, cr, out, h, w, d, words, combine, md, maxc, ctx, x_off, stream
     "stpu_census_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                          _ci, _ci, _vp],

@@ -2,8 +2,8 @@
 larger frame.
 
 On CUDA tensors ``compute_disparity`` runs the hand-written kernels in
-order: the cost volume (K1 after the census or rank transform, which stays
-plain torch as it stays in XLA on the TPU, or K5 for SAD), K2 once per path
+order: the cost volume (K1's transform stage on each image, then its cost
+stage, or K5 for SAD), K2 once per path
 direction (skipped for ``num_paths=0``), K3 selection, K4 median. With
 ``lr_exact`` the flipped pair runs the same chain a second time for the
 right view's integer winners, and the consistency compare runs in plain
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .config import StereoConfig
-from .ops import census_transform, rank_transform, wta_with_aux
+from .ops import wta_with_aux
 from .ops.cost import cost_volume
 from .ops.cuda import (
     census_cost,
@@ -37,6 +37,7 @@ from .ops.cuda import (
     sad_cost,
     sgm_paths,
     sgm_select,
+    transform_words,
 )
 from .ops.postprocess import (
     apply_postprocess,
@@ -68,18 +69,16 @@ def use_kernels(cfg: StereoConfig, device: torch.device) -> bool:
 
 def _kernel_cost(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
                  x_offset: int = 0, right_context: int = 0) -> torch.Tensor:
-    """The cost volume of one reference view through K1 (after the census
-    or rank transform, which runs on ``tgt`` with its context columns) or
-    K5."""
+    """The cost volume of one reference view through K1 (its transform
+    stage on each image, ``tgt`` with its context columns, into 32-bit
+    words, then its cost stage) or K5."""
     if cfg.cost_fn == "sad":
         return sad_cost(ref, tgt, cfg, x_offset, right_context)
-    if cfg.cost_fn == "rank":
-        return rank_cost(rank_transform(ref, cfg.census_window),
-                         rank_transform(tgt, cfg.census_window), cfg,
-                         x_offset, right_context)
-    return census_cost(census_transform(ref, cfg.census_window),
-                       census_transform(tgt, cfg.census_window), cfg,
-                       x_offset, right_context)
+    rank = cfg.cost_fn == "rank"
+    words = [transform_words(img, cfg.census_window, rank=rank)
+             for img in (ref, tgt)]
+    cost = rank_cost if rank else census_cost
+    return cost(*words, cfg, x_offset, right_context)
 
 
 def _kernel_view(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,

@@ -45,8 +45,14 @@ from stereo_tpu_torch.ops.cuda import (
     sad_cost,
     sgm_paths,
     sgm_select,
+    transform_words,
 )
-
+from stereo_tpu_torch.ops.census import (
+    census_transform_plain,
+    rank_transform_plain,
+)
+from stereo_tpu_torch.ops.cuda.build import load_kernels
+from stereo_tpu_torch.ops.postprocess import spill_width
 from stereo_tpu_torch.ops.cuda.peak_kernel import PROGRAMS, alu_peak_plain
 from stereo_tpu_torch.parallel import build_banded_pipeline
 from stereo_tpu_torch.pipeline import compute_disparity, compute_patch_parts
@@ -67,19 +73,65 @@ def _images(seed, h, w, dev):
                              ).to(dev) for _ in range(2)]
 
 
+def _words(left, right, window, rank=False):
+    """K1's transform stage on both images."""
+    return [transform_words(img, window, rank=rank) for img in (left, right)]
+
+
+@pytest.mark.parametrize("window", [(9, 7), (5, 5), (3, 5), (7, 9)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.int32])
+@pytest.mark.parametrize("h, w", [(13, 21), (3, 2), (1, 30), (2, 1),
+                                  (70, 301), (375, 1242)])
+def test_transform_kernel(dev, window, dtype, h, w):
+    # Frames narrower or shorter than the window (every neighbour then
+    # replicates an edge pixel) and ragged 32 x 8 blocks; float32 values
+    # with fractional parts truncate toward zero.
+    rng = np.random.default_rng(h * w)
+    img = rng.integers(0, 256, size=(h, w)).astype(np.float32)
+    if dtype == torch.float32:
+        img += rng.random((h, w)).astype(np.float32)
+    img = torch.from_numpy(img).to(dtype).to(dev)
+    reset_launch_counts()
+    words = transform_words(img, window)
+    rank = transform_words(img, window, rank=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["transform_words"] == 2
+    want = census_transform_plain(img, window)
+    assert words.dtype == torch.int32 and words.shape == want.shape
+    assert torch.equal(words.to(torch.int64) & 0xFFFFFFFF, want)
+    assert torch.equal(census_transform(img, window), want)
+    assert torch.equal(rank, rank_transform_plain(img, window))
+    assert torch.equal(rank_transform(img, window), rank)
+    # uint8 and float32 images of the same integers give the same bits
+    assert torch.equal(transform_words(img.to(torch.uint8), window),
+                       transform_words(img.to(torch.float32).floor(), window))
+
+
+def test_transform_kernel_rejects(dev):
+    img = torch.zeros((4, 5), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="64 bits"):
+        transform_words(img, (9, 9))
+    with pytest.raises(ValueError, match="odd"):
+        transform_words(img, (3, 4), rank=True)
+    # any odd window for rank, and other image types through int32
+    assert torch.equal(transform_words(img.to(torch.int16), (9, 9), rank=True),
+                       torch.zeros((4, 5), dtype=torch.int32, device=dev))
+
+
 @pytest.mark.parametrize(
     "d, md, window, h, w",
     [(32, 0, (5, 5), 7, 130), (64, 3, (9, 7), 9, 257),
      (128, 0, (9, 7), 16, 300), (256, 5, (7, 7), 5, 400),
      (16, 0, (5, 5), 47, 155), (64, 0, (9, 7), 47, 155), (1, 0, (9, 7), 5, 131),
-     (33, 2, (5, 5), 6, 140), (255, 1, (9, 7), 3, 260)],
+     (33, 2, (5, 5), 6, 140), (255, 1, (9, 7), 3, 260),
+     (40, 1, (3, 5), 8, 129), (200, 0, (9, 7), 4, 333),
+     (256, 0, (9, 7), 3, 520), (128, 2, (5, 5), 5, 127), (16, 3, (7, 9), 3, 17)],
 )
 def test_census_cost_kernel(dev, d, md, window, h, w):
     cfg = StereoConfig(census_window=window, num_disparities=d,
                        min_disparity=md)
     left, right = _images(d, h, w, dev)
-    got = census_cost(census_transform(left, window),
-                      census_transform(right, window), cfg)
+    got = census_cost(*_words(left, right, window), cfg)
     torch.cuda.synchronize()
     want = census_cost_volume(left, right, cfg)
     assert got.dtype == torch.int8
@@ -89,14 +141,15 @@ def test_census_cost_kernel(dev, d, md, window, h, w):
 @pytest.mark.parametrize(
     "d, md, window, h, w",
     [(128, 0, (9, 7), 16, 300), (16, 0, (5, 5), 47, 155),
-     (64, 3, (9, 7), 47, 155), (1, 0, (3, 3), 5, 131), (33, 2, (9, 7), 6, 140)],
+     (64, 3, (9, 7), 47, 155), (1, 0, (3, 3), 5, 131), (33, 2, (9, 7), 6, 140),
+     (200, 0, (9, 7), 4, 333), (256, 3, (7, 9), 3, 300),
+     (40, 0, (5, 9), 5, 140)],
 )
 def test_rank_cost_kernel(dev, d, md, window, h, w):
     cfg = StereoConfig(cost_fn="rank", census_window=window,
                        num_disparities=d, min_disparity=md)
     left, right = _images(d, h, w, dev)
-    got = rank_cost(rank_transform(left, window),
-                    rank_transform(right, window), cfg)
+    got = rank_cost(*_words(left, right, window, rank=True), cfg)
     torch.cuda.synchronize()
     assert got.dtype == torch.int8
     assert torch.equal(got.to(torch.int32), rank_cost_volume(left, right, cfg))
@@ -182,12 +235,13 @@ def test_pipeline_runs_the_kernels(dev):
     reset_launch_counts()
     got = build_pipeline(cfg, dev)(pair.left, pair.right)
     torch.cuda.synchronize()
-    assert launch_counts() == {"census_cost": 1, "rank_cost": 0,
-                               "sad_cost": 0, "sgm_paths": 8,
+    assert launch_counts() == {"transform_words": 2, "census_cost": 1,
+                               "rank_cost": 0, "sad_cost": 0, "sgm_paths": 8,
                                "sgm_select": 1, "median3x3": 1,
                                "alu_peak": 0}
     # by form: the shape and what picks the kernel's instantiation or path
     assert launch_forms() == {
+        ("transform_words", 48, 160, 9, 7, False, "torch.uint8"): 2,
         ("census_cost", 48, 160, 32, 2, False): 1,
         ("sgm_paths", 48, 160, 32, "torch.int8", 8, False): 8,
         ("sgm_select", 48, 160, 32, 0, True, True, True, False, False,
@@ -296,20 +350,26 @@ def test_sad_cost_kernel(dev, d, md, window, h, w):
     "cfg, counts",
     [
         (KITTI_SGM8_128.replace(num_disparities=32, num_paths=0),
-         dict(census_cost=1, sgm_select=1, median3x3=1)),
+         dict(transform_words=2, census_cost=1, sgm_select=1, median3x3=1)),
         (KITTI_SGM8_128_QUALITY.replace(num_disparities=32),
-         dict(census_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
+         dict(transform_words=2, census_cost=1, sgm_paths=8, sgm_select=1,
+              median3x3=1)),
         (KITTI_SGM8_128.replace(num_disparities=32, lr_exact=True),
-         dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=1)),
+         dict(transform_words=4, census_cost=2, sgm_paths=16, sgm_select=2,
+              median3x3=1)),
         (KITTI_SGM8_128_QUALITY.replace(num_disparities=32, lr_exact=True),
-         dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=1)),
+         dict(transform_words=4, census_cost=2, sgm_paths=16, sgm_select=2,
+              median3x3=1)),
         (TSUKUBA_SAD16, dict(sad_cost=1, sgm_select=1, median3x3=1)),
         (MIDDLEBURY_CENSUS_SGM4_64,
-         dict(census_cost=1, sgm_paths=4, sgm_select=1, median3x3=1)),
+         dict(transform_words=2, census_cost=1, sgm_paths=4, sgm_select=1,
+              median3x3=1)),
         (KITTI_SGM8_128.replace(num_disparities=48, cost_fn="rank"),
-         dict(rank_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
+         dict(transform_words=2, rank_cost=1, sgm_paths=8, sgm_select=1,
+              median3x3=1)),
         (KITTI_SGM8_128.replace(num_disparities=16),
-         dict(census_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
+         dict(transform_words=2, census_cost=1, sgm_paths=8, sgm_select=1,
+              median3x3=1)),
         (KITTI_SGM8_128.replace(num_disparities=32, cost_fn="sad"),
          dict(sad_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
     ],
@@ -341,14 +401,16 @@ def test_slice_paths_run_the_kernels(dev, cfg, counts):
     ids=["9x7", "5x5", "quality_r8"],
 )
 def test_pyramid_model_runs_the_kernels(dev, shape, cfg, mkw):
-    # Coarse pass K1 K2x8 K3 K4, residual pass K2x8 (D = R, md = -R/2) K3 K4.
+    # Coarse pass K1 (two transforms) K2x8 K3 K4, residual pass: two
+    # transforms, K2x8 (D = R, md = -R/2) K3 K4.
     pair = make_pair(shape, max_disp=24, texture="cloud", seed=1)
     reset_launch_counts()
     got = get_model("pyramid", cfg=cfg, **mkw).build(dev)(pair.left,
                                                           pair.right)
     torch.cuda.synchronize()
     want_counts = dict.fromkeys(launch_counts(), 0)
-    want_counts.update(census_cost=1, sgm_paths=16, sgm_select=2, median3x3=2)
+    want_counts.update(transform_words=4, census_cost=1, sgm_paths=16,
+                       sgm_select=2, median3x3=2)
     assert launch_counts() == want_counts
     want = get_model("pyramid", cfg=cfg.replace(backend="torch"),
                      **mkw).build(dev)(pair.left, pair.right)
@@ -396,8 +458,7 @@ def test_census_cost_kernel_origins(dev, d, window, h, w, md, x_offset, ctx):
                        min_disparity=md)
     left = _images(d + ctx, h, w, dev)[0]
     right = _images(d + md, h, w + ctx, dev)[0]
-    got = census_cost(census_transform(left, window),
-                      census_transform(right, window), cfg, x_offset, ctx)
+    got = census_cost(*_words(left, right, window), cfg, x_offset, ctx)
     torch.cuda.synchronize()
     want = census_cost_volume(left, right, cfg, x_offset, ctx)
     assert torch.equal(got.to(torch.int32), want)
@@ -409,8 +470,8 @@ def test_rank_cost_kernel_origins(dev, md, x_offset, ctx):
                        num_disparities=64, min_disparity=md)
     left = _images(ctx, 9, 140, dev)[0]
     right = _images(md, 9, 140 + ctx, dev)[0]
-    got = rank_cost(rank_transform(left, (9, 7)),
-                    rank_transform(right, (9, 7)), cfg, x_offset, ctx)
+    got = rank_cost(*_words(left, right, (9, 7), rank=True), cfg, x_offset,
+                    ctx)
     torch.cuda.synchronize()
     assert torch.equal(got.to(torch.int32),
                        rank_cost_volume(left, right, cfg, x_offset, ctx))
@@ -520,6 +581,69 @@ def test_sgm_select_kernel_emit_qr(dev, d, md, kw, x_offset, iw, own, levels):
     assert bool((got[4] >= 3e38).any()) or own in (None, (0, 144))
 
 
+def _tied_sums(seed, h, w, d, levels, dev):
+    """S with many ties: ``levels`` values (1: constant), or with
+    ``levels`` None a constant 7."""
+    if levels is None:
+        return torch.full((h, w, d), 7, dtype=torch.int16, device=dev)
+    return _sums(seed, h, w, d, levels, dev)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 5, None])
+@pytest.mark.parametrize("d", [1, 16, 40, 64, 128, 200, 256])
+@pytest.mark.parametrize(
+    "form",
+    [dict(), dict(emit_d0=True), dict(x_offset=24, image_width=300),
+     dict(emit_qr=True, own=(10, 150)), dict(emit_qr=True, x_offset=60,
+                                             image_width=400),
+     dict(md=-8)],
+    ids=["base", "d0", "framed", "qr", "qr_framed", "md-8"])
+def test_sgm_select_kernel_ties(dev, levels, d, form):
+    # Every form on S with many ties: the first argmin, the runner-up and
+    # the right view's smallest d among equal costs must not depend on the
+    # order in which the kernel folds lanes and columns.
+    form = dict(form)
+    md = form.pop("md", 2)
+    kw = dict(min_disparity=md)
+    if md < 0:
+        kw.update(lr_check=False)
+    if form.get("emit_d0"):
+        kw.update(lr_exact=True)
+    cfg = KITTI_SGM8_128.replace(num_disparities=d, **kw)
+    w = max(166, d + md + 1)
+    s = _tied_sums(d + (levels or 0), 5, w, d, levels, dev)
+    got = sgm_select(s, cfg, **form)
+    torch.cuda.synchronize()
+    want = select_disparity(s, cfg, **form)
+    assert len(got) == len(want)
+    for i, (g, w_) in enumerate(zip(got, want)):
+        assert torch.equal(g, w_), i
+
+
+@pytest.mark.parametrize("d, emit_qr", [(1, False), (16, False), (16, True),
+                                        (256, False)])
+def test_sgm_select_kernel_widest_row(dev, d, emit_qr):
+    # The widest row whose keys fit a block's shared memory, and one more.
+    cfg = KITTI_SGM8_128.replace(num_disparities=d)
+    sp = spill_width(d) if emit_qr else 0
+    fits = load_kernels().stpu_sgm_select_fits
+    w = 1
+    while fits(2 * w, sp):
+        w *= 2
+    lo, hi = w, 2 * w
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid, sp) else (lo, mid)
+    s = _sums(d, 2, lo, d, 50, dev)
+    kw = dict(emit_qr=True) if emit_qr else {}
+    got = sgm_select(s, cfg, **kw)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, select_disparity(s, cfg, **kw)):
+        assert torch.equal(g, w_)
+    with pytest.raises(ValueError, match="shared memory"):
+        sgm_select(_sums(d, 1, hi, d, 50, dev), cfg, **kw)
+
+
 def test_sgm_select_kernel_rejects(dev):
     s = torch.zeros((4, 40, 16), dtype=torch.int16, device=dev)
     cfg = StereoConfig(num_disparities=16)
@@ -537,8 +661,7 @@ def test_kernels_at_256_disparities(dev, h, w):
     # Config 4's D: 8 disparities per lane, keys up to 2^23.
     cfg = KITTI_SGM8_128.replace(num_disparities=256)
     left, right = _images(h, h, w, dev)
-    cost = census_cost(census_transform(left, cfg.census_window),
-                       census_transform(right, cfg.census_window), cfg)
+    cost = census_cost(*_words(left, right, cfg.census_window), cfg)
     s = sgm_paths(cost, cfg)
     got = sgm_select(s, cfg)
     torch.cuda.synchronize()
@@ -573,19 +696,25 @@ def test_alu_peak_kernel(dev, dtype, k, chains):
     "kw, split, counts",
     [
         (dict(), dict(n_bands=2, n_cols=1),
-         dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
+         dict(transform_words=4, census_cost=2, sgm_paths=16, sgm_select=2,
+              median3x3=2)),
         (dict(), dict(n_bands=1, n_cols=2),
-         dict(census_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
+         dict(transform_words=4, census_cost=2, sgm_paths=16, sgm_select=2,
+              median3x3=2)),
         (dict(min_disparity=2), dict(n_bands=2, n_cols=3),
-         dict(census_cost=6, sgm_paths=48, sgm_select=6, median3x3=6)),
+         dict(transform_words=12, census_cost=6, sgm_paths=48, sgm_select=6,
+              median3x3=6)),
         (dict(), dict(n_bands=2, n_cols=2, lr_stitch=False),
-         dict(census_cost=4, sgm_paths=32, sgm_select=4, median3x3=4)),
+         dict(transform_words=8, census_cost=4, sgm_paths=32, sgm_select=4,
+              median3x3=4)),
         (dict(cost_fn="rank"), dict(n_bands=1, n_cols=2),
-         dict(rank_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
+         dict(transform_words=4, rank_cost=2, sgm_paths=16, sgm_select=2,
+              median3x3=2)),
         (dict(cost_fn="sad"), dict(n_bands=1, n_cols=2),
          dict(sad_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
         (dict(lr_exact=True), dict(n_bands=1, n_cols=2),
-         dict(census_cost=4, sgm_paths=32, sgm_select=4, median3x3=2)),
+         dict(transform_words=8, census_cost=4, sgm_paths=32, sgm_select=4,
+              median3x3=2)),
     ],
     ids=["bands", "stitched", "stitched_2x3_md2", "legacy_2x2", "rank",
          "sad_legacy", "lr_exact_legacy"],
@@ -621,7 +750,10 @@ def test_patch_parts_run_the_kernels(dev):
     reset_launch_counts()
     got = compute_patch_parts(left, right, cfg, **call)
     torch.cuda.synchronize()
+    window = cfg.census_window
     assert launch_forms() == {
+        ("transform_words", 32, 108, *window, False, "torch.uint8"): 1,
+        ("transform_words", 32, 123, *window, False, "torch.uint8"): 1,
         ("census_cost", 32, 108, 16, 1, True): 1,
         ("sgm_paths", 32, 108, 16, "torch.int8", 8, False): 8,
         ("sgm_select", 32, 108, 16, 0, True, False, True, False, True,

@@ -434,5 +434,31 @@ def write_fixtures(names) -> None:
             _write(TESTDATA / f"{name}_seed0.json", fx)
 
 
+def golden_peak_memory(shape) -> dict:
+    """The JAX golden (jnp) whole-frame config-4 path on its pair at
+    ``shape``, seed 0: its hashes of disp and valid, the wall seconds and
+    this process's peak resident memory. Run once per process (the peak is
+    the process's own) to size the full-size run against a machine's
+    memory: ``python tests/test_torch_fixture.py --golden-peak 497 720``."""
+    import resource
+    import time
+
+    shape = tuple(shape)
+    cfg = PRESETS["middlebury_full_256_tiled"].replace(backend="jnp")
+    pair = jdata.make_pair(shape, max_disp=200, kind="shapes",
+                           texture="cloud", seed=0)
+    t0 = time.perf_counter()
+    res = build_banded_pipeline(cfg, pair.left.shape, n_bands=1, n_cols=1)(
+        pair.left, pair.right)
+    disp, valid = np.asarray(res.disp), np.asarray(res.valid)
+    return dict(shape=list(shape), seconds=time.perf_counter() - t0,
+                disp=_hash(disp), valid=_hash(valid),
+                peak_rss_gib=resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss / 2**20)
+
+
 if __name__ == "__main__":
-    write_fixtures(sys.argv[1:])
+    if sys.argv[1:2] == ["--golden-peak"]:
+        print(json.dumps(golden_peak_memory(map(int, sys.argv[2:4]))))
+    else:
+        write_fixtures(sys.argv[1:])

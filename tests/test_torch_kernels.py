@@ -14,6 +14,7 @@ import torch
 
 from stereo_tpu.config import StereoConfig as JCfg
 from stereo_tpu import ops as jops
+from stereo_tpu.ops.census import rank_transform as j_rank_transform
 from stereo_tpu.ops.cost import rank_cost_volume as j_rank_cost_volume
 from stereo_tpu.ops.pallas.cost_kernel import (
     census_cost_volume_pallas,
@@ -40,7 +41,9 @@ from stereo_tpu_torch.ops.cuda import (
     sgm_paths,
     sgm_select,
 )
+from stereo_tpu_torch.ops.cuda import transform_words
 from stereo_tpu_torch.ops.cuda.launch import count_launch
+from stereo_tpu_torch.pipeline import _kernel_cost
 
 torch.set_num_threads(1)
 
@@ -450,4 +453,82 @@ def test_framed_census_cost_matches_pallas(md, x_offset, ctx):
                       census_transform(_t(right), cfg.census_window), cfg,
                       x_offset=x_offset, right_context=ctx)
     assert got.dtype == torch.int8 and got.shape == (h, w, 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:h, :w])
+
+
+@pytest.mark.parametrize("window", [(9, 7), (5, 5), (3, 5), (7, 9)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("h, w", [(11, 37), (2, 3)])
+def test_transform_words_match_reference(window, dtype, h, w):
+    """K1's transform stage (plain version): the reference's census bits
+    as int32 words, and its rank map; float32 values truncate."""
+    rng = np.random.default_rng(h + w)
+    img = rng.integers(0, 256, size=(h, w)).astype(dtype)
+    if dtype == np.float32:
+        img = img + rng.random((h, w)).astype(np.float32)
+    reset_launch_counts()
+    words = transform_words(_t(img), window)
+    want = np.asarray(jops.census_transform(img, window)).astype(np.uint32)
+    assert words.dtype == torch.int32 and words.shape == want.shape
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+    rank = transform_words(_t(img), window, rank=True)
+    assert rank.dtype == torch.int32 and rank.shape == (h, w)
+    np.testing.assert_array_equal(
+        rank.numpy(), np.asarray(j_rank_transform(img, window)))
+    assert launch_forms() == {}
+
+
+def test_transform_words_rejects():
+    img = torch.zeros((4, 5), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="odd"):
+        transform_words(img, (4, 5))
+    with pytest.raises(ValueError, match="64 bits"):
+        transform_words(img, (9, 9))
+    assert transform_words(img, (9, 9), rank=True).shape == (4, 5)
+    with pytest.raises(ValueError, match=r"\[H, W\]"):
+        transform_words(img[None], (5, 5))
+
+
+@pytest.mark.parametrize(
+    "kw, x_offset, ctx",
+    [(dict(census_window=(9, 7), num_disparities=24), 0, 0),
+     (dict(census_window=(5, 5), num_disparities=17, min_disparity=2), 30,
+      11),
+     (dict(cost_fn="rank", census_window=(7, 9), num_disparities=9), 0, 0),
+     (dict(cost_fn="rank", census_window=(9, 7), num_disparities=20,
+           min_disparity=1), 12, 20)],
+    ids=["census2", "census1_framed", "rank", "rank_framed"])
+def test_kernel_cost_from_images_matches_reference(kw, x_offset, ctx):
+    """The main path's K1 (transform stage on each image, then the cost
+    stage on the int32 words; plain versions on the CPU) against the
+    reference's golden volume on the same images."""
+    rng = np.random.default_rng(ctx + kw["num_disparities"])
+    h, w = 9, 41
+    left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    right = rng.integers(0, 256, size=(h, w + ctx)).astype(np.uint8)
+    want = np.asarray(jops.cost_volume(left, right, JCfg(**kw),
+                                       x_offset=x_offset, right_context=ctx))
+    got = _kernel_cost(_t(left), _t(right), TCfg(**kw), x_offset, ctx)
+    assert got.dtype == torch.int8 and got.shape == (h, w, want.shape[2])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cost_fn", ["census", "rank"])
+def test_k1_from_images_matches_pallas(cost_fn):
+    """Images through K1's two stages (plain versions) against the
+    reference's K1 entry point, transforms included, in interpret mode."""
+    rng = np.random.default_rng(41)
+    h, w = 10, 36
+    left = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    right = rng.integers(0, 256, size=(h, w)).astype(np.uint8)
+    kw = dict(cost_fn=cost_fn, census_window=(9, 7), num_disparities=16,
+              min_disparity=1)
+    pallas = (census_cost_volume_pallas if cost_fn == "census"
+              else rank_cost_volume_pallas)
+    want, _ = pallas(left, right, JCfg(**kw), interpret=True)
+    cfg = TCfg(**kw)
+    rank = cost_fn == "rank"
+    words = [transform_words(_t(img), cfg.census_window, rank=rank)
+             for img in (left, right)]
+    got = (rank_cost if rank else census_cost)(*words, cfg)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want)[:h, :w])

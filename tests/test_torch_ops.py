@@ -38,6 +38,33 @@ def test_census_transform(window):
     np.testing.assert_array_equal(got, want)
 
 
+def _transform_image(rng, dtype, h, w):
+    """uint8 values, or float32 ones with fractional parts (the transforms
+    compare them truncated toward zero, the reference's astype(int32))."""
+    img = _image(rng, h, w)
+    if dtype == np.float32:
+        img = (img + rng.random((h, w))).astype(np.float32)
+    return img
+
+
+#: The census / rank windows of the port's configs and the kernel tests,
+#: on a frame larger than each and on frames narrower or shorter than the
+#: window (every neighbour then replicates an edge pixel).
+@pytest.mark.parametrize("window", [(9, 7), (5, 5), (3, 5), (7, 9)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("h, w", [(13, 21), (3, 2), (1, 30)])
+def test_public_transforms_match_the_reference(window, dtype, h, w):
+    img = _transform_image(np.random.default_rng(h * w), dtype, h, w)
+    want = np.asarray(jops.census_transform(img, window)).astype(np.int64)
+    got = tops.census_transform(_t(img), window)
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    rank = tops.rank_transform(_t(img), window)
+    assert rank.dtype == torch.int32
+    np.testing.assert_array_equal(rank.numpy(),
+                                  np.asarray(j_rank_transform(img, window)))
+
+
 def test_census_transform_flat_image_has_no_bits():
     got = tops.census_transform(torch.full((5, 6), 7, dtype=torch.uint8),
                                 (5, 5))

@@ -154,6 +154,23 @@ def test_context_and_spill_enter_the_byte_models():
     assert roofline.peak_bound(1000, 256)["operations"] == 2 * 256 * 1000
 
 
+@pytest.mark.parametrize(
+    "window, rank, image_bytes, words",
+    [((9, 7), False, 1, 2), ((5, 5), False, 1, 1), ((9, 7), True, 1, 1),
+     ((7, 9), False, 4, 2), ((3, 3), True, 4, 1)])
+def test_transform_bound_counts_image_in_and_words_out(window, rank,
+                                                       image_bytes, words):
+    """K1's transform stage: one image in, int32 words (or rank) out, a
+    compare and a combine per off-centre neighbour."""
+    b = roofline.transform_bound(375, 1242, window, rank, image_bytes)
+    pixels = 375 * 1242
+    assert b["nbytes"] == pixels * (image_bytes + 4 * words)
+    assert b["operations"] == pixels * (window[0] * window[1] - 1) * 2
+    assert b["library_ms"] is None
+    assert b["bound_ms"] == pytest.approx(max(
+        b["nbytes"] / 3.35e12, b["operations"] / 67e12) * 1e3)
+
+
 def test_anchor_fraction_holds_operations_against_the_anchor():
     """The fraction of record uses the fixed rates; ``sol_fraction_anchor``
     holds the operations against the measured anchor instead, and equals
