@@ -11,13 +11,17 @@ result line):
      source, all at once) and the host speckle and fill library (g++) from
      the sources in this checkout; prints ptxas's registers and spills of
      every K2 instance with its ring (pixels staged per warp, shared memory
-     per block), and of every K1 (transform and cost stage) and K3
-     instance;
+     per block), of every K1 (transform and cost stage) and K3 instance,
+     and of every K5 (by sum type, window half-width and disparity chunk)
+     and K4 instance with its shared memory per block (K5's at the paths'
+     windows and D);
   3. kernels: runs each kernel form and its plain torch version on the card
      at every shape a path below gives it, requires bit-equal results,
      times both with CUDA events (medians) and computes the form's bound on
-     this card from the same shapes. A form is what the wrappers count
-     their launches by: the shape and what picks the instantiation.
+     this card from the same shapes; K5's and K4's rows also carry the
+     kernel's device time per call (device_ms, torch.profiler over a train
+     of calls). A form is what the wrappers count their launches by: the
+     shape and what picks the instantiation.
        - K1's transform stage (transform_words, each image of the pair)
          and its cost stage census_cost, K2 sgm_paths (fixed and adaptive
          P2), K3 sgm_select (base and the exact LR check's two forms:
@@ -40,6 +44,8 @@ result line):
        - K5, K3 at D=16 and K4 on the tsukuba_sad16 pair (288x384), and
          K5 with a right context on its right half (sad_cost/ctx, a form
          that no path below launches yet: 0 launches per frame);
+       - K5 at 375x1242x128 on kitti_like_pair(seed=0) (sad_cost/kitti,
+         kitti_sgm8_128 with cost_fn="sad"; timed, no path launches it);
        - config 4 (middlebury_full_256_tiled, D=256) through the banded
          runner: every patch of the three splits below, at 497x720 and at
          1988x2880, through K1 (with x_offset and right_context where the
@@ -150,6 +156,7 @@ from stereo_tpu_torch.eval.roofline import (  # noqa: E402
     median_bound,
     paths_bound,
     peak_bound,
+    profiled_ms,
     sad_bound,
     select_bound,
     sol_fractions,
@@ -261,6 +268,9 @@ KERNEL_INFO = {
                         "stereo_tpu/ops/pallas/sgm_kernel.py:399"),
     "sad_cost/ctx": ("sad_cost", _SAD_CU,
                      "stereo_tpu/ops/pallas/cost_kernel.py:584"),
+    # kitti_sgm8_128 with cost_fn="sad": 375x1242x128 (timed only)
+    "sad_cost/kitti": ("sad_cost", _SAD_CU,
+                       "stereo_tpu/ops/pallas/cost_kernel.py:584"),
     "sgm_select": ("sgm_select", _SELECT_CU,
                    "stereo_tpu/ops/pallas/sgm_kernel.py:992"),
     "sgm_select/d0": ("sgm_select", _SELECT_CU,
@@ -371,7 +381,7 @@ for _rows, _k, _chains in ANCHOR_PROGRAMS:
         KERNEL_INFO[f"alu_peak/{_type}/k{_k}"] = ("alu_peak", _PEAK_CU, _PEAK)
 
 #: Rows held against their plain version that no path launches yet.
-OFF_PATH = {"sad_cost/ctx"}
+OFF_PATH = {"sad_cost/ctx", "sad_cost/kitti"}
 
 #: (wrapper, *form) as the wrappers count their launches -> the KERNEL_INFO
 #: row whose comparison in the kernels phase launched that form.
@@ -581,6 +591,16 @@ def phase_build() -> None:
               kernel: kernel_instances(kernel) for kernel in (
                   "census_transform_kernel", "census_cost_kernel",
                   "sgm_select_kernel")}))
+    lib = load_kernels()
+    print("K5 and K4 instances (ptxas registers, spill bytes and static "
+          "shared bytes per block, by template arguments; K5: sum type, "
+          "window half-width, disparity chunk): " + json.dumps({
+              kernel: kernel_instances(kernel) for kernel in (
+                  "sad_cost_kernel", "median3x3_kernel")}))
+    print("K5 shared bytes per block (dynamic, 16-row tile): " + json.dumps({
+        f"D={d} {wy}x{wx}": lib.stpu_sad_cost_smem(d, wy, wx)
+        for d, (wy, wx) in ((SAD.num_disparities, SAD.sad_window),
+                            (SADSGM.num_disparities, SADSGM.sad_window))}))
 
 
 
@@ -611,6 +631,9 @@ def kernel_instances(kernel: str, log: str = "") -> Dict[str, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             row["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                row["smem"] = int(m.group(1))
     if not found or not all("registers" in r for r in found.values()):
         raise AssertionError(f"ptxas report: {kernel} instances {found}")
     return dict(sorted(found.items()))
@@ -692,6 +715,16 @@ def census_row(name, tname, rows, left, right, cfg, reps=20):
     return row, cost, cost_plain
 
 
+def kernel_device_ms(fn, kernel: str):
+    """``kernel``'s device ms per call of ``fn`` (``profiled_ms``), or None
+    where the profiler recorded none of its launches."""
+    got = profiled_ms(fn, kernel)
+    if got is None:
+        print(f"profiler: no launch of {kernel} recorded; device_ms null")
+        return None
+    return got[0]
+
+
 def sad_row(name, left, right, cfg, reps=20):
     """One K5 form against the plain volume; returns (row, volume, plain
     volume)."""
@@ -701,6 +734,8 @@ def sad_row(name, left, right, cfg, reps=20):
     row = dict(
         max_abs_err=require_equal(name, cost.to(torch.int32), cost_plain),
         ms=cuda_ms(lambda: sad_cost(left, right, cfg), reps=reps),
+        device_ms=kernel_device_ms(lambda: sad_cost(left, right, cfg),
+                                   "sad_cost_kernel"),
         plain_ms=cuda_ms(lambda: sad_cost_volume(left, right, plain), reps=5),
         **sad_bound(*left.shape, cfg.num_disparities, cfg.sad_window),
     )
@@ -752,6 +787,8 @@ def median_row(name, disp, disp_plain):
     row = dict(
         max_abs_err=require_equal(name, med, med_plain),
         ms=cuda_ms(lambda: median3x3(disp), reps=50),
+        device_ms=kernel_device_ms(lambda: median3x3(disp),
+                                   "median3x3_kernel"),
         plain_ms=cuda_ms(lambda: median_3x3(disp_plain), reps=20),
         **median_bound(*disp.shape),
     )
@@ -827,6 +864,8 @@ def banded_rows(dev, left, right, cfg, split, tag: str = "cfg4") -> dict:
             _first_row(rows, name, lambda: dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: median3x3(got[0]), reps=10),
+                device_ms=kernel_device_ms(lambda: median3x3(got[0]),
+                                           "median3x3_kernel"),
                 plain_ms=cuda_ms(lambda: median_3x3(want[0]), reps=3),
                 **median_bound(ph, pw)))
     return rows
@@ -867,6 +906,8 @@ def _banded_sad(rows, name, pl_, pr_, cfg, f0):
     _first_row(rows, name, lambda: dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: sad_cost(pl_, pr_, cfg, f0), reps=10),
+        device_ms=kernel_device_ms(lambda: sad_cost(pl_, pr_, cfg, f0),
+                                   "sad_cost_kernel"),
         plain_ms=cuda_ms(lambda: sad_cost_volume(pl_, pr_, plain, f0),
                          reps=3),
         **sad_bound(ph, pw, cfg.num_disparities, cfg.sad_window)))
@@ -1076,10 +1117,17 @@ def phase_kernels(dev) -> dict:
             "sad_cost/ctx", cost.to(torch.int32),
             synced(lambda: sad_cost_volume(cl_, cr_, plain, f0, ctx))),
         ms=cuda_ms(lambda: sad_cost(cl_, cr_, SAD, f0, ctx), reps=20),
+        device_ms=kernel_device_ms(
+            lambda: sad_cost(cl_, cr_, SAD, f0, ctx), "sad_cost_kernel"),
         plain_ms=cuda_ms(lambda: sad_cost_volume(cl_, cr_, plain, f0, ctx),
                          reps=5),
         **sad_bound(*cl_.shape, SAD.num_disparities, SAD.sad_window, ctx))
     del cost
+    # K5 at KITTI size (kitti_sgm8_128 with cost_fn="sad", the SAD half of
+    # census_vs_sad at full size): its rate away from launch latency; no
+    # path launches this form.
+    rows["sad_cost/kitti"], _, _ = sad_row("sad_cost/kitti", left, right,
+                                           SADSGM)
     del sad, sad_plain, hsad, hsad_plain, hcost, hcost_plain, hs, hs_plain
 
     # Config 4 through the banded runner: every patch of the three splits,
@@ -1096,9 +1144,11 @@ def phase_kernels(dev) -> dict:
     rows.update(peak_rows(dev))
 
     for name, r in rows.items():
-        print(f"kernel {name}: equal to plain; {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']})")
+        device = (f", {r['device_ms']:.4f} ms on the device"
+                  if r.get("device_ms") is not None else "")
+        print(f"kernel {name}: equal to plain; {r['ms']:.4f} ms{device} "
+              f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']})")
     return rows
 
 
@@ -1315,10 +1365,11 @@ def main(argv=None) -> int:
         raise AssertionError(f"no main path launched {missing}")
     kernels = []
     for form in KERNEL_INFO:
-        # The median's exchanges are float32 mins and maxes; every other
-        # kernel's operations are integer.
-        anchor = "float32" if form.startswith(("median3x3",
-                                               "alu_peak/float32")) else "int32"
+        # The median's exchanges are float32 mins and maxes and K5 sums the
+        # paths' uint8 images in float32; every other kernel's operations
+        # are integer.
+        anchor = "float32" if form.startswith((
+            "median3x3", "sad_cost", "alu_peak/float32")) else "int32"
         kernels.append(dict(
             name=form, route="cuda", source=KERNEL_INFO[form][1],
             replaces=KERNEL_INFO[form][2], launches=launches[form],

@@ -1,6 +1,7 @@
 """Where a frame's time goes on the card, for each path chip_smoke.py drives.
 
     python3 profile_paths.py [--frames 6] [SLICE ...]
+    python3 profile_paths.py --forms
 
 For each named slice of ``chip_smoke.SLICES`` (all by default; config and
 model come from the slice's fixture file, as there) the model serves a few
@@ -11,6 +12,13 @@ time by kernel (the port's CUDA kernels by name, everything else as plain
 torch), all per frame. For a pyramid slice it also times the model's
 stages one by one with CUDA events (medians). Needs a CUDA card; prints
 its name and power limit first.
+
+``--forms`` instead profiles K5 and K4 alone, each in a train of launches
+through its wrapper, at the shapes the paths give them (and K5 at
+375x1242x128, the SAD form of kitti_sgm8_128, which no path runs): one
+JSON line per form with the kernel's device time per launch and any other
+device time the call spends (plain torch launches around the kernel;
+``eval.roofline.profiled_ms``).
 """
 
 from __future__ import annotations
@@ -22,7 +30,20 @@ import time
 
 import torch
 
-from chip_smoke import SLICES, cuda_ms, load_slice, phase_device, to_dev
+from chip_smoke import (
+    SAD,
+    SADSGM,
+    SLICES,
+    cfg4_pair,
+    cuda_ms,
+    load_slice,
+    phase_device,
+    to_dev,
+    tsukuba_pair,
+)
+from stereo_tpu_torch.data import kitti_like_pair, make_pair
+from stereo_tpu_torch.eval.hard_suite import SCENARIOS
+from stereo_tpu_torch.eval.roofline import profiled_ms
 from stereo_tpu_torch.models.pyramid import (
     PyramidSGM,
     _local_minmax_center,
@@ -31,7 +52,12 @@ from stereo_tpu_torch.models.pyramid import (
     _upsample2,
 )
 from stereo_tpu_torch.ops import census_transform
-from stereo_tpu_torch.ops.cuda import median3x3, sgm_paths, sgm_select
+from stereo_tpu_torch.ops.cuda import (
+    median3x3,
+    sad_cost,
+    sgm_paths,
+    sgm_select,
+)
 from stereo_tpu_torch.pipeline import compute_disparity
 
 #: Substrings of the port's kernel names, as the profiler reports them.
@@ -120,15 +146,57 @@ def pyramid_stages(sl, dev: torch.device) -> dict:
             **{name: cuda_ms(fn, reps=10) for name, fn in stages.items()}}
 
 
+def kernel_forms(dev: torch.device, reps: int = 50) -> list:
+    """K5 and K4 alone, ``reps`` calls through the wrapper under the
+    profiler after a warm-up; per call, the kernel's device time and the
+    device time of anything else the call launched."""
+    tsukuba = tsukuba_pair(0)
+    tl, tr = to_dev(tsukuba, dev)
+    tmap = torch.from_numpy(tsukuba.gt_disp).to(dev)
+    hl, hr = to_dev(make_pair((160, 288), max_disp=96, seed=0,
+                              **SCENARIOS["radiometric"]), dev)
+    kitti = kitti_like_pair(seed=0)
+    kl, kr = to_dev(kitti, dev)
+    kmap = torch.from_numpy(kitti.gt_disp).to(dev)
+    cmap = torch.from_numpy(cfg4_pair((1988, 2880))(0).gt_disp).to(dev)
+    forms = {
+        "sad_cost 288x384x16 (tsukuba_sad16)":
+            ("sad_cost_kernel", lambda: sad_cost(tl, tr, SAD)),
+        "sad_cost 160x288x128 (census_vs_sad)":
+            ("sad_cost_kernel", lambda: sad_cost(hl, hr, SADSGM)),
+        "sad_cost 375x1242x128 (kitti_sgm8_128, cost_fn=sad)":
+            ("sad_cost_kernel", lambda: sad_cost(kl, kr, SADSGM)),
+        "median3x3 288x384 (tsukuba_sad16)":
+            ("median3x3_kernel", lambda: median3x3(tmap)),
+        "median3x3 375x1242": ("median3x3_kernel", lambda: median3x3(kmap)),
+        "median3x3 1988x2880": ("median3x3_kernel", lambda: median3x3(cmap)),
+    }
+    rows = []
+    for name, (kernel, fn) in forms.items():
+        got = profiled_ms(fn, kernel, reps=reps)
+        if got is None:
+            raise RuntimeError(f"{name}: the profiler recorded no launch "
+                               f"of {kernel}")
+        rows.append({"form": name, "calls": reps, "kernel_device_ms": got[0],
+                     "other_device_ms": got[1], "other_launches": got[2]})
+    return rows
+
+
 def main(argv=None) -> int:
     by_name = {sl.fixture: sl for sl in SLICES}
     ap = argparse.ArgumentParser(prog="profile_paths.py")
     ap.add_argument("slices", nargs="*", default=list(by_name),
                     help=f"slices to profile, of {sorted(by_name)}")
     ap.add_argument("--frames", type=int, default=6)
+    ap.add_argument("--forms", action="store_true",
+                    help="profile K5 and K4 alone instead of the slices")
     args = ap.parse_args(argv)
     phase_device()
     dev = torch.device("cuda", 0)
+    if args.forms:
+        for row in kernel_forms(dev):
+            print(json.dumps(row))
+        return 0
     for name in args.slices:
         sl = by_name[name]
         print(json.dumps(profile_slice(sl, args.frames, dev)))

@@ -81,13 +81,19 @@ def transform_bound(h, w, window, rank=False, image_bytes=1):
     return bound(h * w * (image_bytes + 4 * words), h * w * (wy * wx - 1) * 2)
 
 
-def sad_bound(h, w, d, window, right_context=0):
-    """K5: two int32 images in (the right one ``right_context`` columns
-    wider), int16 volume out; per voxel and window tap a subtract, an
-    absolute value and an add, then one divide."""
-    taps = window[0] * window[1]
-    return bound((2 * w + right_context) * h * 4 + h * w * d * 2,
-                 h * w * d * (3 * taps + 1))
+def sad_bound(h, w, d, window, right_context=0, image_bytes=1):
+    """K5: the two images in at ``image_bytes`` per pixel (the right one
+    ``right_context`` columns wider), the int16 volume out. The kernel
+    reads the images in their own type, as ``transform_bound`` counts K1's,
+    and every path gives it uint8. Operations: the least work of the
+    function, 8 per voxel whatever the ``window``, since running sums make
+    the window's size free: the absolute difference (a subtract and an
+    absolute value), the vertical and the horizontal running sum (an add
+    and a subtract each), the divide by the area (a high multiply) and the
+    select of ``max_unary_cost``."""
+    del window  # the running sums cost the same at any window
+    return bound((2 * w + right_context) * h * image_bytes + h * w * d * 2,
+                 h * w * d * 8)
 
 
 def paths_bound(cost, cfg):
@@ -160,6 +166,40 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiled_ms(fn, kernel: str, reps: int = 20, attempts: int = 3
+                ) -> Optional[Tuple[float, float, float]]:
+    """The device time of ``fn()`` by ``torch.profiler`` over a train of
+    ``reps`` calls after a warm-up: (ms per launch of the kernels whose
+    name contains ``kernel``, ms of every other device launch per call,
+    those launches per call). The kernel alone, without the host's launch
+    path that ``cuda_ms`` includes. The profiler on the card now and then
+    records none of a train's launches: the train then runs again, up to
+    ``attempts`` times, and None is returned if it never records one."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def device_us(ev) -> float:
+        us = getattr(ev, "self_device_time_total", None)
+        return ev.self_cuda_time_total if us is None else us
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if ev.device_type == cuda]
+        ours = [ev for ev in evs if kernel in ev.key]
+        other = [ev for ev in evs if kernel not in ev.key]
+        n = sum(ev.count for ev in ours)
+        if n:
+            return (sum(map(device_us, ours)) / n / 1e3,
+                    sum(map(device_us, other)) / reps / 1e3,
+                    sum(ev.count for ev in other) / reps)
+    return None
 
 
 def _train_ms(fn, launches: int, trains: int = 3) -> float:

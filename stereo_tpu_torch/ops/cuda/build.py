@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 ]
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_cu = ctypes.c_uint
 _cl = ctypes.c_longlong
 
 #: C entry points of the kernel library: argument types (all return int:
@@ -47,9 +48,12 @@ KERNEL_SIGNATURES = {
     # cl, cr, out, h, w, d, words, combine, md, maxc, ctx, x_off, stream
     "stpu_census_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                          _ci, _ci, _vp],
-    # left, right, out, h, w, d, md, wy, wx, maxc, ctx, x_off, stream
+    # d, wy, wx -> K5's shared memory per block (bytes) at its largest tile
+    "stpu_sad_cost_smem": [_ci, _ci, _ci],
+    # left, right, out, h, w, d, md, wy, wx, maxc, ctx, x_off, image type,
+    # magic, shift, inv, bias, stream
     "stpu_sad_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
-                      _ci, _vp],
+                      _ci, _ci, _cu, _ci, _cf, _cf, _vp],
     # cost, cost_bytes, image (NULL: fixed P2), sum, h, w, d, step_y,
     # step_x, p1, p2, p2_min, grad_floor, accumulate, stream
     "stpu_sgm_path": [_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,

@@ -17,6 +17,8 @@ the block in the right descriptors or image (``ops.cost``).
 
 from __future__ import annotations
 
+import functools
+import struct
 from collections import Counter
 from typing import Tuple
 
@@ -179,12 +181,82 @@ def rank_cost(rl: torch.Tensor, rr: torch.Tensor, cfg: StereoConfig,
 rank_cost.forms = Counter()
 
 
+#: Largest SAD window side the kernel takes: its tiles stage a halo of at
+#: most 8 rows and columns, the row limit of the reference's TPU kernel
+#: (stereo_tpu/ops/pallas/cost_kernel.py:sad_kernel_supported).
+SAD_MAX_WINDOW = 17
+
+#: int32 and float32 images go to the kernel with values in
+#: [-SAD_MAX_VALUE, SAD_MAX_VALUE] (16-bit sensors, of either sign): every
+#: window sum is then at most 2 * 65535 * 17 * 17 < 2^31, where the
+#: kernel's 32-bit sums and ``sad_divisor`` are exact.
+SAD_MAX_VALUE = 65535
+
+
+@functools.lru_cache(maxsize=None)
+def sad_divisor(area: int) -> Tuple[int, int]:
+    """(magic, shift) with ``floor(n / area) == (n * magic) >> shift`` for
+    every 0 <= n < 2^31: K5's division of the integer window sums of int32
+    and float32 images by the window's area, one 32x32->64-bit multiply
+    and a shift on the card.
+
+    shift = 31 + ceil(log2(area)) and magic = ceil(2^shift / area), so
+    0 <= magic * area - 2^shift < area <= 2^(shift - 31): the round-up
+    method (Granlund and Montgomery, PLDI 1994), which is exact for
+    dividends below 2^31. magic < 2^32."""
+    if area < 1:
+        raise ValueError(f"area must be >= 1, got {area}")
+    shift = 31 + (area - 1).bit_length()
+    return -(-(1 << shift) // area), shift
+
+
+@functools.lru_cache(maxsize=None)
+def sad_reciprocal(area: int) -> Tuple[float, float]:
+    """(inv, bias) = (f32(1 / area), f32(0.5 / area)), K5's divide of the
+    float window sums of uint8 images: for every sum 0 <= n <= 255 * area,
+    ``floor(f32(n * inv + bias)) == n // area`` with one rounding (a fused
+    multiply-add), and the kernel takes the floor with a round-down add.
+
+    (n + 1/2) / area lies at least 1 / (2 * area) from an integer, and the
+    rounding of inv and of the fused multiply-add move it by less than
+    2^-14 for n below 2^17 and areas up to 17 * 17."""
+    if area < 1:
+        raise ValueError(f"area must be >= 1, got {area}")
+    return _f32(1.0 / area), _f32(0.5 / area)
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32 (to nearest)."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def _sad_images(left: torch.Tensor, right: torch.Tensor):
+    """The pair as K5 reads it: both uint8, both float32 or both int32 as
+    they are, anything else converted to int32 (the reference's
+    astype(int32)). Raises for values outside the range the kernel's sums
+    admit (``SAD_MAX_VALUE``; one reduction and a wait for the card per
+    image that is not uint8)."""
+    for name, img in (("left", left), ("right", right)):
+        if img.dtype in (torch.uint8, torch.bool):
+            continue
+        lo, hi = torch.stack(torch.aminmax(img)).tolist()
+        if not (-SAD_MAX_VALUE <= lo and hi <= SAD_MAX_VALUE):
+            raise ValueError(
+                f"{name}: the SAD kernel takes values in [-{SAD_MAX_VALUE}, "
+                f"{SAD_MAX_VALUE}], got [{lo}, {hi}]")
+    if left.dtype != right.dtype or left.dtype not in _IMAGE_TYPES:
+        left, right = left.to(torch.int32), right.to(torch.int32)
+    return left.contiguous(), right.contiguous()
+
+
 def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
              x_offset: int = 0, right_context: int = 0) -> torch.Tensor:
     """[H, W, D] int16 SAD cost volume of a left [H, W] and a right
-    [H, W + right_context] image, any D in [1, 256]; ``x_offset`` is the
-    block's global column origin. CPU tensors take the plain version
-    (``ops.cost``); CUDA tensors launch the kernel."""
+    [H, W + right_context] image, any D in [1, 256] and odd windows up to
+    17x17; ``x_offset`` is the block's global column origin. CPU tensors
+    take the plain version (``ops.cost``); CUDA tensors launch the kernel,
+    which reads uint8, float32 (truncated toward zero) and int32 images as
+    they are (``_sad_images``)."""
     if left.ndim != 2:
         raise ValueError(f"expected [H, W] images: {left.shape}")
     _check_framing("images", left, right, x_offset, right_context)
@@ -199,19 +271,24 @@ def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
     require_disparities(d)
     if wy % 2 == 0 or wx % 2 == 0:
         raise ValueError(f"sad_window must be odd, got {cfg.sad_window}")
+    if max(wy, wx) > SAD_MAX_WINDOW:
+        raise ValueError(f"the CUDA SAD kernel takes windows up to "
+                         f"{SAD_MAX_WINDOW}x{SAD_MAX_WINDOW}, got "
+                         f"{cfg.sad_window}")
     if cfg.min_disparity < 0:
         raise ValueError("the CUDA cost kernel needs min_disparity >= 0")
-    # int32 images: the reference's astype(int32), for any input dtype.
-    l32 = left.to(torch.int32).contiguous()
-    r32 = right.to(torch.int32).contiguous()
-    require(l32, "left", torch.int32, 2)
-    require(r32, "right", torch.int32, 2)
+    left, right = _sad_images(left, right)
+    require(left, "left", left.dtype, 2, aligned=False)
+    require(right, "right", left.dtype, 2, aligned=False)
     out = torch.empty((h, w, d), dtype=torch.int16, device=left.device)
-    run("stpu_sad_cost", left.device, l32.data_ptr(), r32.data_ptr(),
+    magic, shift = sad_divisor(wy * wx)
+    inv, bias = sad_reciprocal(wy * wx)
+    run("stpu_sad_cost", left.device, left.data_ptr(), right.data_ptr(),
         out.data_ptr(), h, w, d, int(cfg.min_disparity), wy, wx,
-        cfg.max_unary_cost, right_context, x_offset)
+        cfg.max_unary_cost, right_context, x_offset,
+        _IMAGE_TYPES[left.dtype], magic, shift, inv, bias)
     count_launch(sad_cost, h, w, d, wy, wx, bool(x_offset),
-                 bool(right_context))
+                 bool(right_context), str(left.dtype))
     return out
 
 

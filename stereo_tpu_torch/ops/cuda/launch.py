@@ -27,17 +27,19 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors must all be on the CPU or all on CUDA: {kinds}")
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte-aligned CUDA tensor of
-    ``dtype`` with ``ndim`` dimensions."""
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+            aligned: bool = True) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` with
+    ``ndim`` dimensions, 16-byte aligned unless ``aligned`` is False."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+    if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
+        raise ValueError(f"{name}: must be contiguous"
+                         + " and 16-byte aligned" * aligned)
 
 
 def require_disparities(d: int) -> None:

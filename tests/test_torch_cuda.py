@@ -23,6 +23,7 @@ from stereo_tpu_torch import (
 )
 from stereo_tpu_torch.config import StereoConfig
 from stereo_tpu_torch.data import make_pair
+from stereo_tpu_torch.eval import roofline
 from stereo_tpu_torch.models import get_model
 from stereo_tpu_torch.ops import (
     census_cost_volume,
@@ -219,14 +220,35 @@ def test_sgm_select_kernel(dev, kw, levels):
     assert torch.equal(disp, want_disp)
 
 
-@pytest.mark.parametrize("h, w", [(1, 1), (3, 2), (37, 150), (375, 1242)])
+@pytest.mark.parametrize("h, w", [(1, 1), (1, 9), (9, 1), (3, 2), (37, 150),
+                                  (17, 130), (33, 131), (375, 1242),
+                                  (1988, 2880)])
 def test_median3x3_kernel(dev, h, w):
+    # 1 x 1, 1 x N, N x 1, widths that are not a multiple of 4 (scalar
+    # staging and stores), ragged tiles, KITTI and config 4's frame.
     rng = np.random.default_rng(h)
     disp = torch.from_numpy((rng.integers(0, 512, size=(h, w)) / 4).astype(
         np.float32)).to(dev)
     got = median3x3(disp)
     torch.cuda.synchronize()
     assert torch.equal(got, median_3x3(disp))
+
+
+@pytest.mark.parametrize("values", [(-0.0, 0.0), (-0.0, 0.0, 1.5),
+                                    (0.25, 0.5)])
+@pytest.mark.parametrize("h, w", [(7, 9), (40, 260), (21, 131)])
+def test_median3x3_kernel_ties_and_zeros(dev, values, h, w):
+    # Two or three values make ties in every window, and -0.0 next to
+    # +0.0 in most: the kernel's selection must leave the bits the plain
+    # network leaves (compared as int32 words, so a zero's sign counts).
+    rng = np.random.default_rng(len(values) * h)
+    vals = np.array(values, np.float32)
+    disp = torch.from_numpy(vals[rng.integers(0, len(vals), size=(h, w))]
+                            ).to(dev)
+    got = median3x3(disp)
+    torch.cuda.synchronize()
+    want = median_3x3(disp)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_pipeline_runs_the_kernels(dev):
@@ -333,10 +355,14 @@ def test_sgm_select_negative_origin(dev, d, kw):
         sgm_select(s, cfg.replace(lr_check=True))
 
 
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [1, 16, 48, 64, 128, 256])
 @pytest.mark.parametrize("md", [0, 3])
-@pytest.mark.parametrize("window, h, w", [((9, 9), 19, 70), ((5, 7), 6, 33)])
+@pytest.mark.parametrize("window, h, w", [
+    ((9, 9), 19, 70), ((5, 7), 6, 33), ((1, 1), 5, 37), ((17, 17), 40, 300),
+    ((9, 9), 4, 200), ((17, 17), 21, 9)])
 def test_sad_cost_kernel(dev, d, md, window, h, w):
+    # Frames that fill no whole tile (tiles are 64 or 32 columns by 4-16
+    # rows), H below the window, W below the window and below D.
     cfg = TSUKUBA_SAD16.replace(num_disparities=d, min_disparity=md,
                                 sad_window=window)
     left, right = _images(d + md, h, w, dev)
@@ -344,6 +370,85 @@ def test_sad_cost_kernel(dev, d, md, window, h, w):
     torch.cuda.synchronize()
     assert got.dtype == torch.int16 and got.shape == (h, w, d)
     assert torch.equal(got.to(torch.int32), sad_cost_volume(left, right, cfg))
+
+
+def _sad_pair(kind, dtype, h, w, ctx, dev):
+    """A SAD pair: right ``ctx`` columns wider; ``kind`` "zeros", "extremes"
+    (0 and 255 at random: the largest sums of a uint8 pair, and the most
+    the other types' checks admit, +-65535) or "random"."""
+    rng = np.random.default_rng(w + ctx)
+    top = 255 if dtype == torch.uint8 else 65535
+    bottom = 0 if dtype == torch.uint8 else -top
+    out = []
+    for n in (w, w + ctx):
+        if kind == "zeros":
+            a = np.zeros((h, n))
+        elif kind == "extremes":
+            a = np.where(rng.random((h, n)) < 0.5, bottom, top)
+        elif dtype == torch.float32:
+            a = rng.uniform(bottom, top, size=(h, n))
+        else:
+            a = rng.integers(bottom, top + 1, size=(h, n))
+        out.append(torch.from_numpy(a).to(dtype).to(dev))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32, torch.float32])
+@pytest.mark.parametrize("kind", ["zeros", "extremes", "random"])
+@pytest.mark.parametrize("d, window, md, x_offset, ctx", [
+    (16, (9, 9), 0, 0, 0), (128, (17, 17), 3, 40, 17),
+    (48, (5, 7), 2, 300, 255), (256, (9, 9), 0, 24, 24)])
+def test_sad_cost_kernel_image_types(dev, dtype, kind, d, window, md,
+                                     x_offset, ctx):
+    # K5 reads the images in their own type (float32 truncated toward
+    # zero); costs above the int16 range wrap as the wrapper's int16 cast
+    # of the plain volume does.
+    cfg = TSUKUBA_SAD16.replace(num_disparities=d, min_disparity=md,
+                                sad_window=window)
+    left, right = _sad_pair(kind, dtype, 23, 141, ctx, dev)
+    reset_launch_counts()
+    got = sad_cost(left, right, cfg, x_offset, ctx)
+    torch.cuda.synchronize()
+    assert launch_forms() == {("sad_cost", 23, 141, d, *window,
+                               x_offset > 0, ctx > 0, str(dtype)): 1}
+    want = sad_cost_volume(left, right, cfg, x_offset, ctx)
+    assert torch.equal(got, want.to(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_sad_cost_kernel_row_view(dev, dtype):
+    # A band of rows of a larger image is a contiguous view that starts
+    # anywhere (row 3 of a 141-column uint8 image is 423 bytes in): K5
+    # reads it in place.
+    left, right = (img.to(dtype) for img in _images(5, 23, 141, dev))
+    cfg = TSUKUBA_SAD16.replace(num_disparities=48, sad_window=(5, 7))
+    lv, rv = left[3:], right[3:]
+    assert lv.is_contiguous() and lv.data_ptr() % 16
+    got = sad_cost(lv, rv, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got.to(torch.int32), sad_cost_volume(lv, rv, cfg))
+
+
+def test_profiled_ms_times_a_kernel(dev):
+    # chip_smoke.py's device_ms and profile_paths.py --forms: the kernel's
+    # device time per launch, and nothing else launched by the call.
+    disp = torch.rand((375, 1242), device=dev) * 64
+    ms, other_ms, other = roofline.profiled_ms(lambda: median3x3(disp),
+                                               "median3x3_kernel")
+    assert 0 < ms < 1 and other_ms == 0 and other == 0
+
+
+def test_sad_cost_kernel_rejects(dev):
+    left, right = _images(0, 8, 40, dev)
+    with pytest.raises(ValueError, match="17x17"):
+        sad_cost(left, right, TSUKUBA_SAD16.replace(sad_window=(19, 3)))
+    big = left.to(torch.int32) * 300
+    with pytest.raises(ValueError, match="65535"):
+        sad_cost(big, right.to(torch.int32), TSUKUBA_SAD16)
+    nan = left.to(torch.float32)
+    nan[3, 4] = float("nan")
+    with pytest.raises(ValueError, match="65535"):
+        sad_cost(nan, right.to(torch.float32), TSUKUBA_SAD16)
 
 
 @pytest.mark.parametrize(
@@ -502,7 +607,7 @@ def test_sad_cost_kernel_right_context(dev, d, md, x_offset, ctx):
     got = sad_cost(left, right, cfg, x_offset, ctx)
     torch.cuda.synchronize()
     assert launch_forms() == {
-        ("sad_cost", 11, 70, d, 5, 7, x_offset > 0, True): 1}
+        ("sad_cost", 11, 70, d, 5, 7, x_offset > 0, True, "torch.uint8"): 1}
     assert torch.equal(got.to(torch.int32),
                        sad_cost_volume(left, right, cfg, x_offset, ctx))
 
@@ -523,7 +628,7 @@ def test_sad_patch_with_context_runs_the_kernels(dev):
     torch.cuda.synchronize()
     assert launch_counts()["sad_cost"] == 2
     assert launch_forms()[("sad_cost", 32, 108, 16, *cfg.sad_window, True,
-                           True)] == 2
+                           True, "torch.uint8")] == 2
     want = compute_disparity(left, right, plain, **call)
     assert torch.equal(got.disp, want.disp)
     assert torch.equal(got.valid, want.valid)

@@ -42,6 +42,12 @@ from stereo_tpu_torch.ops.cuda import (
     sgm_select,
 )
 from stereo_tpu_torch.ops.cuda import transform_words
+from stereo_tpu_torch.ops.cuda.cost_kernel import (
+    SAD_MAX_VALUE,
+    SAD_MAX_WINDOW,
+    sad_divisor,
+    sad_reciprocal,
+)
 from stereo_tpu_torch.ops.cuda.launch import count_launch
 from stereo_tpu_torch.pipeline import _kernel_cost
 
@@ -256,6 +262,76 @@ def test_sad_cost_right_context_matches_reference(md, x_offset, ctx):
     assert launch_counts() == before
     assert got.dtype == torch.int16
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32, np.float32])
+def test_sad_cost_image_types_match_reference(dtype):
+    # K5 reads uint8, int32 and float32 images as they are; the plain
+    # version, as the reference, takes them as int32 (float32 truncated
+    # toward zero, so the negative and fractional values matter). The
+    # int32 values keep |L - R| <= 32767, so every cost fits the int16
+    # volume that K5, as the reference's TPU kernel, returns.
+    rng = np.random.default_rng(23)
+    h, w, ctx = 13, 40, 9
+    if dtype == np.uint8:
+        left, right = (rng.integers(0, 256, size=(h, n)).astype(dtype)
+                       for n in (w, w + ctx))
+    elif dtype == np.int32:
+        left, right = (rng.integers(-16383, 16384, size=(h, n)).astype(dtype)
+                       for n in (w, w + ctx))
+    else:
+        left, right = (rng.uniform(-300, 300, size=(h, n)).astype(dtype)
+                       for n in (w, w + ctx))
+    kw = dict(cost_fn="sad", sad_window=(5, 7), num_disparities=24,
+              min_disparity=2)
+    want = jops.sad_cost_volume(left, right, JCfg(**kw), 11, ctx)
+    before = launch_counts()
+    got = sad_cost(_t(left), _t(right), TCfg(**kw), 11, ctx)
+    assert launch_counts() == before
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("wy", range(1, SAD_MAX_WINDOW + 1, 2))
+def test_sad_divisor_is_floor_division(wy):
+    # K5 divides a window sum by the area as (sum * magic) >> shift. Every
+    # sum of a uint8 pair (up to 255 * area) is checked, and up to the
+    # largest sum the wrapper admits (2 * SAD_MAX_VALUE * area) the first
+    # and the last sum of every quotient: the method's error grows with
+    # the sum, so each quotient's ends are where it would first show.
+    # The top of the range the kernel's 32-bit sums allow, [2^31 - 2^16,
+    # 2^31), is checked whole.
+    for wx in range(1, SAD_MAX_WINDOW + 1, 2):
+        area = wy * wx
+        magic, shift = sad_divisor(area)
+        assert 0 < magic < 2**32
+        q = np.arange(2 * SAD_MAX_VALUE + 1, dtype=np.uint64)
+        sums = np.concatenate([
+            np.arange(255 * area + 1, dtype=np.uint64),
+            q * area, q * area + area - 1,
+            np.arange(2**31 - 2**16, 2**31, dtype=np.uint64)])
+        got = (sums * np.uint64(magic)) >> np.uint64(shift)
+        np.testing.assert_array_equal(got, sums // np.uint64(area))
+    with pytest.raises(ValueError):
+        sad_divisor(0)
+
+
+@pytest.mark.parametrize("wy", range(1, SAD_MAX_WINDOW + 1, 2))
+def test_sad_reciprocal_is_floor_division(wy):
+    # K5 sums uint8 images in float and divides as floor(fma(sum, inv,
+    # bias)): every sum a uint8 pair can give (0 .. 255 * area) is
+    # checked. n * inv + bias is exact in float64 (n < 2^17, 24-bit
+    # factors), so its rounding to float32 is the fused multiply-add's.
+    for wx in range(1, SAD_MAX_WINDOW + 1, 2):
+        area = wy * wx
+        inv, bias = sad_reciprocal(area)
+        assert np.float32(inv) == inv and np.float32(bias) == bias
+        sums = np.arange(255 * area + 1, dtype=np.int64)
+        y = (sums * np.float64(inv) + np.float64(bias)).astype(np.float32)
+        np.testing.assert_array_equal(np.floor(y).astype(np.int64),
+                                      sums // area)
+    with pytest.raises(ValueError):
+        sad_reciprocal(0)
 
 
 def test_wrappers_reject_mixed_devices():
