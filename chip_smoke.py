@@ -55,6 +55,18 @@ result line):
          plain K2 takes seconds, and is timed once);
        - tsukuba_sad16 in two column patches (288x228 each, the legacy
          overlap): K5 without and with a column origin, K3 framed, K4;
+       - the halo-tiled pipeline (build_halo_pipeline on the local grid,
+         every tile of each grid of phase 4's tiled paths, at the tile's
+         whole shape): K1's transform stage on each tile image, its cost
+         stage or K5 at the tile's origin (negative on the frame's left
+         edge: rows ".../neg"), K2 in its rectangle form (paths start
+         fresh at the tile's in-frame rectangle: ".../rect"; the exact LR
+         check's flipped pass runs the whole form), K3 at the tile's
+         origin (framed, emit_qr, or the exact LR check's forms) and K4 on
+         the cropped tile with its 1-px halo, each against the plain
+         version on the same tile (the plain K2 takes the rectangle as its
+         valid mask); the launches of one frame are tallied by row as the
+         tiles are held;
        - K6 alu_peak in float32 and int32 at the anchor's two programs;
   4. slices: each path serves a few requests through get_model(...).build,
      host_postprocess and evaluate_disparity, with the launch counters set
@@ -76,8 +88,15 @@ result line):
      two column patches stitched (2 16 2 2, K3 in its emit_qr form) and
      2x2 patches in the legacy overlap (4 32 4 4, x_offset != 0); the
      splits are not expected to equal the whole frame (SGM warm-up at
-     patch edges), and the share of pixels that differ is printed. Frame 0
-     of each must
+     patch edges), and the share of pixels that differ is printed; then
+     the halo-tiled pipeline on the local grid (build_halo_pipeline over
+     make_tile_mesh(["cuda"] * n, grid)): kitti_sgm8_128 on 2x2 tiles
+     (stitched), kitti_sgm8_128_quality on 2x2 (legacy), kitti_sgm8_128
+     with lr_exact on 1x2 (legacy), tsukuba_sad16 on 1x2 (K5 at a negative
+     origin) and config 4 on 2x2 (legacy) and 1x2 (stitched) at 497x720
+     and at 1988x2880, each with the launches that the kernels phase
+     tallied for its tiles, and its median device ms beside the whole
+     frame's (a JSON line "tiled vs whole"). Frame 0 of each must
      reproduce the reference package's hashes
      (stereo_tpu_torch/testdata/*_seed0.json) and the repeated seeds their
      first answers;
@@ -93,10 +112,11 @@ result line):
 
     python3 chip_smoke.py --write-fixtures DIR
 
-instead makes the full-size (1988x2880) config-4 fixtures: each split runs
-on the card through the plain torch path (backend="torch") and through the
-kernels, the two must agree bit for bit, and DIR/<fixture>_seed0.json gets
-the hashes (to be copied into stereo_tpu_torch/testdata). The quarter-size
+instead makes the full-size (1988x2880) config-4 fixtures: each split
+(banded runner) and each tile grid (halo-tiled pipeline) runs on the card
+through the plain torch path (backend="torch") and through the kernels,
+the two must agree bit for bit, and DIR/<fixture>_seed0.json gets the
+hashes (to be copied into stereo_tpu_torch/testdata). The quarter-size
 fixtures, which the reference package makes on the CPU, tie that plain
 path to the reference.
 
@@ -199,9 +219,18 @@ from stereo_tpu_torch.ops.postprocess import spill_width  # noqa: E402
 from stereo_tpu_torch.ops.sgm import PATH_STEPS  # noqa: E402
 from stereo_tpu_torch.parallel import (  # noqa: E402
     build_banded_pipeline,
+    build_halo_pipeline,
+    make_tile_mesh,
     plan_bands,
 )
 from stereo_tpu_torch.parallel.bands import right_context_of  # noqa: E402
+from stereo_tpu_torch.parallel.tiling import (  # noqa: E402
+    _halo_widths,
+    padded_extent,
+    stitch_supported,
+)
+from stereo_tpu_torch.config import TileConfig  # noqa: E402
+from stereo_tpu_torch.pipeline import frame_rect, rect_mask  # noqa: E402
 
 TESTDATA = ROOT / "stereo_tpu_torch" / "testdata"
 CFG = KITTI_SGM8_128
@@ -433,6 +462,26 @@ class BandedRunner(NamedTuple):
                                      **self.split)
 
 
+class TiledRunner(NamedTuple):
+    """A fixture's ``tiles`` grid as a model: ``build(device)`` is
+    ``build_halo_pipeline`` on the local grid, every tile on ``device``."""
+
+    cfg: object
+    grid: Tuple[int, int]
+    lr_stitch: object
+
+    @property
+    def name(self) -> str:
+        return (f"halo tiles {self.grid[0]}x{self.grid[1]} "
+                f"lr_stitch={self.lr_stitch}")
+
+    def build(self, device):
+        mesh = make_tile_mesh([device] * (self.grid[0] * self.grid[1]),
+                              self.grid)
+        return build_halo_pipeline(self.cfg, mesh, lr_stitch=self.lr_stitch,
+                                   device=device)
+
+
 #: A pyramid frame: the coarse pass at half size and D/2 (K1, K2 x 8, K3
 #: without LR, K4), then K2 x 8 and K3 on the residual volume, and K4.
 _PYRAMID_FORMS = {
@@ -485,6 +534,30 @@ SLICES = (
 )
 
 
+#: The halo-tiled pipeline's paths; their launches per frame are tallied by
+#: ``tiled_rows`` in the kernels phase (each ``forms`` starts empty).
+TILED_SLICES = (
+    Slice("kitti_sgm8_128_tiles_2x2", kitti_like_pair, (0, 1, 0), {},
+          differs_from="kitti_sgm8_128"),
+    Slice("kitti_sgm8_128_quality_tiles_2x2_legacy", kitti_like_pair,
+          (0, 1, 0), {}, differs_from="kitti_sgm8_128_quality"),
+    Slice("kitti_sgm8_128_lr_exact_tiles_1x2", kitti_like_pair, (0, 1, 0),
+          {}, differs_from="kitti_sgm8_128_lr_exact"),
+    Slice("tsukuba_sad16_tiles_1x2", tsukuba_pair, (0, 1, 0), {},
+          differs_from="tsukuba_sad16"),
+    *(Slice(f"middlebury_full_256_tiled{q}_tiles_{grid}", cfg4_pair(shape),
+            seeds, {}, differs_from=f"middlebury_full_256_tiled{q}")
+      for q, shape, seeds in (("_q", (497, 720), (0, 1, 0)),
+                              ("", (1988, 2880), (0, 0)))
+      for grid in ("2x2_legacy", "1x2")),
+)
+SLICES = SLICES + TILED_SLICES
+
+#: While not None, ``held`` adds each call's launches here by row: one
+#: frame's launches of a tiled path, as ``tiled_rows`` holds its tiles.
+_TALLY = None
+
+
 def held(name: str, fn):
     """``fn()`` must launch row ``name``'s kernel form and nothing else (K2
     once per direction): notes the counted form under the row, waits for
@@ -499,6 +572,8 @@ def held(name: str, fn):
     form = forms[0]
     if HELD.setdefault(form, name) != name:
         raise AssertionError(f"{name} and {HELD[form]} are one form: {form}")
+    if _TALLY is not None:
+        _TALLY[name] = _TALLY.get(name, 0) + launch_forms()[form]
     return out
 
 
@@ -524,6 +599,9 @@ def load_slice(sl: Slice):
     cfg = PRESETS[fx["preset"]].replace(**fx.get("overrides", {}))
     if "bands" in fx:
         return fx, cfg, BandedRunner(cfg, tuple(fx["shape"]), fx["bands"])
+    if "tiles" in fx:
+        return fx, cfg, TiledRunner(cfg, tuple(fx["tiles"]["mesh_shape"]),
+                                    fx["tiles"]["lr_stitch"])
     kwargs = {k: tuple(v) if isinstance(v, list) else v
               for k, v in fx.get("model_kwargs", {}).items()}
     model = get_model(sl.model or fx.get("model", "classic"), cfg=cfg,
@@ -641,33 +719,38 @@ def kernel_instances(kernel: str, log: str = "") -> Dict[str, dict]:
 
 def k2_instances() -> Dict[str, dict]:
     """Each K2 instance's registers and spills (``kernel_instances``; its
-    template arguments are DPL, PARTIAL, ADAPTIVE and the cost type) and
-    its ring from the C queries."""
+    template arguments are DPL, PARTIAL, ADAPTIVE, RECT and the cost
+    type) and its ring from the C queries."""
     lib = load_kernels()
     found: Dict[str, dict] = {}
     for args, row in kernel_instances("sgm_path_kernel").items():
-        dpl, partial, adaptive, t = args.split("/")
+        dpl, partial, adaptive, rect, t = args.split("/")
         cost_bytes = 1 if t == "a" else 2
         name = (f"dpl{dpl}{'/partial' * (partial == '1')}"
-                f"{'/adaptive' * (adaptive == '1')}/int{8 * cost_bytes}")
+                f"{'/adaptive' * (adaptive == '1')}{'/rect' * (rect == '1')}"
+                f"/int{8 * cost_bytes}")
         d = 32 * int(dpl)
         found[name] = dict(stages=lib.stpu_sgm_path_stages(d),
                            smem=lib.stpu_sgm_path_smem(d, cost_bytes), **row)
-    if len(found) != 64:
+    if len(found) != 128:
         raise AssertionError(f"ptxas report: {len(found)} K2 instances")
     return dict(sorted(found.items()))
 
 
-def per_direction_ms(dev, cost, scratch, image_ptr, cfg) -> Dict[str, float]:
+def per_direction_ms(dev, cost, scratch, image_ptr, cfg, rect=None
+                     ) -> Dict[str, float]:
     """One K2 direction at a time, straight through the C entry point
-    (these launches bypass the wrapper's counter), into a scratch sum."""
+    (these launches bypass the wrapper's counter), into a scratch sum; in
+    the rectangle form where ``rect`` is given."""
     h, w, d = cost.shape
+    box = (0, h, 0, w) if rect is None else rect
     return {
         f"{dy:+d},{dx:+d}": cuda_ms(
             lambda: run("stpu_sgm_path", dev, cost.data_ptr(),
                         cost.element_size(), image_ptr, scratch.data_ptr(), h,
                         w, d, dy, dx, cfg.p1, cfg.p2, cfg.p2_min,
-                        cfg.adaptive_grad_floor, 1), reps=10)
+                        cfg.adaptive_grad_floor, 1, int(rect is not None),
+                        *box), reps=10)
         for dy, dx in PATH_STEPS[: cfg.num_paths]
     }
 
@@ -879,7 +962,7 @@ def _banded_census(rows, tag, shape, pl_, pr_, cfg, f0, ctx):
     its plain volume)."""
     plain = cfg.replace(backend="torch")
     ph, pw = pl_.shape
-    name = f"census_cost/{tag}/{shape}" + ("/framed" if f0 or ctx else "")
+    name = f"census_cost/{tag}/{shape}" + _origin_suffix(f0, ctx)
     cl, cr = (transform_row(rows, f"census_transform/{tag}/{ph}x{iw}", img,
                             cfg.census_window, reps=5)
               for img, iw in ((pl_, pw), (pr_, pw + ctx)))
@@ -899,7 +982,7 @@ def _banded_sad(rows, name, pl_, pr_, cfg, f0):
     """K5 on one patch, with its origin; returns as ``_banded_census``."""
     plain = cfg.replace(backend="torch")
     ph, pw = pl_.shape
-    name += "/framed" if f0 else ""
+    name += _origin_suffix(f0, 0)
     cost = held(name, lambda: sad_cost(pl_, pr_, cfg, f0))
     cost_plain = synced(lambda: sad_cost_volume(pl_, pr_, plain, f0))
     err = require_equal(name, cost, cost_plain)
@@ -914,26 +997,210 @@ def _banded_sad(rows, name, pl_, pr_, cfg, f0):
     return cost, cost_plain
 
 
-def _banded_paths(dev, rows, name, cost, cost_plain, cfg):
-    """K2 on a patch's costs against plain SGM on the same; returns (the
-    patch's S, its plain S). The plain version is timed once, after the
-    run that was compared (it takes seconds on a full-size patch)."""
+def _origin_suffix(x_offset: int, ctx: int) -> str:
+    """A cost row's framing, as the wrappers count it: "/neg" at a negative
+    origin, "/framed" at a positive one or with context columns."""
+    if x_offset < 0:
+        return "/neg"
+    return "/framed" if x_offset or ctx else ""
+
+
+def _banded_paths(dev, rows, name, cost, cost_plain, cfg, image=None,
+                  rect=None):
+    """K2 on a patch's costs against plain SGM on the same (``rect``: a
+    tile's in-frame rectangle, the plain version's valid mask); returns
+    (the patch's S, its plain S). The plain version is timed once, after
+    the run that was compared (it takes seconds on a full-size patch)."""
     plain = cfg.replace(backend="torch")
-    s = held(name, lambda: sgm_paths(cost, cfg))
-    s_plain = synced(lambda: sgm_aggregate(cost_plain, plain))
+    img = image if cfg.adaptive_p2 else None
+    mask = None if rect is None else rect_mask(rect, cost.shape[:2],
+                                               cost.device)
+
+    def plain_fn():
+        return sgm_aggregate(cost_plain, plain, image=img, valid=mask)
+
+    s = held(name, lambda: sgm_paths(cost, cfg, image=img, rect=rect))
+    s_plain = synced(plain_fn)
     err = require_equal(name, s, s_plain)
     if name not in rows:
         scratch = torch.empty_like(s)
+        img32 = None if img is None else img.to(torch.int32)
         print(f"{name} per direction (dy,dx) ms: " + json.dumps(
-            per_direction_ms(dev, cost, scratch, None, cfg)))
-        del scratch
+            per_direction_ms(dev, cost, scratch, None if img32 is None else
+                             img32.data_ptr(), cfg, rect)))
+        del scratch, img32
         rows[name] = dict(
             max_abs_err=err,
-            ms=cuda_ms(lambda: sgm_paths(cost, cfg), reps=3),
-            plain_ms=cuda_ms(lambda: sgm_aggregate(cost_plain, plain),
-                             reps=1, warmup=0),
+            ms=cuda_ms(lambda: sgm_paths(cost, cfg, image=img, rect=rect),
+                       reps=3),
+            plain_ms=cuda_ms(plain_fn, reps=1, warmup=0),
             **paths_bound(cost, cfg))
     return s, s_plain
+
+
+def _tile_info(name: str) -> None:
+    """Register a tiled row in KERNEL_INFO by its kernel."""
+    k3 = _EMIT_QR if name.endswith("/qr") else _V_FUSED
+    KERNEL_INFO.setdefault(name, {
+        "census_transform": ("transform_words", _COST_CU, _CENSUS_T),
+        "census_cost": ("census_cost", _COST_CU, _COST_X),
+        "sad_cost": ("sad_cost", _SAD_CU,
+                     "stereo_tpu/ops/pallas/cost_kernel.py:584"),
+        "sgm_paths": ("sgm_paths", _PATHS_CU, _H_PATHS),
+        "sgm_select": ("sgm_select", _SELECT_CU, k3),
+        "median3x3": ("median3x3", _MEDIAN_CU, _MEDIAN),
+    }[name.split("/")[0]])
+
+
+def tiled_rows(dev, left, right, cfg, grid, lr_stitch, forms) -> dict:
+    """Every kernel form ``build_halo_pipeline`` launches on the local
+    ``grid`` for this frame, held on each tile at the tile's whole shape
+    against the plain version on the same tile (the tile's images are the
+    frame at its extended positions, clamped into the frame, as the tile
+    body gathers them). ``forms`` gets one frame's launches by row. Rows
+    are named ``<kernel>/tiles/<H>x<W>`` plus the form's framing: "/neg" or
+    "/framed" (origin), "/rect" (K2's rectangle form), "/qr", "/d0",
+    "/int" (K3's forms)."""
+    h, w = left.shape
+    ty, tx = grid
+    bh, bw = padded_extent(h, ty) // ty, padded_extent(w, tx) // tx
+    halo_y, x_lo, x_hi = _halo_widths(cfg, TileConfig(mesh_shape=grid))
+    d, md = cfg.num_disparities, int(cfg.min_disparity)
+    stitch = (tx > 1 and stitch_supported(cfg, bw, halo_y)
+              if lr_stitch is None else lr_stitch)
+    ctx = d - 1 + md if stitch else 0
+    if stitch:
+        x_lo = x_hi = halo_y
+    eh, ew = bh + 2 * halo_y, bw + x_lo + x_hi
+    plain = cfg.replace(backend="torch")
+    rows: dict = {}
+    global _TALLY
+    forms.clear()
+    _TALLY = forms
+    try:
+        for iy in range(ty):
+            for ix in range(tx):
+                y0, x0 = iy * bh - halo_y, ix * bw - x_lo
+                ys = (y0 + torch.arange(eh, device=dev)).clamp(0, h - 1)
+                xs = (x0 - ctx + torch.arange(ew + ctx, device=dev)
+                      ).clamp(0, w - 1)
+                tl, tr = left[ys][:, xs[ctx:]], right[ys][:, xs]
+                box = frame_rect((eh, ew), x0, y0, w, h)
+                if cfg.lr_check and cfg.lr_exact:
+                    disp = _tile_exact(dev, rows, tl, tr, cfg, x0, w, box)
+                else:
+                    disp = _tile_view(dev, rows, tl, tr, cfg, x0, w, ctx,
+                                      box, own=(halo_y, halo_y + bw)
+                                      if stitch else None)
+                if cfg.median_filter:
+                    # K4 on the crop with its 1-px halo: (bh + 2) x (bw + 2)
+                    crop = disp[halo_y - 1:halo_y + bh + 1,
+                                x_lo - 1:x_lo + bw + 1].contiguous()
+                    name = f"median3x3/tiles/{bh + 2}x{bw + 2}"
+                    _tile_info(name)
+                    med = held(name, lambda: median3x3(crop))
+                    err = require_equal(name, med, median_3x3(crop))
+                    _first_row(rows, name, lambda: dict(
+                        max_abs_err=err,
+                        ms=cuda_ms(lambda: median3x3(crop), reps=10),
+                        device_ms=kernel_device_ms(lambda: median3x3(crop),
+                                                   "median3x3_kernel"),
+                        plain_ms=cuda_ms(lambda: median_3x3(crop), reps=3),
+                        **median_bound(*crop.shape)))
+                torch.cuda.empty_cache()
+    finally:
+        _TALLY = None
+    return rows
+
+
+def _tile_cost(dev, rows, ref, tgt, cfg, x0, ctx):
+    """K1 (both stages) or K5 on one tile's view at origin ``x0``; returns
+    (volume, plain volume)."""
+    shape = f"{ref.shape[0]}x{ref.shape[1]}"
+    if cfg.cost_fn == "sad":
+        name = f"sad_cost/tiles/{shape}" + _origin_suffix(x0, ctx)
+        _tile_info(name)
+        return _banded_sad(rows, f"sad_cost/tiles/{shape}", ref, tgt, cfg,
+                           x0)
+    for img in (ref, tgt):
+        _tile_info(f"census_transform/tiles/{ref.shape[0]}x{img.shape[1]}")
+    _tile_info(f"census_cost/tiles/{shape}" + _origin_suffix(x0, ctx))
+    return _banded_census(rows, "tiles", shape, ref, tgt, cfg, x0, ctx)
+
+
+def _tile_sum(dev, rows, cost, cost_plain, cfg, image, box):
+    """K2 on a tile's costs, in the rectangle form unless ``box`` is the
+    whole tile (or None: the exact LR check's flipped pass)."""
+    h, w = cost.shape[:2]
+    if box == (0, h, 0, w):
+        box = None
+    name = f"sgm_paths/tiles/{h}x{w}" + ("/rect" if box else "") + (
+        "/adaptive" if cfg.adaptive_p2 else "")
+    _tile_info(name)
+    return _banded_paths(dev, rows, name, cost, cost_plain, cfg, image, box)
+
+
+def _tile_select(rows, name, s, s_plain, cfg, **kw):
+    """K3 on a tile's S against the plain selection; returns (outputs,
+    plain outputs)."""
+    _tile_info(name)
+    plain = cfg.replace(backend="torch")
+    got = held(name, lambda: sgm_select(s, cfg, **kw))
+    want = synced(lambda: select_disparity(s_plain, plain, **kw))
+    err = max(require_equal(f"{name} output {i}", g, w_)
+              for i, (g, w_) in enumerate(zip(got, want)))
+    h, w, d = s.shape
+    spill = spill_width(d, int(cfg.min_disparity)) if kw.get("emit_qr") else 0
+    _first_row(rows, name, lambda: dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: sgm_select(s, cfg, **kw), reps=5),
+        plain_ms=cuda_ms(lambda: select_disparity(s_plain, plain, **kw),
+                         reps=2),
+        **select_bound(h, w, d, emit_d0=kw.get("emit_d0", False),
+                       spill=spill)))
+    return got, want
+
+
+def _tile_view(dev, rows, tl, tr, cfg, x0, iw, ctx, box, own):
+    """One tile through K1/K5, K2 and K3 (framed, or emit_qr with ``own``
+    on a stitched tile); returns the tile's disparity."""
+    cost, cost_plain = _tile_cost(dev, rows, tl, tr, cfg, x0, ctx)
+    if cfg.num_paths == 0:
+        s, s_plain = cost, cost_plain
+    else:
+        s, s_plain = _tile_sum(dev, rows, cost, cost_plain, cfg, tl, box)
+    del cost, cost_plain
+    h, w = tl.shape
+    kw = dict(x_offset=x0, image_width=iw)
+    if own is not None:
+        kw.update(emit_qr=True, own=own)
+    name = f"sgm_select/tiles/{h}x{w}" + (
+        "/neg" if x0 < 0 else "/framed") + ("/qr" if own else "")
+    got, _ = _tile_select(rows, name, s, s_plain, cfg, **kw)
+    return got[0]
+
+
+def _tile_exact(dev, rows, tl, tr, cfg, x0, iw, box):
+    """One tile of the exact LR check: the left view (K1 at ``x0``, K2 in
+    the rectangle form, K3's emit_d0 form) and the flipped pair (K1 at the
+    flipped origin, K2's whole form, K3's integer form); returns the left
+    view's disparity."""
+    h, w = tl.shape
+    cost, cost_plain = _tile_cost(dev, rows, tl, tr, cfg, x0, 0)
+    s, s_plain = _tile_sum(dev, rows, cost, cost_plain, cfg, tl, box)
+    del cost, cost_plain
+    got, _ = _tile_select(rows, f"sgm_select/tiles/{h}x{w}/d0", s, s_plain,
+                          cfg.replace(lr_check=False), emit_d0=True,
+                          x_offset=x0)
+    del s, s_plain
+    xf = iw - x0 - w
+    fl, fr = tr.flip(1).contiguous(), tl.flip(1).contiguous()
+    cost, cost_plain = _tile_cost(dev, rows, fl, fr, cfg, xf, 0)
+    s, s_plain = _tile_sum(dev, rows, cost, cost_plain, cfg, fl, None)
+    _tile_select(rows, f"sgm_select/tiles/{h}x{w}/int", s, s_plain,
+                 cfg.replace(lr_check=False, subpixel=False,
+                             uniqueness_ratio=0.0), x_offset=xf)
+    return got[0]
 
 
 def peak_rows(dev) -> dict:
@@ -1141,6 +1408,16 @@ def phase_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     # tsukuba_sad16 in two column patches: K5 and K3 with a column origin.
     rows.update(banded_rows(dev, tl, tr, SAD, SAD_SPLIT, tag="bands"))
+    # The halo-tiled pipeline: every tile of each tiled path's grid, with
+    # one frame's launches tallied into the slice's forms.
+    for sl in TILED_SLICES:
+        _, cfg, runner = load_slice(sl)
+        gl, gr = to_dev(sl.pair(0), dev)
+        rows.update(tiled_rows(dev, gl, gr, cfg, runner.grid,
+                               runner.lr_stitch, sl.forms))
+        print(f"{sl.fixture}: launches per frame {sl.forms}")
+        del gl, gr
+        torch.cuda.empty_cache()
     rows.update(peak_rows(dev))
 
     for name, r in rows.items():
@@ -1152,10 +1429,12 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
-def run_slice(dev, sl: Slice, frame0: Dict[str, tuple]) -> Dict[str, int]:
+def run_slice(dev, sl: Slice, frame0: Dict[str, tuple],
+              device_ms_of: Dict[str, float]) -> Dict[str, int]:
     """The slice's requests through the entry points a user calls; returns
-    the launches of that run alone, by kernel form, as counted. ``frame0``
-    keeps frame 0's (disp, valid) of the slices that a later one names in
+    the launches of that run alone, by kernel form, as counted, and notes
+    the median device ms per frame in ``device_ms_of``. ``frame0`` keeps
+    frame 0's (disp, valid) of the slices that a later one names in
     ``differs_from``."""
     fx, cfg, model = load_slice(sl)
     pairs = {seed: sl.pair(seed) for seed in set(sl.seeds)}
@@ -1212,6 +1491,7 @@ def run_slice(dev, sl: Slice, frame0: Dict[str, tuple]) -> Dict[str, int]:
     if counts != want_counts:
         raise AssertionError(
             f"{sl.fixture}: launch counts {counts} != {want_counts}")
+    device_ms_of[sl.fixture] = statistics.median(device_ms)
     print(f"slice {sl.fixture} ({model.name}): {len(sl.seeds)} frames, "
           f"median device {statistics.median(device_ms):.3f} ms, median end "
           f"to end {statistics.median(e2e_ms):.3f} ms; frame 0 matches the "
@@ -1288,18 +1568,30 @@ def phase_anchor(dev):
     return peak, counts
 
 
+#: The full-size config-4 tile grids (``--write-fixtures``): fixture
+#: suffix -> the grid's ``tiles`` entry.
+TILED_FULL = {"_tiles_2x2_legacy": dict(mesh_shape=[2, 2], lr_stitch=False),
+              "_tiles_1x2": dict(mesh_shape=[1, 2], lr_stitch=None)}
+
+
 def write_fixtures(dev, out_dir: Path) -> None:
-    """Make the full-size config-4 fixtures on the card: each split through
-    the plain torch path and through the kernels, which must agree."""
+    """Make the full-size config-4 fixtures on the card: each split of the
+    banded runner and each tile grid of the halo-tiled pipeline through the
+    plain torch path and through the kernels, which must agree."""
     out_dir.mkdir(parents=True, exist_ok=True)
     shape = (1988, 2880)
     pair = cfg4_pair(shape)(0)
-    for tag, (split, _, _) in CFG4_SPLITS.items():
+    runs = [(tag, "bands", split,
+             lambda cfg, split=split: BandedRunner(cfg, shape, split))
+            for tag, (split, _, _) in CFG4_SPLITS.items()]
+    runs += [(tag, "tiles", tiles, lambda cfg, tiles=tiles: TiledRunner(
+        cfg, tuple(tiles["mesh_shape"]), tiles["lr_stitch"]))
+        for tag, tiles in TILED_FULL.items()]
+    for tag, key, split, runner in runs:
         results = {}
         for backend in ("torch", "auto"):
             t0 = time.perf_counter()
-            fn = build_banded_pipeline(CFG4.replace(backend=backend), shape,
-                                       device=dev, **split)
+            fn = runner(CFG4.replace(backend=backend)).build(dev)
             res = fn(pair.left, pair.right)
             torch.cuda.synchronize()
             results[backend] = (res.disp.cpu(), res.valid.cpu())
@@ -1314,15 +1606,18 @@ def write_fixtures(dev, out_dir: Path) -> None:
             raise AssertionError(f"{tag}: kernels differ from the plain path")
         pdisp, pvalid = host_postprocess(disp, valid, CFG4)
         m = evaluate_disparity(pdisp, pair.gt_disp, pair.gt_valid, pvalid)
+        source = ("build_banded_pipeline(cfg(backend='torch'), shape, "
+                  "**bands)" if key == "bands" else
+                  "build_halo_pipeline(cfg(backend='torch'), "
+                  "make_tile_mesh(devices, mesh_shape), lr_stitch)")
         record = dict(
-            source="stereo_tpu_torch build_banded_pipeline(cfg(backend="
-                   "'torch'), shape, **bands) + host_postprocess + "
+            source=f"stereo_tpu_torch {source} + host_postprocess + "
                    "evaluate_disparity",
             made_by="the port's plain torch path on "
                     f"{torch.cuda.get_device_name(0)} (chip_smoke.py "
                     "--write-fixtures), equal to its kernel path; the "
                     "quarter-size fixtures tie that path to the reference",
-            preset="middlebury_full_256_tiled", bands=split,
+            preset="middlebury_full_256_tiled", **{key: split},
             pair="make_pair((1988, 2880), max_disp=200, kind='shapes', "
                  "texture='cloud', seed=0)",
             hash="sha256(array.tobytes()).hexdigest()[:16]",
@@ -1352,10 +1647,16 @@ def main(argv=None) -> int:
     # From here on every launch is one a wrapper counted on a main path.
     launches = dict.fromkeys(KERNEL_INFO, 0)
     frame0: Dict[str, tuple] = {}
-    for counts in (*(run_slice(dev, sl, frame0) for sl in SLICES),
-                   phase_hard_suite(dev)):
+    device_ms_of: Dict[str, float] = {}
+    for counts in (*(run_slice(dev, sl, frame0, device_ms_of)
+                     for sl in SLICES), phase_hard_suite(dev)):
         for form, n in counts.items():
             launches[form] += n
+    print("tiled vs whole, median device ms per frame: " + json.dumps({
+        sl.fixture: {"tiled": device_ms_of[sl.fixture],
+                     "whole": device_ms_of[sl.differs_from],
+                     "whole_path": sl.differs_from}
+        for sl in TILED_SLICES}))
     peak, anchor_counts = phase_anchor(dev)
     for form, n in anchor_counts.items():
         launches[form] += n

@@ -2,6 +2,7 @@
 
     python3 profile_paths.py [--frames 6] [SLICE ...]
     python3 profile_paths.py --forms
+    python3 profile_paths.py --k2
 
 For each named slice of ``chip_smoke.SLICES`` (all by default; config and
 model come from the slice's fixture file, as there) the model serves a few
@@ -19,11 +20,20 @@ through its wrapper, at the shapes the paths give them (and K5 at
 JSON line per form with the kernel's device time per launch and any other
 device time the call spends (plain torch launches around the kernel;
 ``eval.roofline.profiled_ms``).
+
+``--k2`` profiles K2 alone the same way, eight directions per call on
+random costs: its whole-frame form at KITTI size (fixed and adaptive P2,
+375x1242x128) and at config 4's (1988x2880x256), and, where the checkout's
+``sgm_paths`` takes a rectangle, its rectangle form at the same shapes
+(a tile's in-frame rectangle, 20 rows and 276 columns in from each edge).
+It also runs against an older checkout (copy it there), whose K2 has the
+whole-frame form only: the two checkouts' whole forms compare in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 import time
@@ -41,6 +51,8 @@ from chip_smoke import (
     to_dev,
     tsukuba_pair,
 )
+from stereo_tpu_torch import KITTI_SGM8_128, KITTI_SGM8_128_QUALITY
+from stereo_tpu_torch.config import MIDDLEBURY_FULL_256_TILED
 from stereo_tpu_torch.data import kitti_like_pair, make_pair
 from stereo_tpu_torch.eval.hard_suite import SCENARIOS
 from stereo_tpu_torch.eval.roofline import profiled_ms
@@ -182,6 +194,40 @@ def kernel_forms(dev: torch.device, reps: int = 50) -> list:
     return rows
 
 
+def k2_forms(dev: torch.device, reps: int = 10) -> list:
+    """K2's whole-frame form, and its rectangle form where this checkout
+    has one, at KITTI and config-4 sizes: device ms per call of eight
+    directions (``profiled_ms``, per launch times 8)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rect = "rect" in inspect.signature(sgm_paths).parameters
+    rows = []
+    for name, cfg, shape in (
+            ("kitti 375x1242x128", KITTI_SGM8_128, (375, 1242, 128)),
+            ("kitti adaptive 375x1242x128", KITTI_SGM8_128_QUALITY,
+             (375, 1242, 128)),
+            ("config 4 1988x2880x256", MIDDLEBURY_FULL_256_TILED,
+             (1988, 2880, 256))):
+        h, w, _ = shape
+        cost = torch.randint(0, 64, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+        image = torch.randint(0, 256, (h, w), generator=gen, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        forms = {"whole": {}}
+        if rect:
+            forms["rect"] = {"rect": (20, h - 20, 276, w - 276)}
+        for form, kw in forms.items():
+            got = profiled_ms(lambda: sgm_paths(cost, cfg, image=image, **kw),
+                              "sgm_path_kernel", reps=reps)
+            if got is None:
+                raise RuntimeError(f"{name}: the profiler recorded no K2 "
+                                   f"launch")
+            rows.append({"form": f"sgm_paths {form} {name}", "calls": reps,
+                         "kernel_device_ms_per_call": got[0] * 8,
+                         "other_device_ms": got[1]})
+        del cost, image
+    return rows
+
+
 def main(argv=None) -> int:
     by_name = {sl.fixture: sl for sl in SLICES}
     ap = argparse.ArgumentParser(prog="profile_paths.py")
@@ -190,11 +236,13 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--forms", action="store_true",
                     help="profile K5 and K4 alone instead of the slices")
+    ap.add_argument("--k2", action="store_true",
+                    help="profile K2's forms alone instead of the slices")
     args = ap.parse_args(argv)
     phase_device()
     dev = torch.device("cuda", 0)
-    if args.forms:
-        for row in kernel_forms(dev):
+    if args.forms or args.k2:
+        for row in (kernel_forms if args.forms else k2_forms)(dev):
             print(json.dumps(row))
         return 0
     for name in args.slices:

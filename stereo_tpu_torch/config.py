@@ -139,9 +139,11 @@ def from_reference(d: dict) -> StereoConfig:
 @dataclasses.dataclass(frozen=True)
 class TileConfig:
     """Spatial tiling, field for field the reference's. The banded runner
-    (``parallel/bands.py``) takes its default halo from ``resolved_halo``;
-    ``mesh_shape`` and ``batch_axis`` describe the distributed pipeline,
-    which is not ported yet, and are kept so configs carry across."""
+    (``parallel/bands.py``) and the halo-tiled pipeline
+    (``parallel/tiling.py``) take their default halo from
+    ``resolved_halo``; ``mesh_shape`` is the tile grid (ty, tx) the tiled
+    pipeline defaults to; ``batch_axis`` describes the reference's stream,
+    which is not ported yet, and is kept so configs carry across."""
 
     mesh_shape: Tuple[int, int] = (1, 1)
     halo: Optional[int] = None

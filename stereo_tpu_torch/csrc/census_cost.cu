@@ -35,7 +35,12 @@
 // xr = x + ctx - md - d indexes that plane (clamped at 0), and the fill
 // with max_unary_cost tests the GLOBAL column x_off + x - md - d < 0, x_off
 // being the block's origin in the frame. The reference trims the context it
-// does not need before its kernel; here the kernel simply indexes.
+// does not need before its kernel; here the kernel simply indexes. A tile of
+// the halo-tiled pipeline on the frame's left edge has a negative origin
+// (the reference's traced `x_offset = ix * bw - halo`, cost_kernel.py:107):
+// the same test then fills every lane of its leading columns up to the
+// frame's edge. The cost stage has no interior/edge split: each voxel
+// tests its own lane against lim = x_off + x - md, at any sign of x_off.
 //
 // Bound on the H100: the int8 write, 59.6 MB at 375x1242x128 (about 18 us at
 // the 3.35 TB/s published for an H100 SXM at 700 W); the descriptor reads
@@ -315,13 +320,13 @@ extern "C" int stpu_census_transform(const void* img, void* out, int h, int w,
 // cl: [H, W, words], cr: [H, W + ctx, words] 32-bit descriptors; combine 0:
 // census words (1 or 2), Hamming; combine 1: one int32 rank per pixel,
 // absolute difference. ctx: right-context columns; x_off: the block's
-// global column origin (both 0 for a whole frame).
+// global column origin, of any sign (both 0 for a whole frame).
 extern "C" int stpu_census_cost(const void* cl, const void* cr, void* out,
                                 int h, int w, int d, int words, int combine,
                                 int md, int maxc, int ctx, int x_off,
                                 void* stream) {
   if (h <= 0 || h > 65535 || w <= 0 || d <= 0 || d > 256 || md < 0 ||
-      ctx < 0 || x_off < 0 ||
+      ctx < 0 ||
       maxc < 0 || maxc > 127 || (words != 1 && words != 2) ||
       (combine != kHamming && combine != kAbsDiff) ||
       (combine == kAbsDiff && words != 1)) {

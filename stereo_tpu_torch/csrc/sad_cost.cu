@@ -9,7 +9,9 @@
 //
 // and max_unary_cost where the global column x_off + x - md - d < 0 (x_off:
 // the block's origin in a larger frame, 0 for a whole frame; the legacy
-// banded runner's patches), into an int16 [H, W, D] volume
+// banded runner's patches, and the halo-tiled pipeline's tiles, whose
+// origin is negative on the frame's left edge, cost_kernel.py:704), into an
+// int16 [H, W, D] volume
 // (stereo_tpu/ops/cost.py:98-125). R is [H, W + ctx]: its first ctx
 // columns are the frame-true columns before the block (a column patch's
 // right context). The TPU kernel takes none (cost_kernel.py:680-683), and
@@ -279,7 +281,9 @@ sad_cost_kernel(const void* __restrict__ left, const void* __restrict__ right,
   }
   __syncthreads();
   // Interior: the window columns stay in the frame, and the block's
-  // lowest global column less its largest disparity is >= 0.
+  // lowest global column less its largest disparity is >= 0 (at a negative
+  // x_off more blocks fail this and take the edge walk; an interior block
+  // then also has x - md - d >= -x_off > 0, so no R sample clamps).
   if (x0 - RX < 0 || x0 + kTile + RX > w ||
       x_off + x0 - md - (d0 + DC - 1) < 0) {
     walk<Acc, RX, DC, true>(ls, rs, out, w, D, md, 2 * ry + 1, x0, y0, d0,
@@ -368,7 +372,7 @@ extern "C" int stpu_sad_cost(const void* left, const void* right, void* out,
                              int maxc, int ctx, int x_off, int image_type,
                              unsigned magic, int shift, float inv, float bias,
                              void* stream) {
-  if (h <= 0 || w <= 0 || d <= 0 || d > 256 || md < 0 || x_off < 0 ||
+  if (h <= 0 || w <= 0 || d <= 0 || d > 256 || md < 0 ||
       ctx < 0 || wy <= 0 || wx <= 0 || wy % 2 == 0 || wx % 2 == 0 ||
       wy / 2 > kMaxRadius || wx / 2 > kMaxRadius || shift < 31 ||
       shift > 63 || image_type < kU8 || image_type > kI32) {

@@ -10,6 +10,20 @@
 // with L = C at each scanline's first pixel (stereo_tpu/ops/sgm.py:76-83)
 // and stores S = L (first direction) or S += L (later directions).
 //
+// Rectangle form (RECT; replaces the Pallas kernels' `bounds` form,
+// stereo_tpu/ops/pallas/sgm_kernel.py:66-81, the halo-tiled pipeline's tile
+// of a larger frame): given the tile's in-frame rectangle [y_lo, y_hi) x
+// [x_lo, x_hi), L = C wherever a pixel's predecessor p - r lies outside it,
+// whatever the pixel's own place. That is the plain masked recurrence
+// (stereo_tpu_torch/ops/sgm.py, `valid` = the rectangle) over the WHOLE
+// tile, where the TPU kernels leave the pixels outside the rectangle
+// undefined. A scanline is a straight line and the rectangle convex, so
+// its pixels inside the rectangle are one run of steps [t_in, t_out); the
+// step t keeps its carry iff t_in < t <= t_out, else it zeroes L first
+// (L = 0 gives L = C, as at a scanline's first pixel). The test is per
+// step, not per round, and uniform over the warp; the whole-frame form
+// (RECT false) compiles without it, so its step is unchanged.
+//
 // Adaptive P2 (stereo_tpu/ops/sgm.py:55-74, the Pallas kernels' `adaptive`
 // and `cp_mode` forms): given the reference image, each step replaces P2
 // with max(p2_min, P2 / g) where g = |I(p) - I(p-r)| - grad_floor > 0 (P2
@@ -211,15 +225,39 @@ __device__ __forceinline__ void store_sum(int16_t* p, const int (&s)[N],
   }
 }
 
+// The steps [a, b) of a scanline that starts at coordinate p, moves by
+// step (-1, 0 or 1) and has n pixels, at which the coordinate lies in
+// [lo, hi).
+__device__ __forceinline__ void axis_run(int p, int step, int lo, int hi,
+                                         int n, int& a, int& b) {
+  if (step == 0) {
+    a = 0;
+    b = p >= lo && p < hi ? n : 0;
+  } else if (step > 0) {
+    a = lo - p;
+    b = hi - p;
+  } else {
+    a = p - hi + 1;
+    b = p - lo + 1;
+  }
+}
+
+// The rectangle's bounds (the RECT form's only arguments).
+struct Rect {
+  int y_lo, y_hi, x_lo, x_hi;
+};
+
 // DPL = disparities per lane, ceil(D / 32); PARTIAL: D = d < 32 * DPL
-// (registers past D are dead); ADAPTIVE: P2 from the image; CostT: int8
-// (census, rank) or int16 (SAD) costs.
-template <int DPL, bool PARTIAL, bool ADAPTIVE, typename CostT>
+// (registers past D are dead); ADAPTIVE: P2 from the image; RECT: paths
+// start fresh at the edges of `rect`; CostT: int8 (census, rank) or int16
+// (SAD) costs.
+template <int DPL, bool PARTIAL, bool ADAPTIVE, bool RECT, typename CostT>
 __global__ void __launch_bounds__(32)
     sgm_path_kernel(const CostT* __restrict__ cost,
                     const int* __restrict__ image, int16_t* __restrict__ sum,
                     int h, int w, int d, int step_y, int step_x, int p1,
-                    int p2, int p2_min, int grad_floor, int accumulate) {
+                    int p2, int p2_min, int grad_floor, int accumulate,
+                    Rect rect) {
   constexpr int kCB = (int)sizeof(CostT);
   constexpr int kStages = ring_stages(DPL);
   constexpr int kRound = round_pixels(DPL);
@@ -256,6 +294,16 @@ __global__ void __launch_bounds__(32)
   const ptrdiff_t pix0 = (ptrdiff_t)y * w + x;
   const ptrdiff_t off0 = pix0 * D;
   const int live = D - lane * DPL;  // this lane's registers below D
+  // RECT: the steps whose pixel lies in the rectangle, [t_in, t_out); step
+  // t keeps its carry iff its predecessor t - 1 does: t_in < t <= t_out.
+  int t_in = 0, t_out = n;
+  if (RECT) {
+    int ay, by, ax, bx;
+    axis_run(y, step_y, rect.y_lo, rect.y_hi, n, ay, by);
+    axis_run(x, step_x, rect.x_lo, rect.x_hi, n, ax, bx);
+    t_in = max(max(ay, ax), 0);
+    t_out = min(min(by, bx), n);
+  }
 
   // Start pixel t's copies (pixel pix, its voxels at off) into its slot,
   // as one commit group (an empty one past the scanline's end).
@@ -330,6 +378,10 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
     for (int g = 0; g < kRound; ++g) {
       if (t0 + g >= n) break;  // uniform over the warp
+      if (RECT && !(t0 + g > t_in && t0 + g <= t_out)) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) L[j] = 0;  // a fresh start: L = C
+      }
       int p2e = p2;
       if (ADAPTIVE) {
         const int grad = abs(img[g] - (g > 0 ? img[g - 1] : img_prev)) -
@@ -375,8 +427,8 @@ __global__ void __launch_bounds__(32)
 template <int DPL, bool PARTIAL, typename CostT>
 cudaError_t launch(const void* cost, const int* image, int16_t* sum, int h,
                    int w, int d, int step_y, int step_x, int p1, int p2,
-                   int p2_min, int grad_floor, int accumulate,
-                   cudaStream_t s) {
+                   int p2_min, int grad_floor, int accumulate, bool rect,
+                   const Rect& r, cudaStream_t s) {
   int n_lines;
   if (step_y == 0) {
     n_lines = h;
@@ -387,16 +439,19 @@ cudaError_t launch(const void* cost, const int* image, int16_t* sum, int h,
   }
   const auto* c = static_cast<const CostT*>(cost);
   constexpr int smem = block_smem(DPL, (int)sizeof(CostT));
-  auto* kernel = image != nullptr
-                     ? sgm_path_kernel<DPL, PARTIAL, true, CostT>
-                     : sgm_path_kernel<DPL, PARTIAL, false, CostT>;
+  auto* kernel =
+      image != nullptr
+          ? (rect ? sgm_path_kernel<DPL, PARTIAL, true, true, CostT>
+                  : sgm_path_kernel<DPL, PARTIAL, true, false, CostT>)
+          : (rect ? sgm_path_kernel<DPL, PARTIAL, false, true, CostT>
+                  : sgm_path_kernel<DPL, PARTIAL, false, false, CostT>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   kernel<<<n_lines, 32, smem, s>>>(c, image, sum, h, w, d, step_y, step_x, p1,
-                                  p2, p2_min, grad_floor, accumulate);
+                                  p2, p2_min, grad_floor, accumulate, r);
   return cudaGetLastError();
 }
 
@@ -414,18 +469,23 @@ extern "C" int stpu_sgm_path_smem(int d, int cost_bytes) {
 
 // cost: [H, W, D] int8 (cost_bytes 1) or int16 (cost_bytes 2); image: [H, W]
 // int32 reference view for adaptive P2, or NULL for fixed P2. cost and sum
-// are 16-byte aligned.
+// are 16-byte aligned. rect != 0 selects the rectangle form with the
+// in-frame rectangle [y_lo, y_hi) x [x_lo, x_hi) of the block (0 <= y_lo <=
+// y_hi <= h, 0 <= x_lo <= x_hi <= w).
 extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
                              const void* image, void* sum, int h, int w,
                              int d, int step_y, int step_x, int p1, int p2,
                              int p2_min, int grad_floor, int accumulate,
+                             int rect, int y_lo, int y_hi, int x_lo, int x_hi,
                              void* stream) {
   if (h <= 0 || w <= 0 || d <= 0 || d > 256 || step_y < -1 || step_y > 1 ||
       step_x < -1 || step_x > 1 || (step_y == 0 && step_x == 0) ||
       (cost_bytes != 1 && cost_bytes != 2) || p1 < 0 || p2 < 0 ||
-      p2_min < 0) {
+      p2_min < 0 || y_lo < 0 || y_lo > y_hi || y_hi > h || x_lo < 0 ||
+      x_lo > x_hi || x_hi > w) {
     return (int)cudaErrorInvalidValue;
   }
+  const Rect r{y_lo, y_hi, x_lo, x_hi};
   if (((reinterpret_cast<uintptr_t>(cost) | reinterpret_cast<uintptr_t>(sum)) &
        15) != 0 ||
       (reinterpret_cast<uintptr_t>(image) & 3) != 0) {
@@ -437,7 +497,7 @@ extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
 #define STPU_PATH_AS(DPL, PARTIAL, T)                                       \
   return (int)launch<DPL, PARTIAL, T>(cost, im, s, h, w, d, step_y, step_x, \
                                       p1, p2, p2_min, grad_floor,           \
-                                      accumulate, st)
+                                      accumulate, rect != 0, r, st)
 #define STPU_PATH(DPL)                                                      \
   if (d == 32 * DPL) {                                                      \
     if (cost_bytes == 1) {                                                  \

@@ -29,6 +29,13 @@
 // every right column it is clamped to. (The TPU kernel wraps mod W there
 // instead; callers crop those columns.)
 //
+// A tile of the halo-tiled pipeline (parallel/tiling.py) is framed the
+// same way at any origin: x0 < 0 on the frame's left edge, and x0 + W > iw
+// on its right edge (the tile's halo and padding). Sources at or past the
+// frame's edge are skipped as above, and past the edge the block's last
+// column feeds no right column. Only a block that misses the frame is
+// refused.
+//
 // The emit_qr form (the stitched runner's patches, _v_fused_kernel
 // :1082-1112, :1181-1223) leaves the LR check open: only source columns in
 // the owned range [own_lo, own_hi) feed the right view, which is extended
@@ -465,8 +472,8 @@ extern "C" int stpu_sgm_select_fits(int w, int sp) {
 }
 
 // d0: [H, W] int32 winner lanes, or NULL when not wanted. x0, iw: the
-// block's global column origin and the frame's width (0 and w for a whole
-// frame). qr != NULL selects the emit_qr form: valid then holds the
+// block's global column origin, of any sign, and the frame's width (0 and w
+// for a whole frame); the block overlaps the frame. qr != NULL selects the emit_qr form: valid then holds the
 // uniqueness gate alone, and lr_bit [H, W] bytes, qr [H, W] and spill
 // [H, sp] floats are written from the source columns [own_lo, own_hi); it
 // needs d0 and lr_check.
@@ -480,7 +487,7 @@ extern "C" int stpu_sgm_select(const void* sum, void* disp, void* valid,
   // md < 0 only without the cheap LR check, whose right-view columns
   // x - md - d would leave the row's shared-memory keys.
   if (h <= 0 || w <= 0 || d <= 0 || d > 256 || (md < 0 && lr_check) ||
-      x0 < 0 || iw < x0 + w) {
+      x0 >= iw || x0 + w <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (qr != nullptr &&

@@ -12,7 +12,12 @@ replaces ``_sad_kernel`` (through ``sad_cost_volume_pallas``).
 
 For a block of a larger frame the wrappers take the block's global column
 origin ``x_offset`` and ``right_context`` frame-true columns that precede
-the block in the right descriptors or image (``ops.cost``).
+the block in the right descriptors or image (``ops.cost``). The origin is
+negative for a tile on the frame's left edge (``parallel/tiling.py``, the
+reference's traced tile origin ``ix * bw - halo``): the voxels whose global
+column ``x_offset + x - md - d`` is below 0 take ``max_unary_cost``, as at
+any origin. Each wrapper counts a launch under the sign of the origin
+(``origin_sign``), so a tile at a negative origin is a form of its own.
 """
 
 from __future__ import annotations
@@ -87,14 +92,20 @@ def _plain_words(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int64) & 0xFFFFFFFF
 
 
+def origin_sign(x_offset: int) -> int:
+    """-1, 0 or 1: the sign of a block's origin, as a launch form counts
+    it (0 and 1 compare equal to False and True)."""
+    return (x_offset > 0) - (x_offset < 0)
+
+
 def _check_framing(what: str, left: torch.Tensor, right: torch.Tensor,
                    x_offset: int, right_context: int) -> None:
     """Raise unless ``right`` is ``left``'s shape with ``right_context``
-    extra leading columns, and both origins are non-negative ints.
-    ``what`` names the two inputs in the message."""
-    if x_offset < 0 or right_context < 0:
-        raise ValueError(f"x_offset {x_offset} and right_context "
-                         f"{right_context} must be >= 0")
+    extra leading columns, ``right_context`` >= 0 and ``x_offset`` an int
+    (of any sign). ``what`` names the two inputs in the message."""
+    if not isinstance(x_offset, int) or right_context < 0:
+        raise ValueError(f"x_offset {x_offset} must be an int and "
+                         f"right_context {right_context} >= 0")
     want = (left.shape[0], left.shape[1] + right_context, *left.shape[2:])
     if tuple(right.shape) != want:
         raise ValueError(
@@ -147,7 +158,7 @@ def census_cost(cl: torch.Tensor, cr: torch.Tensor, cfg: StereoConfig,
     out = _launch_descriptor_cost(cl, cr, words, _HAMMING, cfg, x_offset,
                                   right_context)
     count_launch(census_cost, *out.shape, words,
-                 bool(x_offset or right_context))
+                 origin_sign(x_offset) or bool(right_context))
     return out
 
 
@@ -174,7 +185,8 @@ def rank_cost(rl: torch.Tensor, rr: torch.Tensor, cfg: StereoConfig,
             rl, rr, cfg, x_offset, right_context).to(cfg.cost_volume_dtype)
     out = _launch_descriptor_cost(rl, rr, 1, _ABS_DIFF, cfg, x_offset,
                                   right_context)
-    count_launch(rank_cost, *out.shape, bool(x_offset or right_context))
+    count_launch(rank_cost, *out.shape,
+                 origin_sign(x_offset) or bool(right_context))
     return out
 
 
@@ -287,7 +299,7 @@ def sad_cost(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
         out.data_ptr(), h, w, d, int(cfg.min_disparity), wy, wx,
         cfg.max_unary_cost, right_context, x_offset,
         _IMAGE_TYPES[left.dtype], magic, shift, inv, bias)
-    count_launch(sad_cost, h, w, d, wy, wx, bool(x_offset),
+    count_launch(sad_cost, h, w, d, wy, wx, origin_sign(x_offset),
                  bool(right_context), str(left.dtype))
     return out
 

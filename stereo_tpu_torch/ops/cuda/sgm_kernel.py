@@ -8,7 +8,10 @@ P2; K3 replaces the selection epilogue of ``_v_fused_kernel`` (its base,
 larger frame). Together they compute what ``sgm_wta_fused_pallas`` does,
 with S materialized once in int16 between them; ``sgm_paths`` alone is the
 staged S of ``sgm_aggregate_pallas`` (the pyramid model's residual volume
-at D=16).
+at D=16). K2's rectangle form replaces the Pallas kernels' ``bounds`` form
+(``frame_bounds``, ``stereo_tpu/ops/pallas/sgm_kernel.py:66-81``): a tile
+of a larger frame, whose paths start fresh at the edges of its in-frame
+rectangle; K3 takes a tile's origin, negative on the frame's left edge.
 """
 
 from __future__ import annotations
@@ -35,13 +38,30 @@ def _check_int16_bound(cfg: StereoConfig) -> None:
         raise ValueError(f"int16 SGM sum may overflow: bound {bound}")
 
 
+def _clip_rect(rect, h: int, w: int):
+    """``rect`` clipped to the [0, h) x [0, w) block, or None where it is
+    the whole block (which is the whole-frame form)."""
+    if rect is None:
+        return None
+    y_lo, y_hi, x_lo, x_hi = (int(v) for v in rect)
+    y_lo, x_lo = min(max(y_lo, 0), h), min(max(x_lo, 0), w)
+    box = (y_lo, max(y_lo, min(y_hi, h)), x_lo, max(x_lo, min(x_hi, w)))
+    return None if box == (0, h, 0, w) else box
+
+
 def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
-              image: Optional[torch.Tensor] = None) -> torch.Tensor:
+              image: Optional[torch.Tensor] = None,
+              rect: Optional[Tuple[int, int, int, int]] = None
+              ) -> torch.Tensor:
     """[H, W, D] int16 S = sum of the cfg.num_paths (4 or 8) path costs of
     an int8 (census, rank) or int16 (SAD) cost volume, any D in [1, 256]:
     one kernel launch per direction. With ``cfg.adaptive_p2``, ``image``
     ([H, W], the reference view) is required and each step's P2 comes from
-    it. CPU tensors take the plain version (``ops.sgm.sgm_aggregate``)."""
+    it. ``rect`` = (y_lo, y_hi, x_lo, x_hi), a tile's in-frame rectangle:
+    L = C wherever a pixel's predecessor lies outside it (the rectangle
+    form; a rectangle that is the whole block is the whole-frame form). CPU
+    tensors take the plain version (``ops.sgm.sgm_aggregate`` with the
+    rectangle as its ``valid`` mask)."""
     if cfg.num_paths not in (4, 8):
         raise ValueError(f"sgm_paths needs 4 or 8 paths, got {cfg.num_paths}")
     if cfg.adaptive_p2 and image is None:
@@ -51,8 +71,13 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
     if img is not None and img.shape != cost.shape[:2]:
         raise ValueError(f"image {tuple(img.shape)} != cost "
                          f"{tuple(cost.shape[:2])}")
+    box = _clip_rect(rect, *cost.shape[:2])
     if on_cpu(*(t for t in (cost, img) if t is not None)):
-        return sgm_aggregate(cost, cfg, image=img).to(torch.int16)
+        mask = None
+        if box is not None:
+            mask = torch.zeros(cost.shape[:2], dtype=torch.bool)
+            mask[box[0]:box[1], box[2]:box[3]] = True
+        return sgm_aggregate(cost, cfg, image=img, valid=mask).to(torch.int16)
     if cost.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"cost: expected int8 or int16, got {cost.dtype}")
     require(cost, "cost", cost.dtype, 3)
@@ -64,13 +89,14 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
         img = img.to(torch.int32).contiguous()
         img_ptr = img.data_ptr()
     s = torch.empty((h, w, d), dtype=torch.int16, device=cost.device)
+    y_lo, y_hi, x_lo, x_hi = box if box is not None else (0, h, 0, w)
     for i, (step_y, step_x) in enumerate(PATH_STEPS[: cfg.num_paths]):
         run("stpu_sgm_path", cost.device, cost.data_ptr(),
             cost.element_size(), img_ptr, s.data_ptr(), h, w, d, step_y,
             step_x, cfg.p1, cfg.p2, cfg.p2_min, cfg.adaptive_grad_floor,
-            int(i > 0))
+            int(i > 0), int(box is not None), y_lo, y_hi, x_lo, x_hi)
         count_launch(sgm_paths, h, w, d, str(cost.dtype), cfg.num_paths,
-                     cfg.adaptive_p2)
+                     cfg.adaptive_p2, box is not None)
     return s
 
 
@@ -86,7 +112,9 @@ def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False,
     uniqueness, subpixel and the cheap LR check (off with ``lr_exact``),
     median excluded. ``emit_d0`` adds the integer winner lane d0 ([H, W]
     int32, md excluded), the form the exact LR check compares.
-    ``x_offset`` / ``image_width`` place the block in a larger frame.
+    ``x_offset`` / ``image_width`` place the block in a larger frame: a
+    column patch inside it, or a tile that reaches past its left edge
+    (``x_offset < 0``) or its right edge, but not one that misses it.
 
     ``emit_qr`` (a column patch whose LR check is stitched across patches;
     needs the cheap LR check and a block at least D + md wide) returns
@@ -101,7 +129,7 @@ def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False,
     md = int(cfg.min_disparity)
     if image_width is None:
         image_width = x_offset + w
-    if x_offset < 0 or image_width < x_offset + w:
+    if x_offset >= image_width or x_offset + w <= 0:
         raise ValueError(f"block [{x_offset}, {x_offset + w}) leaves the "
                          f"frame [0, {image_width})")
     cheap_lr = cfg.lr_check and not cfg.lr_exact
@@ -147,7 +175,11 @@ def sgm_select(s: torch.Tensor, cfg: StereoConfig, emit_d0: bool = False,
         int(cfg.uniqueness_ratio > 0), 1.0 + cfg.uniqueness_ratio,
         int(cheap_lr), cfg.lr_tau, x_offset, image_width, ptr(lr_bit),
         ptr(qr), ptr(spill), own_lo, own_hi, sp)
+    # framed: the block's origin and frame matter (cheap LR only); -1 for
+    # a tile at a negative origin, a form of its own.
     framed = cheap_lr and (x_offset != 0 or image_width != w)
+    if framed and x_offset < 0:
+        framed = -1
     count_launch(sgm_select, h, w, d, md, cfg.subpixel,
                  cfg.uniqueness_ratio > 0, cheap_lr, emit_d0, framed, emit_qr)
     if emit_qr:

@@ -8,7 +8,13 @@ Twin of ``stereo_tpu/ops/sgm.py``. For each path direction r,
 
 with ``L_r(p, .) = C(p, .)`` wherever the predecessor ``p - r`` is out of
 frame (a fresh start at each scanline's first pixel) and the d-1 / d+1
-neighbours edge-replicated at d = 0 and d = D-1. The diagonals are walked
+neighbours edge-replicated at d = 0 and d = D-1.
+
+With a ``valid`` mask (a tile of a larger frame, ``parallel/tiling.py``),
+``L_r(p, .) = C(p, .)`` also wherever the predecessor is invalid, whatever
+p's own validity: paths start fresh at the mask's edges, as the
+reference's (``stereo_tpu/ops/sgm.py:82``, ``:204-257``; on the diagonals
+its sheared mask marks the same diagonal predecessors). The diagonals are walked
 directly: a row step whose carry is the previous row's, shifted one column
 (the reference shears the volume instead; the predecessors are the same).
 
@@ -62,16 +68,30 @@ def _recur(l_prev: torch.Tensor, c: torch.Tensor, p1: int,
     return c + cand - m
 
 
+def _predecessor_valid(valid: torch.Tensor, dy: int, dx: int
+                      ) -> torch.Tensor:
+    """[H, W] bool: pixel p's predecessor p - (dy, dx) lies in the frame
+    and is valid."""
+    h, w = valid.shape
+    pv = torch.zeros_like(valid)
+    pv[max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = valid[
+        max(-dy, 0):h + min(-dy, 0), max(-dx, 0):w + min(-dx, 0)]
+    return pv
+
+
 def path_cost(cost: torch.Tensor, cfg: StereoConfig, step,
-              image: Optional[torch.Tensor] = None) -> torch.Tensor:
+              image: Optional[torch.Tensor] = None,
+              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[H, W, D] int32 path cost L_r for one travel step (dy, dx); P2 is
-    adaptive if ``cfg.adaptive_p2`` and ``image`` ([H, W]) is given."""
+    adaptive if ``cfg.adaptive_p2`` and ``image`` ([H, W]) is given; with
+    ``valid`` ([H, W] bool) L_r = C where the predecessor is invalid."""
     c = cost.to(torch.int32)
     h, w, _ = c.shape
     dy, dx = step
     p2 = cfg.p2
     if cfg.adaptive_p2 and image is not None:
         p2 = adaptive_p2_map(image, cfg, -dy, -dx)            # [H, W]
+    keep = None if valid is None else _predecessor_valid(valid, dy, dx)
     out = torch.empty_like(c)
     if dy == 0:
         xs = range(w) if dx > 0 else range(w - 1, -1, -1)
@@ -82,6 +102,8 @@ def path_cost(cost: torch.Tensor, cfg: StereoConfig, step,
             else:
                 p2_x = p2 if isinstance(p2, int) else p2[:, x, None]
                 prev = _recur(prev, c[:, x], cfg.p1, p2_x)
+                if keep is not None:
+                    prev = torch.where(keep[:, x, None], prev, c[:, x])
             out[:, x] = prev
         return out
     ys = range(h) if dy > 0 else range(h - 1, -1, -1)
@@ -102,13 +124,17 @@ def path_cost(cost: torch.Tensor, cfg: StereoConfig, step,
                 row[0] = c[y, 0]
             elif dx < 0:
                 row[w - 1] = c[y, w - 1]
+            if keep is not None:
+                row = torch.where(keep[y, :, None], row, c[y])
         out[y] = row
         prev = row
     return out
 
 
 def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig,
-                  image: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  image: Optional[torch.Tensor] = None,
+                  valid: Optional[torch.Tensor] = None,
+                  constrain=None) -> torch.Tensor:
     """Sum of SGM path costs S(p, d) = sum_r L_r(p, d).
 
     Args:
@@ -116,14 +142,25 @@ def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig,
       cfg: num_paths in {0, 4, 8}, P1/P2, adaptive P2.
       image: [H, W] reference-view intensities; used only with
         ``cfg.adaptive_p2`` (without it P2 stays fixed, as in the reference).
+      valid: [H, W] bool mask of real pixels (a tile's in-frame rectangle);
+        None: all valid.
+      constrain: the reference's sharding annotators of its exact mode;
+        not ported, anything but None raises.
 
     Returns:
       [H, W, D] int32 summed volume; num_paths=0 returns the cost as int32.
     """
+    if constrain is not None:
+        raise NotImplementedError(
+            "constrain (the exact reshard mode's sharding hooks) is not "
+            "ported yet (ROADMAP Queue 1: parallel/exact.py)")
     if cfg.num_paths == 0:
         return cost.to(torch.int32)
+    if valid is not None and tuple(valid.shape) != tuple(cost.shape[:2]):
+        raise ValueError(f"valid {tuple(valid.shape)} != cost "
+                         f"{tuple(cost.shape[:2])}")
     s = None
     for step in PATH_STEPS[: cfg.num_paths]:
-        l_r = path_cost(cost, cfg, step, image)
+        l_r = path_cost(cost, cfg, step, image, valid)
         s = l_r if s is None else s + l_r
     return s

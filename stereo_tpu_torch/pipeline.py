@@ -18,6 +18,14 @@ frame-true columns in front of the right image (census, rank or SAD), so
 that disparity-range masking and LR framing are the whole frame's;
 ``compute_patch_parts`` is the patch whose LR check the stitched runner
 reassembles across patches.
+
+A rectangular tile of a larger frame (``parallel/tiling.py``) passes
+``image_height`` too, with its origin (``x_offset``, ``y_offset``, either
+negative at the frame's top and left edges): every SGM path then starts
+fresh at the edges of the tile's in-frame rectangle. The plain path
+materialises the rectangle as a ``valid`` mask, as the reference's golden
+path does (``stereo_tpu/pipeline/pipeline.py:658-664``); the kernel path
+hands K2 the rectangle and K1, K3 and K5 the (possibly negative) origin.
 """
 
 from __future__ import annotations
@@ -46,6 +54,10 @@ from .ops.postprocess import (
     select_disparity,
 )
 from .ops.sgm import sgm_aggregate
+
+
+#: A block's in-frame rectangle (y_lo, y_hi, x_lo, x_hi), block coordinates.
+Rect = Tuple[int, int, int, int]
 
 
 class StereoResult(NamedTuple):
@@ -83,43 +95,48 @@ def _kernel_cost(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
 
 def _kernel_view(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
                  emit_d0: bool = False, x_offset: int = 0,
-                 image_width: Optional[int] = None, right_context: int = 0):
+                 image_width: Optional[int] = None, right_context: int = 0,
+                 rect: Optional[Rect] = None):
     """One reference view through the kernels: cost volume (K1 or K5),
     then ``kernel_select``."""
     cost = _kernel_cost(ref, tgt, cfg, x_offset, right_context)
     return kernel_select(cost, cfg, ref, emit_d0=emit_d0, x_offset=x_offset,
-                         image_width=image_width)
+                         image_width=image_width, rect=rect)
 
 
-def kernel_sum(cost: torch.Tensor, cfg: StereoConfig, image: torch.Tensor
-               ) -> torch.Tensor:
-    """S in int16: K2 per direction on a cost volume, or the cost itself
-    for num_paths=0."""
+def kernel_sum(cost: torch.Tensor, cfg: StereoConfig, image: torch.Tensor,
+               rect: Optional[Rect] = None) -> torch.Tensor:
+    """S in int16: K2 per direction on a cost volume (paths starting fresh
+    at the edges of ``rect`` where one is given), or the cost itself for
+    num_paths=0."""
     if cfg.num_paths == 0:
         return cost.to(torch.int16)
-    return sgm_paths(cost, cfg, image=image)
+    return sgm_paths(cost, cfg, image=image, rect=rect)
 
 
 def kernel_select(cost: torch.Tensor, cfg: StereoConfig, image: torch.Tensor,
                   emit_d0: bool = False, x_offset: int = 0,
-                  image_width: Optional[int] = None):
+                  image_width: Optional[int] = None,
+                  rect: Optional[Rect] = None):
     """``kernel_sum``, then K3. Returns ``sgm_select``'s outputs."""
-    return sgm_select(kernel_sum(cost, cfg, image), cfg, emit_d0=emit_d0,
-                      x_offset=x_offset, image_width=image_width)
+    return sgm_select(kernel_sum(cost, cfg, image, rect), cfg,
+                      emit_d0=emit_d0, x_offset=x_offset,
+                      image_width=image_width)
 
 
 def _kernel_path(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
-                 x_offset: int, image_width: int, right_context: int
-                 ) -> StereoResult:
+                 x_offset: int, image_width: int, right_context: int,
+                 rect: Optional[Rect] = None) -> StereoResult:
     if cfg.lr_check and cfg.lr_exact:
         # As the reference's fused lr_exact: the left view keeps its
         # uniqueness gate and integer winners; the flipped pair gives the
         # right view's integer winners (subpixel and uniqueness affect
-        # nothing the compare reads). On a patch the flipped pair sits at
-        # the flipped global origin.
+        # nothing the compare reads). On a patch or a tile the flipped pair
+        # sits at the flipped global origin, with no rectangle, as the
+        # reference's golden path runs it.
         disp, ok, d0 = _kernel_view(
             left, right, cfg.replace(lr_check=False), emit_d0=True,
-            x_offset=x_offset)
+            x_offset=x_offset, rect=rect)
         cfg_r = cfg.replace(lr_check=False, subpixel=False,
                             uniqueness_ratio=0.0)
         disp_rf, _ = _kernel_view(
@@ -131,25 +148,47 @@ def _kernel_path(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
     else:
         disp, ok = _kernel_view(left, right, cfg, x_offset=x_offset,
                                 image_width=image_width,
-                                right_context=right_context)
+                                right_context=right_context, rect=rect)
     if cfg.median_filter:
         disp = median3x3(disp)
     return StereoResult(disp=disp, valid=ok)
 
 
 def _aggregate(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
-               x_offset: int = 0, right_context: int = 0) -> torch.Tensor:
+               x_offset: int = 0, right_context: int = 0,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain cost volume + SGM for one reference view."""
     cost = cost_volume(left, right, cfg, x_offset, right_context)
-    return sgm_aggregate(cost, cfg, image=left)
+    return sgm_aggregate(cost, cfg, image=left, valid=valid)
+
+
+def frame_rect(shape: Tuple[int, int], x_offset: int, y_offset: int,
+               image_width: int, image_height: int) -> Rect:
+    """The in-frame rectangle (y_lo, y_hi, x_lo, x_hi) of a block of
+    ``shape`` at global origin (``y_offset``, ``x_offset``) in an
+    ``image_height`` x ``image_width`` frame, in block coordinates (empty
+    when the block misses the frame)."""
+    h, w = shape
+    y_lo, x_lo = min(h, max(0, -y_offset)), min(w, max(0, -x_offset))
+    return (y_lo, max(y_lo, min(h, image_height - y_offset)),
+            x_lo, max(x_lo, min(w, image_width - x_offset)))
+
+
+def rect_mask(rect: Rect, shape: Tuple[int, int], device) -> torch.Tensor:
+    """[H, W] bool, True inside ``rect``."""
+    y_lo, y_hi, x_lo, x_hi = rect
+    mask = torch.zeros(shape, dtype=torch.bool, device=device)
+    mask[y_lo:y_hi, x_lo:x_hi] = True
+    return mask
 
 
 def _check_block(left: torch.Tensor, right: torch.Tensor, x_offset: int,
                  image_width: Optional[int], right_context: int,
-                 tile_mode: bool) -> int:
+                 y_offset: int, image_height: Optional[int],
+                 constrain) -> int:
     """Validate one block of a frame and its framing; returns the frame's
-    width. ``tile_mode``: the caller passed one of the reference's
-    rectangular-tile or masking arguments."""
+    width. A column patch (no ``image_height``) lies inside its frame; a
+    rectangular tile may reach past any edge of it."""
     if left.ndim != 2 or right.ndim != 2 or (
         left.shape[0] != right.shape[0]
         or left.shape[1] + right_context != right.shape[1]
@@ -161,14 +200,24 @@ def _check_block(left: torch.Tensor, right: torch.Tensor, x_offset: int,
         )
     if left.device != right.device:
         raise ValueError(f"images on {left.device} and {right.device}")
-    if tile_mode:
+    if constrain is not None:
         raise NotImplementedError(
-            "masked frames and rectangular tiles (valid, constrain, "
-            "y_offset, image_height) are not ported yet (ROADMAP Queue 1: "
-            "tiles over torch.distributed)"
-        )
-    if not isinstance(x_offset, int) or x_offset < 0 or right_context < 0:
-        raise ValueError("x_offset and right_context must be ints >= 0")
+            "constrain (the exact reshard mode's sharding hooks) is not "
+            "ported yet (ROADMAP Queue 1: parallel/exact.py)")
+    if right_context < 0:
+        raise ValueError("right_context must be >= 0")
+    if image_height is not None:
+        if not all(isinstance(v, int) for v in (x_offset, y_offset,
+                                                image_height)):
+            raise ValueError("a tile's origin and frame height are ints")
+        if image_width is None:
+            image_width = x_offset + left.shape[1]
+        if image_height < 1 or image_width < 1:
+            raise ValueError(f"empty frame {image_height}x{image_width}")
+        return image_width
+    if not isinstance(x_offset, int) or x_offset < 0:
+        raise ValueError("a column patch's x_offset is an int >= 0 (a "
+                         "negative origin needs image_height: a tile)")
     if image_width is None:
         image_width = x_offset + left.shape[1]
     if image_width < x_offset + left.shape[1]:
@@ -203,29 +252,40 @@ def compute_disparity(
       x_offset, image_width: the block's global column origin and the
         frame's width (default: the block ends the frame), so that
         disparity-range masking and LR framing match the whole frame's.
-      valid, constrain, y_offset, image_height: the reference's masks and
-        rectangular-tile mode; not ported, anything but the defaults
-        raises.
+      y_offset, image_height: passing ``image_height`` makes the block a
+        rectangular tile of the frame at (``y_offset``, ``x_offset``), both
+        possibly negative: SGM paths start fresh at the edges of its
+        in-frame rectangle (``frame_rect``).
+      valid: [H, W] bool mask of real pixels (plain path only; on CUDA
+        tensors the kernels take the rectangle, and a mask raises).
+      constrain: the reference's exact-mode sharding hooks; not ported,
+        anything but None raises.
 
     Returns: StereoResult(disp [H, W] float32, valid [H, W] bool).
     """
-    tile_mode = (valid is not None or constrain is not None or y_offset != 0
-                 or image_height is not None)
     iw = _check_block(left, right, x_offset, image_width, right_context,
-                      tile_mode)
-    if right_context and cfg.lr_exact:
+                      y_offset, image_height, constrain)
+    rect = image_height is not None
+    if right_context and (cfg.lr_exact or rect):
         raise NotImplementedError(
-            "right_context supports the cheap LR check only (no lr_exact "
-            "flipped pass)")
+            "right_context supports static column patches only (no lr_exact "
+            "flipped pass, no rectangular-tile mode)")
     if use_kernels(cfg, left.device):
-        return _kernel_path(left, right, cfg, x_offset, iw, right_context)
+        _refuse_mask(valid)
+        box = (frame_rect(left.shape, x_offset, y_offset, iw, image_height)
+               if rect else None)
+        return _kernel_path(left, right, cfg, x_offset, iw, right_context,
+                            box)
+    if rect and valid is None:
+        valid = rect_mask(frame_rect(left.shape, x_offset, y_offset, iw,
+                                     image_height), left.shape, left.device)
 
-    s = _aggregate(left, right, cfg, x_offset, right_context)
+    s = _aggregate(left, right, cfg, x_offset, right_context, valid)
     disp, ok, d_int = wta_with_aux(s, cfg)
     if cfg.lr_check and cfg.lr_exact:
         # The reference's staged exact check: the right view matched as
-        # the flipped pair (at the flipped global origin), integer winners
-        # compared on both sides.
+        # the flipped pair (at the flipped global origin, with no mask),
+        # integer winners compared on both sides.
         s_r = _aggregate(right.flip(1), left.flip(1), cfg,
                          x_offset=iw - x_offset - left.shape[1])
         _, _, d_int_r = wta_with_aux(s_r, cfg)
@@ -233,6 +293,14 @@ def compute_disparity(
     disp, ok = apply_postprocess(disp, ok, s, cfg, x_offset, iw,
                                  disp_int=d_int)
     return StereoResult(disp=disp, valid=ok)
+
+
+def _refuse_mask(valid: Optional[torch.Tensor]) -> None:
+    if valid is not None:
+        raise NotImplementedError(
+            "the CUDA kernels take a tile's in-frame rectangle "
+            "(image_height), not a valid mask: run masks on CPU tensors or "
+            "with backend='torch'")
 
 
 class PatchParts(NamedTuple):
@@ -275,26 +343,31 @@ def compute_patch_parts(
     Arguments as ``compute_disparity``; ``own`` is the block-local column
     range (lo, hi) the patch OWNS (default the whole patch): its packed
     partial mins draw sources only from it, so the stitcher's min over
-    patches counts every frame column exactly once. On CUDA tensors this
-    is K1, K2, K3 in its ``emit_qr`` form and K4; on CPU tensors the plain
-    composition; bit-identical either way.
+    patches counts every frame column exactly once. With ``image_height``
+    the patch is a rectangular tile (the stitched tiles of
+    ``parallel/tiling.py``), and ``right_context`` is allowed there. On
+    CUDA tensors this is K1, K2, K3 in its ``emit_qr`` form and K4; on CPU
+    tensors the plain composition; bit-identical either way.
     """
     if not (cfg.lr_check and not cfg.lr_exact and cfg.num_paths > 0):
         raise ValueError(
             "compute_patch_parts requires lr_check (re-index mode) + SGM"
         )
-    tile_mode = (valid is not None or y_offset != 0
-                 or image_height is not None)
     iw = _check_block(left, right, x_offset, image_width, right_context,
-                      tile_mode)
+                      y_offset, image_height, None)
+    rect = (frame_rect(left.shape, x_offset, y_offset, iw, image_height)
+            if image_height is not None else None)
     if use_kernels(cfg, left.device):
+        _refuse_mask(valid)
         cost = _kernel_cost(left, right, cfg, x_offset, right_context)
-        parts = sgm_select(kernel_sum(cost, cfg, left), cfg,
+        parts = sgm_select(kernel_sum(cost, cfg, left, rect), cfg,
                            x_offset=x_offset, image_width=iw, emit_qr=True,
                            own=own)
         median = median3x3
     else:
-        s = _aggregate(left, right, cfg, x_offset, right_context)
+        if rect is not None and valid is None:
+            valid = rect_mask(rect, left.shape, left.device)
+        s = _aggregate(left, right, cfg, x_offset, right_context, valid)
         parts = select_disparity(s, cfg, x_offset=x_offset, image_width=iw,
                                  emit_qr=True, own=own)
         median = median_3x3

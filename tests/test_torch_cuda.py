@@ -55,8 +55,16 @@ from stereo_tpu_torch.ops.census import (
 from stereo_tpu_torch.ops.cuda.build import load_kernels
 from stereo_tpu_torch.ops.postprocess import spill_width
 from stereo_tpu_torch.ops.cuda.peak_kernel import PROGRAMS, alu_peak_plain
-from stereo_tpu_torch.parallel import build_banded_pipeline
-from stereo_tpu_torch.pipeline import compute_disparity, compute_patch_parts
+from stereo_tpu_torch.parallel import (
+    build_banded_pipeline,
+    build_halo_pipeline,
+    make_tile_mesh,
+)
+from stereo_tpu_torch.pipeline import (
+    compute_disparity,
+    compute_patch_parts,
+    rect_mask,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -265,7 +273,7 @@ def test_pipeline_runs_the_kernels(dev):
     assert launch_forms() == {
         ("transform_words", 48, 160, 9, 7, False, "torch.uint8"): 2,
         ("census_cost", 48, 160, 32, 2, False): 1,
-        ("sgm_paths", 48, 160, 32, "torch.int8", 8, False): 8,
+        ("sgm_paths", 48, 160, 32, "torch.int8", 8, False, False): 8,
         ("sgm_select", 48, 160, 32, 0, True, True, True, False, False,
          False): 1,
         ("median3x3", 48, 160): 1,
@@ -755,7 +763,9 @@ def test_sgm_select_kernel_rejects(dev):
     with pytest.raises(ValueError, match="block width"):
         sgm_select(s[:, :12].contiguous(), cfg, emit_qr=True)
     with pytest.raises(ValueError, match="leaves the frame"):
-        sgm_select(s, cfg, x_offset=30, image_width=60)
+        sgm_select(s, cfg, x_offset=60, image_width=60)
+    with pytest.raises(ValueError, match="leaves the frame"):
+        sgm_select(s, cfg, x_offset=-40, image_width=60)
     wide = torch.zeros((1, 20000, 1), dtype=torch.int16, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         sgm_select(wide, StereoConfig(num_disparities=1))
@@ -860,7 +870,7 @@ def test_patch_parts_run_the_kernels(dev):
         ("transform_words", 32, 108, *window, False, "torch.uint8"): 1,
         ("transform_words", 32, 123, *window, False, "torch.uint8"): 1,
         ("census_cost", 32, 108, 16, 1, True): 1,
-        ("sgm_paths", 32, 108, 16, "torch.int8", 8, False): 8,
+        ("sgm_paths", 32, 108, 16, "torch.int8", 8, False, False): 8,
         ("sgm_select", 32, 108, 16, 0, True, False, True, False, True,
          True): 1,
         ("median3x3", 32, 108): 1,
@@ -875,3 +885,144 @@ def test_patch_parts_run_the_kernels(dev):
                               x_offset=f0, image_width=320, right_context=ctx)
     assert torch.equal(framed.disp, plain.disp)
     assert torch.equal(framed.valid, plain.valid)
+
+
+# --- tiles: K2's rectangle form, K1, K3 and K5 at negative origins ---------
+
+#: Rectangles in a 37 x 150 block touching none, one and all four edges;
+#: an empty one and a single pixel.
+_RECTS = {"inside": (5, 30, 20, 131), "top": (0, 30, 20, 131),
+          "left": (5, 30, 0, 131), "bottom": (5, 37, 20, 131),
+          "right": (5, 30, 20, 150), "all": (0, 37, 0, 150),
+          "empty": (12, 12, 40, 40), "pixel": (36, 37, 149, 150)}
+
+
+@pytest.mark.parametrize("rect", sorted(_RECTS))
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("paths, adaptive, cost_t", [
+    (8, False, torch.int8), (4, True, torch.int8), (8, True, torch.int16)])
+def test_sgm_paths_rect_form(dev, rect, d, paths, adaptive, cost_t):
+    """L = C wherever the predecessor lies outside the rectangle, over the
+    whole block; a rectangle that is the whole block is the whole form."""
+    h, w = 37, 150
+    cfg = StereoConfig(num_disparities=d, num_paths=paths, p1=14, p2=120,
+                       adaptive_p2=adaptive, p2_min=30, adaptive_grad_floor=6)
+    rng = np.random.default_rng(d + paths)
+    top = 64 if cost_t == torch.int8 else 256
+    cost = torch.from_numpy(rng.integers(0, top, size=(h, w, d))).to(
+        cost_t).to(dev)
+    image = _images(d, h, w, dev)[0]
+    box = _RECTS[rect]
+    reset_launch_counts()
+    got = sgm_paths(cost, cfg, image=image, rect=box)
+    torch.cuda.synchronize()
+    assert launch_forms() == {("sgm_paths", h, w, d, str(cost_t), paths,
+                               adaptive, rect != "all"): paths}
+    want = sgm_aggregate(cost, cfg, image=image,
+                         valid=rect_mask(box, (h, w), dev))
+    assert torch.equal(got, want.to(torch.int16))
+    if rect == "all":
+        assert torch.equal(got, sgm_paths(cost, cfg, image=image))
+
+
+_NEG = [-1, -20, -(20 + 64)]  # -1, -halo, -(halo + D)
+
+
+@pytest.mark.parametrize("x_offset", _NEG)
+@pytest.mark.parametrize("form", ["framed", "qr", "d0"])
+@pytest.mark.parametrize("levels", [5, 900])
+def test_sgm_select_tile_origins(dev, x_offset, form, levels):
+    """K3's framed, emit_qr and emit_d0 forms at negative origins, blocks
+    that also end past the frame on the right."""
+    h, w, d = 6, 240, 64
+    cfg = KITTI_SGM8_128.replace(num_disparities=d, min_disparity=2)
+    kw = dict(x_offset=x_offset, image_width=200)
+    if form == "qr":
+        kw.update(emit_qr=True, own=(20, 220))
+    if form == "d0":
+        cfg = cfg.replace(lr_exact=True)
+        kw.update(emit_d0=True)
+    s = _sums(levels - x_offset, h, w, d, levels, dev)
+    reset_launch_counts()
+    got = sgm_select(s, cfg, **kw)
+    torch.cuda.synchronize()
+    (form_key,) = launch_forms()
+    assert form_key[-2] == (False if form == "d0" else -1)
+    want = select_disparity(s, cfg, **kw)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("x_offset", _NEG)
+@pytest.mark.parametrize("ctx", [0, 63])
+@pytest.mark.parametrize("cost_fn, d", [("census", 64), ("census", 16),
+                                        ("rank", 64)])
+def test_cost_kernels_tile_origins(dev, x_offset, ctx, cost_fn, d):
+    cfg = StereoConfig(cost_fn=cost_fn, census_window=(9, 7),
+                       num_disparities=d, min_disparity=1)
+    left = _images(d + ctx, 9, 200, dev)[0]
+    right = _images(-x_offset, 9, 200 + ctx, dev)[0]
+    rank = cost_fn == "rank"
+    kernel = rank_cost if rank else census_cost
+    plain = rank_cost_volume if rank else census_cost_volume
+    words = _words(left, right, (9, 7), rank=rank)
+    reset_launch_counts()
+    got = kernel(*words, cfg, x_offset, ctx)
+    torch.cuda.synchronize()
+    (form_key,) = launch_forms()
+    assert form_key[-1] == -1
+    assert torch.equal(got.to(torch.int32),
+                       plain(left, right, cfg, x_offset, ctx))
+
+
+@pytest.mark.parametrize("x_offset", _NEG + [-300])
+@pytest.mark.parametrize("d, window", [(16, (9, 9)), (64, (5, 7)),
+                                       (256, (17, 17))])
+def test_sad_cost_kernel_tile_origins(dev, x_offset, d, window):
+    cfg = TSUKUBA_SAD16.replace(num_disparities=d, min_disparity=1,
+                                sad_window=window)
+    left, right = _images(d - x_offset, 23, 400, dev)
+    reset_launch_counts()
+    got = sad_cost(left, right, cfg, x_offset)
+    torch.cuda.synchronize()
+    (form_key,) = launch_forms()
+    assert form_key[6] == -1
+    assert torch.equal(got.to(torch.int32),
+                       sad_cost_volume(left, right, cfg, x_offset))
+
+
+@pytest.mark.parametrize(
+    "kw, shape, grid, lr_stitch",
+    [(dict(num_disparities=32), (64, 300), (2, 2), None),
+     (dict(num_disparities=32), (61, 290), (2, 2), False),
+     (dict(num_disparities=32, **dict(adaptive_p2=True, p2_min=30,
+                                      adaptive_grad_floor=12)),
+      (50, 260), (4, 2), None),
+     (dict(num_disparities=32, lr_exact=True), (48, 240), (1, 2), None),
+     (dict(cost_fn="sad", num_disparities=16, num_paths=0,
+           sad_window=(9, 9)), (40, 200), (1, 2), None),
+     (dict(num_disparities=256), (60, 700), (1, 2), None)],
+    ids=["stitched", "legacy_ragged", "adaptive_4x2", "lr_exact", "sad",
+         "d256_stitched"],
+)
+def test_local_grid_runs_the_kernels(dev, kw, shape, grid, lr_stitch):
+    """The local grid on the card: the kernel path equals the plain
+    composition on the same card, and it launched K2's rectangle form and
+    the cost kernel at a negative origin."""
+    pair = make_pair(shape, max_disp=20, texture="cloud", seed=9)
+    cfg = KITTI_SGM8_128.replace(**kw)
+    mesh = make_tile_mesh([dev] * (grid[0] * grid[1]), grid)
+    reset_launch_counts()
+    got = build_halo_pipeline(cfg, mesh, lr_stitch=lr_stitch, device=dev)(
+        pair.left, pair.right)
+    torch.cuda.synchronize()
+    forms = launch_forms()
+    cost = "sad_cost" if cfg.cost_fn == "sad" else "census_cost"
+    assert any(f[0] == cost and -1 in f[1:] for f in forms)
+    if cfg.num_paths:
+        assert any(f[0] == "sgm_paths" and f[-1] is True for f in forms)
+    want = build_halo_pipeline(cfg.replace(backend="torch"), mesh,
+                               lr_stitch=lr_stitch, device=dev)(
+        pair.left, pair.right)
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.disp, want.disp)

@@ -26,17 +26,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 if __name__ == "__main__":  # run as a script: the CPU backend, as conftest
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(ROOT))
 
+import jax  # noqa: E402
 from stereo_tpu import data as jdata  # noqa: E402
 from stereo_tpu.config import KITTI_SGM8_128, PRESETS  # noqa: E402
 from stereo_tpu.data import kitti_like_pair  # noqa: E402
 from stereo_tpu.eval import hard_suite as jsuite  # noqa: E402
 from stereo_tpu.eval.metrics import evaluate_disparity  # noqa: E402
 from stereo_tpu.models import get_model  # noqa: E402
+from stereo_tpu.parallel import build_halo_pipeline  # noqa: E402
+from stereo_tpu.parallel import make_tile_mesh  # noqa: E402
 from stereo_tpu.parallel.bands import build_banded_pipeline  # noqa: E402
 from stereo_tpu.pipeline.pipeline import host_postprocess  # noqa: E402
 from stereo_tpu_torch import PRESETS as TPRESETS  # noqa: E402
@@ -46,6 +51,10 @@ from stereo_tpu_torch.eval import evaluate_disparity as t_evaluate  # noqa: E402
 from stereo_tpu_torch.parallel import (  # noqa: E402
     build_banded_pipeline as t_banded,
 )
+from stereo_tpu_torch.parallel import (  # noqa: E402
+    build_halo_pipeline as t_halo,
+)
+from stereo_tpu_torch.parallel import make_tile_mesh as t_mesh  # noqa: E402
 from stereo_tpu_torch.pipeline import host_postprocess as t_post  # noqa: E402
 
 torch.set_num_threads(1)
@@ -133,6 +142,38 @@ FULL_SIZE = {name.replace("_q", ""): split
              for name, (preset, *_, split) in BANDED.items()
              if preset == _CFG4_Q[0]}
 
+#: The halo-tiled pipeline's fixtures: name -> (preset, config overrides,
+#: pair, the pair's description, the grid: ``mesh_shape`` and ``lr_stitch``
+#: (None: stitched where supported)). KITTI on a 2x2 grid (the frame pads
+#: to 376 rows: the crop is exercised) stitched, its quality preset legacy,
+#: the exact LR check on 1x2 (legacy: exact LR is not stitchable);
+#: tsukuba_sad16 on 1x2 (SAD: legacy, K5 at a negative origin); config 4
+#: at a quarter of the resolution, full D, on 2x2 legacy and 1x2 stitched.
+_KITTI_TEXT = "kitti_like_pair(seed=0)"
+TILED = {
+    "kitti_sgm8_128_tiles_2x2": ("kitti_sgm8_128", {}, _kitti, _KITTI_TEXT,
+                                 dict(mesh_shape=[2, 2], lr_stitch=None)),
+    "kitti_sgm8_128_quality_tiles_2x2_legacy": (
+        "kitti_sgm8_128_quality", {}, _kitti, _KITTI_TEXT,
+        dict(mesh_shape=[2, 2], lr_stitch=False)),
+    "kitti_sgm8_128_lr_exact_tiles_1x2": (
+        "kitti_sgm8_128", {"lr_exact": True}, _kitti, _KITTI_TEXT,
+        dict(mesh_shape=[1, 2], lr_stitch=None)),
+    "tsukuba_sad16_tiles_1x2": (_TSUKUBA[0], {}, *_TSUKUBA[1:],
+                                dict(mesh_shape=[1, 2], lr_stitch=None)),
+    "middlebury_full_256_tiled_q_tiles_2x2_legacy": (
+        _CFG4_Q[0], {}, *_CFG4_Q[1:],
+        dict(mesh_shape=[2, 2], lr_stitch=False)),
+    "middlebury_full_256_tiled_q_tiles_1x2": (
+        _CFG4_Q[0], {}, *_CFG4_Q[1:], dict(mesh_shape=[1, 2],
+                                           lr_stitch=None)),
+}
+#: The config-4 tile grids at 1988x2880, made on the card by the port's
+#: plain path (``chip_smoke.py --write-fixtures``), as ``FULL_SIZE``.
+TILED_FULL_SIZE = {name.replace("_q_", "_"): grid
+                   for name, (preset, *_, grid) in TILED.items()
+                   if preset == _CFG4_Q[0]}
+
 #: The hard-suite fixtures: the reference bench's suite-scale sweep.
 SUITE_FIXTURE = TESTDATA / "hard_suite_kitti_sgm8_128_quality.json"
 SUITE = dict(preset="kitti_sgm8_128_quality", shape=[160, 288],
@@ -146,6 +187,8 @@ SLICE_KEYS = {"source", "preset", "overrides", "model", "model_kwargs", "pair",
 #: A banded fixture names its split instead of a model; a full-size one
 #: says who made it.
 BANDED_KEYS = (SLICE_KEYS - {"overrides", "model", "model_kwargs"}) | {"bands"}
+#: A tiled fixture names its grid instead.
+TILED_KEYS = (SLICE_KEYS - {"model", "model_kwargs"}) | {"tiles"}
 
 
 def _hash(a) -> str:
@@ -187,6 +230,19 @@ def _banded_golden_record(name: str) -> dict:
     cfg = PRESETS[preset].replace(backend="jnp")
     pair = make(jdata)
     fn = build_banded_pipeline(cfg, pair.left.shape, **split)
+    return _record(cfg, pair, fn(pair.left, pair.right), host_postprocess,
+                   evaluate_disparity)
+
+
+def _tiled_golden_record(name: str) -> dict:
+    """The JAX golden halo-tiled pipeline on the fixture's pair, over the
+    first ty * tx of the fake CPU devices."""
+    preset, overrides, make, _, tiles = TILED[name]
+    cfg = PRESETS[preset].replace(backend="jnp", **overrides)
+    pair = make(jdata)
+    ty, tx = tiles["mesh_shape"]
+    mesh = make_tile_mesh(jax.devices()[:ty * tx], mesh_shape=(ty, tx))
+    fn = build_halo_pipeline(cfg, mesh, lr_stitch=tiles["lr_stitch"])
     return _record(cfg, pair, fn(pair.left, pair.right), host_postprocess,
                    evaluate_disparity)
 
@@ -292,6 +348,47 @@ def test_banded_fixture_is_well_formed(name):
     assert 0.0 <= fx["bad3"] < 0.1 and 0.5 < fx["density"] <= 1.0
 
 
+@pytest.mark.parametrize("name", sorted({**TILED, **TILED_FULL_SIZE}))
+def test_tiled_fixture_is_well_formed(name):
+    """Every tiled fixture names the preset, its overrides, the pair, the
+    grid and all the hashes the GPU run compares; a full-size one says who
+    made it."""
+    fx = json.loads((TESTDATA / f"{name}_seed0.json").read_text())
+    full = name in TILED_FULL_SIZE
+    assert set(fx) | {"overrides"} == TILED_KEYS | (
+        {"made_by"} if full else set())
+    if full:
+        preset, overrides, tiles = _CFG4_Q[0], {}, TILED_FULL_SIZE[name]
+        shape = [1988, 2880]
+    else:
+        preset, overrides, make, _, tiles = TILED[name]
+        shape = list(make(tdata).left.shape)
+    assert fx["preset"] == preset and fx["preset"] in TPRESETS
+    assert fx.get("overrides", {}) == overrides
+    assert fx["tiles"] == tiles
+    assert fx["shape"] == shape
+    for key in ("disp", "valid", "post_disp", "post_valid"):
+        assert re.fullmatch(r"[0-9a-f]{16}", fx[key])
+    h, w = fx["shape"]
+    assert 0 < fx["post_n_valid"] <= fx["n_valid"] <= h * w
+    assert 0.0 <= fx["bad3"] < 0.1 and 0.5 < fx["density"] <= 1.0
+
+
+def test_tiled_sad_fixture_both_packages():
+    """The smallest tiled fixture (tsukuba_sad16 on a 1x2 grid) from the
+    JAX golden tile grid and from the port's local grid on the CPU: the
+    stored hashes, counts and metrics, host post-filters included."""
+    name = "tsukuba_sad16_tiles_1x2"
+    fx = json.loads((TESTDATA / f"{name}_seed0.json").read_text())
+    want = {k: fx[k] for k in _tiled_golden_record(name)}
+    assert _tiled_golden_record(name) == want
+    cfg = TPRESETS[fx["preset"]]
+    pair = TILED[name][2](tdata)
+    fn = t_halo(cfg, t_mesh(["cpu"] * 2, (1, 2)), device="cpu")
+    assert _record(cfg, pair, fn(pair.left, pair.right), t_post,
+                   t_evaluate) == want
+
+
 def test_hard_suite_fixture_is_well_formed():
     """Ten scenario rows of three pairs each, with both score sets."""
     fx = json.loads(SUITE_FIXTURE.read_text())
@@ -389,9 +486,22 @@ def _write(path: Path, record: dict) -> None:
 def write_fixtures(names) -> None:
     """Make the named fixtures (all when none is named) from the JAX
     golden path and store them under ``stereo_tpu_torch/testdata``."""
-    names = list(names) or [*SLICES, *BANDED, "hard_suite", "census_vs_sad"]
+    names = list(names) or [*SLICES, *BANDED, *TILED, "hard_suite",
+                            "census_vs_sad"]
     for name in names:
-        if name in BANDED:
+        if name in TILED:
+            preset, overrides, _, pair_text, tiles = TILED[name]
+            fx = dict(
+                source="stereo_tpu build_halo_pipeline(cfg(backend='jnp'), "
+                       "make_tile_mesh(devices, mesh_shape), lr_stitch) + "
+                       "host_postprocess + evaluate_disparity",
+                preset=preset, tiles=tiles, pair=pair_text,
+                hash="sha256(array.tobytes()).hexdigest()[:16]",
+                **_tiled_golden_record(name))
+            if overrides:
+                fx["overrides"] = overrides
+            _write(TESTDATA / f"{name}_seed0.json", fx)
+        elif name in BANDED:
             _write(TESTDATA / f"{name}_seed0.json", dict(
                 source="stereo_tpu build_banded_pipeline(cfg(backend='jnp'), "
                        "shape, **bands) + host_postprocess + "

@@ -473,7 +473,8 @@ def test_sgm_select_emit_qr_matches_fused_pallas(kw, own, x_offset, iw):
 
 def test_sgm_select_emit_qr_rejects():
     """emit_qr needs the cheap LR check, a block at least D + md wide and
-    an own range inside the block; a block must lie inside its frame."""
+    an own range inside the block; a block must overlap its frame (a tile
+    may reach past its edges)."""
     s = torch.zeros((4, 40, 16), dtype=torch.int16)
     cfg = TCfg(num_disparities=16)
     with pytest.raises(ValueError, match="cheap LR"):
@@ -483,7 +484,9 @@ def test_sgm_select_emit_qr_rejects():
     with pytest.raises(ValueError, match="own"):
         sgm_select(s, cfg, emit_qr=True, own=(8, 50))
     with pytest.raises(ValueError, match="leaves the frame"):
-        sgm_select(s, cfg, x_offset=30, image_width=60)
+        sgm_select(s, cfg, x_offset=60, image_width=60)
+    with pytest.raises(ValueError, match="leaves the frame"):
+        sgm_select(s, cfg, x_offset=-40, image_width=60)
 
 
 @pytest.mark.parametrize("x_offset, iw", [(24, 200), (0, 100), (60, 130)])

@@ -194,18 +194,31 @@ def test_sad_through_sgm_matches_reference(paths):
     ],
 )
 def test_unported_modes_raise(kw, call_kw):
-    """Masks and the rectangular-tile mode stay unported, and the message
-    names only those; column patches (x_offset, image_width,
-    right_context) run."""
+    """Of the reference's masking and rectangular-tile arguments only
+    ``constrain`` (the exact mode's sharding hooks) stays unported: it
+    raises, naming its ROADMAP item and nothing else. A ``valid`` mask,
+    ``y_offset`` and ``image_height`` now run (tests/test_torch_tiling.py
+    holds them against the reference); here an all-valid mask, an offset
+    without a frame height and a tile that lies inside its frame each give
+    the whole frame's result."""
     cfg = tconfig.KITTI_SGM8_128.replace(num_disparities=32, **kw)
-    img = torch.zeros((8, 40), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        tpipe.compute_disparity(img, img, cfg, **call_kw)
-    assert "x_offset" not in str(err.value)
-    assert "right_context" not in str(err.value)
-    if "valid" not in call_kw and "constrain" not in call_kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe.compute_patch_parts(img, img, cfg, **call_kw)
+    pair = make_pair((8, 40), max_disp=6, seed=3)
+    left, right = torch.from_numpy(pair.left), torch.from_numpy(pair.right)
+    if "constrain" in call_kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+            tpipe.compute_disparity(left, right, cfg, **call_kw)
+        assert "x_offset" not in str(err.value)
+        assert "right_context" not in str(err.value)
+        return
+    got = tpipe.compute_disparity(left, right, cfg, **call_kw)
+    want = tpipe.compute_disparity(left, right, cfg)
+    assert torch.equal(got.disp, want.disp)
+    assert torch.equal(got.valid, want.valid)
+    if "valid" not in call_kw:
+        got = tpipe.compute_patch_parts(left, right, cfg, **call_kw)
+        want = tpipe.compute_patch_parts(left, right, cfg)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_cuda_backend_rejects_cpu_tensors():
