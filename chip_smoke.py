@@ -105,7 +105,24 @@ result line):
      on the card, rows equal to the reference's
      (testdata/hard_suite_*.json, census_vs_sad_*.json), launch counters
      checked; prints the rows and the sweep's wall time;
-  6. anchor: measure_alu_peak times K6 over the reference's two programs
+  6. stream: config 5, the batched video stream, through its entry points
+     (each run with the launch counters set to 0 just before and read
+     just after, by form): kitti_sgm8_128 at 375x1242 through
+     StreamRunner.run_batches at batch 48, 96 frames of make_pair(shape,
+     max_disp=96, kind="shapes", texture="cloud", seed=i) staged on the
+     card, after one warm-up batch (bench.py:296-325); prints the record
+     {"metric": "kitti_stream_batch48_fps_per_chip", ...} with the card's
+     name and power limit, holds every frame (disp and valid) equal to
+     build_pipeline on that frame and frame 0 also to the plain torch
+     path; then StreamRunner.run on 10 of those frames as numpy arrays at
+     batch 4 (the last batch partial) with a manifest, a fault injected
+     after 4 frames and a restart from the manifest, every frame delivered
+     once and equal to the per-frame path; a tiled stream, 4 frames on a
+     local 2x2 grid (stitched), each equal to build_halo_pipeline; and
+     scaling_report's row for the one card. Launches: 13 a frame (the
+     kitti_sgm8_128 forms) for the 96 + 12 + 31 frames of the whole-frame
+     runs, the 2x2 tiles' forms for the tiled one;
+  7. anchor: measure_alu_peak times K6 over the reference's two programs
      in float32 and int32 (one JSON line per program, then the best rate
      per type), with the launch counters set to 0 before and read after;
      every kernel row gains sol_fraction and sol_fraction_anchor.
@@ -157,6 +174,7 @@ from stereo_tpu_torch import (  # noqa: E402
     MIDDLEBURY_CENSUS_SGM4_64,
     PRESETS,
     TSUKUBA_SAD16,
+    build_pipeline,
     host_postprocess,
     native,
 )
@@ -217,7 +235,9 @@ from stereo_tpu_torch.ops.cuda.launch import run  # noqa: E402
 from stereo_tpu_torch.ops.cuda.peak_kernel import alu_peak_plain  # noqa: E402
 from stereo_tpu_torch.ops.postprocess import spill_width  # noqa: E402
 from stereo_tpu_torch.ops.sgm import PATH_STEPS  # noqa: E402
+from stereo_tpu_torch.eval.scaling import scaling_report  # noqa: E402
 from stereo_tpu_torch.parallel import (  # noqa: E402
+    StreamRunner,
     build_banded_pipeline,
     build_halo_pipeline,
     make_tile_mesh,
@@ -1556,6 +1576,172 @@ def phase_hard_suite(dev) -> Dict[str, int]:
     return launches
 
 
+#: Config 5, the batched video stream, as the reference's bench runs it
+#: (bench.py:296-333): kitti_sgm8_128 at 375x1242, batch 48, 96 frames.
+STREAM_SHAPE = (375, 1242)
+STREAM_BATCH, STREAM_FRAMES = 48, 96
+#: StreamRunner.run on host frames: 10 frames at batch 4 (the last batch
+#: partial), a fault injected after the first batch, then a restart.
+RUN_FRAMES, RUN_BATCH, RUN_FAIL_AFTER = 10, 4, 4
+#: scaling_report's row on the card: one frame a call, its default trains.
+SCALE_ITERS, SCALE_REPEATS = 10, 3
+
+
+def stream_pair(seed: int):
+    """The reference bench's stream frames (bench.py:315-317)."""
+    return make_pair(STREAM_SHAPE, max_disp=96, kind="shapes",
+                     texture="cloud", seed=seed)
+
+
+def _hold_frames(what: str, got_disp, got_valid, want) -> None:
+    """Each frame of a stream result must equal the per-frame path's."""
+    for i, res in enumerate(want):
+        if not (torch.equal(got_disp[i], res.disp)
+                and torch.equal(got_valid[i], res.valid)):
+            raise AssertionError(f"{what}: frame {i} differs from the "
+                                 f"per-frame path")
+
+
+def _count(what: str, forms: Dict[str, int], frames: int) -> Dict[str, int]:
+    """The launches counted since the last reset, which must be ``forms``
+    per frame for ``frames`` frames."""
+    counts = counted_launches(what)
+    if counts != expected_launches(forms, frames):
+        raise AssertionError(f"{what}: launch counts {counts} != "
+                             f"{expected_launches(forms, frames)}")
+    return counts
+
+
+def phase_stream(dev, smi: str) -> Dict[str, int]:
+    """Config 5 through the stream's entry points on the card; returns the
+    launches by kernel form, as counted (the per-frame paths that the
+    frames are held against are not counted)."""
+    frame_forms = SLICES[0].forms            # kitti_sgm8_128, whole frame
+    tile_forms = TILED_SLICES[0].forms       # its 2x2 stitched tiles
+    t0 = time.perf_counter()
+    pairs = [stream_pair(i) for i in range(STREAM_FRAMES)]
+    batches = [tuple(
+        torch.from_numpy(np.stack([getattr(p, side)
+                                   for p in pairs[i:i + STREAM_BATCH]])
+                         ).to(dev) for side in ("left", "right"))
+        for i in range(0, STREAM_FRAMES, STREAM_BATCH)]
+    print(f"stream: {STREAM_FRAMES} frames made and staged on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches: Dict[str, int] = {}
+
+    def add(counts):
+        for form, n in counts.items():
+            launches[form] = launches.get(form, 0) + n
+
+    # The full-width stream: one warm-up batch, then a reset and the run.
+    whole = make_tile_mesh([dev], (1, 1))
+    runner = StreamRunner(CFG, whole, STREAM_SHAPE, batch_size=STREAM_BATCH,
+                          device=dev)
+    runner.run_batches(batches[:1])
+    runner.frames_done, runner.elapsed = 0, 0.0
+    outs = []
+    reset_launch_counts()
+    stats = runner.run_batches(batches, on_result=outs.append)
+    add(_count("stream", frame_forms, STREAM_FRAMES))
+    print(json.dumps({
+        "metric": f"kitti_stream_batch{STREAM_BATCH}_fps_per_chip",
+        "value": stats["fps"], "unit": "fps", "batch": STREAM_BATCH,
+        "frames": stats["frames"], "shape": list(STREAM_SHAPE),
+        "elapsed_s": stats["elapsed"], "device": smi}))
+    if stats["frames"] != STREAM_FRAMES:
+        raise AssertionError(f"stream: {stats['frames']} frames done")
+    frame = build_pipeline(CFG, dev)
+    for b, res in enumerate(outs):
+        if res.frames != range(STREAM_BATCH) or res.disp.shape != (
+                STREAM_BATCH, *STREAM_SHAPE):
+            raise AssertionError(f"stream batch {b}: {res.frames}, "
+                                 f"{tuple(res.disp.shape)}")
+        _hold_frames(f"stream batch {b}", res.disp, res.valid,
+                     [frame(p.left, p.right) for p in
+                      pairs[b * STREAM_BATCH:(b + 1) * STREAM_BATCH]])
+    plain = build_pipeline(PLAIN, dev)(pairs[0].left, pairs[0].right)
+    if not (torch.equal(outs[0].disp[0], plain.disp)
+            and torch.equal(outs[0].valid[0], plain.valid)):
+        raise AssertionError("stream frame 0 differs from the plain path")
+    if not bool(torch.isfinite(outs[0].disp).all()):
+        raise AssertionError("stream: non-finite disparities")
+    print(f"stream: all {STREAM_FRAMES} frames equal the per-frame kernel "
+          f"path, frame 0 the plain torch path")
+    del outs
+
+    # StreamRunner.run on host frames: a fault, a restart, a partial batch.
+    host = [(p.left, p.right) for p in pairs[:RUN_FRAMES]]
+    delivered: Dict[int, tuple] = {}
+    work = ROOT / "build" / "chip_smoke_stream"
+    work.mkdir(parents=True, exist_ok=True)
+    manifest = work / "manifest.json"
+    manifest.unlink(missing_ok=True)
+
+    def make_runner():
+        return StreamRunner(CFG, whole, STREAM_SHAPE, batch_size=RUN_BATCH,
+                            manifest_path=str(manifest), device=dev)
+
+    def keep(r):
+        def on_result(res):
+            for j, index in enumerate(res.frames):
+                delivered[r.frames_done + index] = (res.disp[j],
+                                                    res.valid[j])
+        return on_result
+
+    reset_launch_counts()
+    first = make_runner()
+    try:
+        first.run(host, on_result=keep(first), fail_after=RUN_FAIL_AFTER)
+    except RuntimeError as e:
+        if "fault injection" not in str(e):
+            raise
+    else:
+        raise AssertionError("run: the injected fault did not fire")
+    second = make_runner()
+    at_restart = second.frames_done
+    stats_run = second.run(host, on_result=keep(second))
+    add(_count("stream run()", frame_forms,
+               RUN_FAIL_AFTER + -(-(RUN_FRAMES - RUN_FAIL_AFTER) // RUN_BATCH)
+               * RUN_BATCH))
+    if at_restart != RUN_FAIL_AFTER or stats_run["frames"] != RUN_FRAMES or (
+            sorted(delivered) != list(range(RUN_FRAMES))):
+        raise AssertionError(f"run: restarted at {at_restart}, "
+                             f"{stats_run['frames']} frames, delivered "
+                             f"{sorted(delivered)}")
+    _hold_frames("stream run()", [d for d, _ in delivered.values()],
+                 [v for _, v in delivered.values()],
+                 [frame(*host[fid]) for fid in delivered])
+    manifest.unlink()
+    print(f"stream run(): {RUN_FRAMES} host frames at batch {RUN_BATCH}, "
+          f"fault after {RUN_FAIL_AFTER}, restarted from the manifest at "
+          f"{at_restart}; every frame delivered once, equal to the per-frame "
+          f"path")
+
+    # A tiled stream on one card: the local 2x2 grid, stitched.
+    grid = make_tile_mesh([dev] * 4, (2, 2))
+    tiled = StreamRunner(CFG, grid, STREAM_SHAPE, batch_size=4, device=dev)
+    outs = []
+    reset_launch_counts()
+    tiled.run_batches([(batches[0][0][:4], batches[0][1][:4])],
+                      on_result=outs.append)
+    add(_count("tiled stream", tile_forms, 4))
+    halo = build_halo_pipeline(CFG, grid, device=dev)
+    _hold_frames("tiled stream", outs[0].disp, outs[0].valid,
+                 [halo(p.left, p.right) for p in pairs[:4]])
+    print("tiled stream: 4 frames on a local 2x2 grid (stitched), equal to "
+          "build_halo_pipeline")
+
+    # scaling_report's row for the one card.
+    reset_launch_counts()
+    rows = scaling_report(CFG, STREAM_SHAPE, device_counts=[1],
+                          iters=SCALE_ITERS, devices=[dev])
+    add(_count("scaling_report", frame_forms,
+               1 + SCALE_ITERS * SCALE_REPEATS))
+    for row in rows:
+        print("scaling row: " + json.dumps({**row, "device": smi}))
+    return launches
+
+
 def phase_anchor(dev):
     """The ALU anchor through its entry point; returns the best rate per
     element type and K6's launches by kernel form, as counted."""
@@ -1636,7 +1822,7 @@ def main(argv=None) -> int:
                     help="make the full-size config-4 fixtures into DIR "
                          "instead of running the phases")
     args = ap.parse_args(argv)
-    phase_device()
+    smi = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
@@ -1649,7 +1835,8 @@ def main(argv=None) -> int:
     frame0: Dict[str, tuple] = {}
     device_ms_of: Dict[str, float] = {}
     for counts in (*(run_slice(dev, sl, frame0, device_ms_of)
-                     for sl in SLICES), phase_hard_suite(dev)):
+                     for sl in SLICES), phase_hard_suite(dev),
+                   phase_stream(dev, smi)):
         for form, n in counts.items():
             launches[form] += n
     print("tiled vs whole, median device ms per frame: " + json.dumps({

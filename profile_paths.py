@@ -11,8 +11,12 @@ frames, under ``torch.profiler``; the script prints one JSON line per slice
 with the wall time, the device's busy time and idle share, and the device
 time by kernel (the port's CUDA kernels by name, everything else as plain
 torch), all per frame. For a pyramid slice it also times the model's
-stages one by one with CUDA events (medians). Needs a CUDA card; prints
-its name and power limit first.
+stages one by one with CUDA events (medians). The name
+``kitti_stream_batch48`` (last by default) is the batched stream: one
+48-frame batch of ``chip_smoke.py``'s stream frames, on the card, through
+``StreamRunner.run_batches`` after a warm-up batch, profiled the same way
+(the wall time ends with the runner's wait on the batch's event). Needs a
+CUDA card; prints its name and power limit first.
 
 ``--forms`` instead profiles K5 and K4 alone, each in a train of launches
 through its wrapper, at the shapes the paths give them (and K5 at
@@ -38,16 +42,20 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from chip_smoke import (
+    CFG,
     SAD,
     SADSGM,
     SLICES,
+    STREAM_SHAPE,
     cfg4_pair,
     cuda_ms,
     load_slice,
     phase_device,
+    stream_pair,
     to_dev,
     tsukuba_pair,
 )
@@ -70,6 +78,7 @@ from stereo_tpu_torch.ops.cuda import (
     sgm_paths,
     sgm_select,
 )
+from stereo_tpu_torch.parallel import StreamRunner, make_tile_mesh
 from stereo_tpu_torch.pipeline import compute_disparity
 
 #: Substrings of the port's kernel names, as the profiler reports them.
@@ -77,22 +86,18 @@ KERNELS = ("census_transform_kernel", "census_cost_kernel",
            "sad_cost_kernel", "sgm_path_kernel", "sgm_select_kernel",
            "median3x3_kernel")
 WARMUP = 3
+#: The batched stream's row: kitti_sgm8_128, one batch of this many frames.
+STREAM_ROW, STREAM_BATCH = "kitti_stream_batch48", 48
 
 
-def profile_slice(sl, frames: int, dev: torch.device) -> dict:
-    _, _, model = load_slice(sl)
-    fn = model.build(dev)
-    left, right = to_dev(sl.pair(0), dev)
-    for _ in range(WARMUP):
-        fn(left, right)
-    torch.cuda.synchronize()
+def profiled(run, frames: int) -> dict:
+    """``run()`` (``frames`` frames, ending in a wait for the card) under
+    the profiler: wall and device time per frame, by kernel."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for _ in range(frames):
-            fn(left, right)
-        torch.cuda.synchronize()
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = dict.fromkeys((*KERNELS, "plain torch"), 0.0)
     launches = 0
@@ -109,13 +114,45 @@ def profile_slice(sl, frames: int, dev: torch.device) -> dict:
     if busy_ms == 0:
         raise RuntimeError("the profiler recorded no device time")
     return {
-        "slice": sl.fixture, "model": model.name, "shape": list(left.shape),
         "frames": frames, "wall_ms": wall_ms / frames,
         "device_busy_ms": busy_ms / frames,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches": launches / frames,
         "device_ms": {k: v / frames for k, v in by_kernel.items()},
     }
+
+
+def profile_slice(sl, frames: int, dev: torch.device) -> dict:
+    _, _, model = load_slice(sl)
+    fn = model.build(dev)
+    left, right = to_dev(sl.pair(0), dev)
+    for _ in range(WARMUP):
+        fn(left, right)
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(frames):
+            fn(left, right)
+        torch.cuda.synchronize()
+
+    return {"slice": sl.fixture, "model": model.name,
+            "shape": list(left.shape), **profiled(run, frames)}
+
+
+def profile_stream(dev: torch.device) -> dict:
+    """One batch of the stream after a warm-up batch, frames on the card."""
+    pairs = [stream_pair(i) for i in range(STREAM_BATCH)]
+    batch = [tuple(torch.from_numpy(np.stack([getattr(p, side)
+                                              for p in pairs])).to(dev)
+                   for side in ("left", "right"))]
+    runner = StreamRunner(CFG, make_tile_mesh([dev], (1, 1)), STREAM_SHAPE,
+                          batch_size=STREAM_BATCH, device=dev)
+    runner.run_batches(batch)
+    runner.frames_done, runner.elapsed = 0, 0.0  # the cursor, not a resume
+    torch.cuda.synchronize()
+    return {"slice": STREAM_ROW, "model": "StreamRunner.run_batches, 1x1",
+            "shape": list(STREAM_SHAPE),
+            **profiled(lambda: runner.run_batches(batch), STREAM_BATCH)}
 
 
 def pyramid_stages(sl, dev: torch.device) -> dict:
@@ -231,8 +268,9 @@ def k2_forms(dev: torch.device, reps: int = 10) -> list:
 def main(argv=None) -> int:
     by_name = {sl.fixture: sl for sl in SLICES}
     ap = argparse.ArgumentParser(prog="profile_paths.py")
-    ap.add_argument("slices", nargs="*", default=list(by_name),
-                    help=f"slices to profile, of {sorted(by_name)}")
+    ap.add_argument("slices", nargs="*", default=[*by_name, STREAM_ROW],
+                    help=f"slices to profile, of {sorted(by_name)} and "
+                         f"{STREAM_ROW}")
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--forms", action="store_true",
                     help="profile K5 and K4 alone instead of the slices")
@@ -246,6 +284,9 @@ def main(argv=None) -> int:
             print(json.dumps(row))
         return 0
     for name in args.slices:
+        if name == STREAM_ROW:
+            print(json.dumps(profile_stream(dev)))
+            continue
         sl = by_name[name]
         print(json.dumps(profile_slice(sl, args.frames, dev)))
         if isinstance(load_slice(sl)[2], PyramidSGM):

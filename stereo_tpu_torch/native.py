@@ -1,10 +1,10 @@
-"""Host-side speckle filter and occlusion fill: the reference's C++, in
-the port's own copy.
+"""Host-side speckle filter, occlusion fill and PNM/PFM image files: the
+reference's C++, in the port's own copy.
 
-Compiles ``csrc/speckle.cpp`` (the text of the reference's
-``native/src/speckle.cpp``) with ``g++`` into ``build/kernels/`` (see
-``ops/cuda/build.py``) and calls it through ctypes. A failed build raises;
-there is no Python fallback.
+Compiles ``csrc/speckle.cpp`` and ``csrc/pnm.cpp`` (the text of the
+reference's ``native/src/``) with ``g++`` into one library in
+``build/kernels/`` (see ``ops/cuda/build.py``) and calls it through
+ctypes. A failed build raises; there is no Python fallback.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import numpy as np
 
 from .ops.cuda.build import CSRC_DIR, compile_library
 
-SPECKLE_SOURCE = CSRC_DIR / "speckle.cpp"
+SOURCES = [CSRC_DIR / "speckle.cpp", CSRC_DIR / "pnm.cpp"]
 GXX_FLAGS = ["g++", "-O3", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -25,13 +25,12 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def load() -> ctypes.CDLL:
-    """The speckle library, built on first use."""
+    """The native library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(
-                compile_library("stereo_speckle", [SPECKLE_SOURCE], GXX_FLAGS)
-            ))
+                compile_library("stereo_native", SOURCES, GXX_FLAGS)))
             lib.stpu_filter_speckles.restype = ctypes.c_int64
             lib.stpu_filter_speckles.argtypes = [
                 ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
@@ -43,8 +42,31 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
                 ctypes.c_int64, ctypes.c_int64,
             ]
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            signatures = {
+                # path, w, h, channels -> 0, or < 0 for a file it cannot read
+                "stpu_pnm_probe": [ctypes.c_char_p, i64p, i64p,
+                                   ctypes.POINTER(ctypes.c_int32)],
+                # path, out [h * w] uint8, w, h
+                "stpu_pnm_read_gray": [ctypes.c_char_p, _U8P,
+                                       ctypes.c_int64, ctypes.c_int64],
+                "stpu_pnm_write_gray": [ctypes.c_char_p, _U8P,
+                                        ctypes.c_int64, ctypes.c_int64],
+                # path, w, h
+                "stpu_pfm_probe": [ctypes.c_char_p, i64p, i64p],
+                # path, out [h * w] float32, w, h
+                "stpu_pfm_read": [ctypes.c_char_p, _F32P, ctypes.c_int64,
+                                  ctypes.c_int64],
+            }
+            for name, argtypes in signatures.items():
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = ctypes.c_int32
             _lib = lib
         return _lib
+
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_F32P = ctypes.POINTER(ctypes.c_float)
 
 
 def filter_speckles(
@@ -85,3 +107,42 @@ def fill_invalid_lr(disp: np.ndarray, valid: np.ndarray
     )
     filled = (~valid) & valid.any(axis=1, keepdims=True)
     return disp, filled
+
+
+def read_pnm_gray(path: str) -> Optional[np.ndarray]:
+    """A binary P5 or P6 file (maxval <= 255) as [H, W] uint8 grayscale
+    (P6: BT.601 integer luma, as PIL's ``convert("L")``); None for a file
+    of another kind, which the caller reads otherwise."""
+    lib = load()
+    w, h = ctypes.c_int64(), ctypes.c_int64()
+    channels = ctypes.c_int32()
+    if lib.stpu_pnm_probe(path.encode(), ctypes.byref(w), ctypes.byref(h),
+                          ctypes.byref(channels)):
+        return None
+    out = np.empty((h.value, w.value), dtype=np.uint8)
+    if lib.stpu_pnm_read_gray(path.encode(), out.ctypes.data_as(_U8P),
+                              w.value, h.value):
+        return None
+    return out
+
+
+def read_pfm_native(path: str) -> Optional[np.ndarray]:
+    """A single-channel ("Pf") PFM file as [H, W] float32, top row first;
+    None for a file of another kind."""
+    lib = load()
+    w, h = ctypes.c_int64(), ctypes.c_int64()
+    if lib.stpu_pfm_probe(path.encode(), ctypes.byref(w), ctypes.byref(h)):
+        return None
+    out = np.empty((h.value, w.value), dtype=np.float32)
+    if lib.stpu_pfm_read(path.encode(), out.ctypes.data_as(_F32P), w.value,
+                         h.value):
+        return None
+    return out
+
+
+def write_pnm_gray(path: str, img: np.ndarray) -> bool:
+    """Write [H, W] uint8 as binary P5; True on success."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    return load().stpu_pnm_write_gray(
+        path.encode(), img.ctypes.data_as(_U8P), img.shape[1],
+        img.shape[0]) == 0

@@ -59,7 +59,8 @@ def transform_words(img: torch.Tensor, window: Tuple[int, int],
     edge pixel.
 
     CPU tensors take the plain version (``ops.census``); CUDA tensors
-    launch the kernel, one launch per image.
+    launch the kernel, one launch per image (an image that is not
+    contiguous or does not start on a 16-byte boundary is copied once).
     """
     if img.ndim != 2:
         raise ValueError(f"expected an [H, W] image: {tuple(img.shape)}")
@@ -71,7 +72,9 @@ def transform_words(img: torch.Tensor, window: Tuple[int, int],
         return census_transform_plain(img, window).to(torch.int32)
     if img.dtype not in _IMAGE_TYPES:
         img = img.to(torch.int32)
-    img = img.contiguous()
+    if not img.is_contiguous() or img.data_ptr() % 16:
+        # e.g. frame i of a stacked batch of 375 x 1242 uint8 frames
+        img = img.clone(memory_format=torch.contiguous_format)
     require(img, "image", img.dtype, 2)
     h, w = img.shape
     words = (wy * wx + 30) // 32

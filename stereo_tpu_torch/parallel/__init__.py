@@ -1,12 +1,13 @@
 """Processing a frame in pieces: row bands and column patches on one
-device (``bands``), and the halo-exchange tile grid (``tiling``) over the
+device (``bands``), the halo-exchange tile grid (``tiling``) over the
 tiles of a ``TileMesh`` (``mesh``), in one process or one
-``torch.distributed`` rank per tile. The reference's exact reshard mode
-(``stereo_tpu/parallel/exact.py``) and its stream (``stream.py``) are not
-ported."""
+``torch.distributed`` rank per tile, and the batched video stream over the
+mesh's 'batch' replicas (``stream``). The reference's exact reshard mode
+(``stereo_tpu/parallel/exact.py``) is not ported."""
 
 from .bands import BandPlan, build_banded_pipeline, plan_bands
 from .mesh import TileMesh, initialize_multihost, make_tile_mesh
+from .stream import StreamResult, StreamRunner, build_stream_pipeline
 from .tiling import build_halo_pipeline
 
 
@@ -18,5 +19,6 @@ def build_exact_pipeline(*args, **kwargs):
 
 
 __all__ = ["BandPlan", "build_banded_pipeline", "plan_bands", "TileMesh",
-           "build_exact_pipeline", "build_halo_pipeline",
+           "StreamResult", "StreamRunner", "build_exact_pipeline",
+           "build_halo_pipeline", "build_stream_pipeline",
            "initialize_multihost", "make_tile_mesh"]

@@ -72,10 +72,19 @@ class TileMesh(NamedTuple):
         return self.devices[(b * self.ty + iy) * self.tx + ix]
 
 
+def cuda_devices(n: int = 0):
+    """``n`` CUDA devices, the cards in turn (card i % count), or every
+    card when ``n`` is 0; raises RuntimeError without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass the CPU explicitly to run "
+                           "there")
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n or count)]
+
+
 def _default_devices(n: int):
     if torch.cuda.is_available():
-        count = torch.cuda.device_count()
-        return [torch.device("cuda", i % count) for i in range(n or count)]
+        return cuda_devices(n)
     return [torch.device("cpu")] * (n or 1)
 
 

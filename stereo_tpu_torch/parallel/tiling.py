@@ -61,14 +61,14 @@ Vals = Dict[Tile, torch.Tensor]
 
 
 class LocalGrid:
-    """Every tile of the grid in this process; tile (iy, ix) runs on
-    ``mesh``'s device for it (batch replica 0)."""
+    """Every tile of batch replica ``b``'s grid in this process; tile
+    (iy, ix) runs on ``mesh.device(b, iy, ix)``."""
 
-    def __init__(self, mesh: TileMesh):
+    def __init__(self, mesh: TileMesh, b: int = 0):
         self.ty, self.tx = mesh.ty, mesh.tx
         self.tiles = [(iy, ix) for iy in range(self.ty)
                       for ix in range(self.tx)]
-        self.devices = {t: mesh.device(0, *t) for t in self.tiles}
+        self.devices = {t: mesh.device(b, *t) for t in self.tiles}
 
     def map(self, fn: Callable, *vals: Vals) -> Dict[Tile, object]:
         """``fn((iy, ix), *tensors of that tile)`` for each tile here."""
@@ -136,13 +136,19 @@ class DistributedGrid:
         return 0 <= t[0] < self.ty and 0 <= t[1] < self.tx
 
     def gather(self, blocks: Vals) -> torch.Tensor:
+        """This replica's frame: one all-gather over the whole process
+        group, of which the replica's own ranks' blocks are assembled.
+        Every rank of every replica joins each call, in the same order, so
+        no process group per replica is needed (those would have to be
+        made by every rank, for every replica, before the first frame);
+        the price is that each rank receives every replica's blocks."""
         (_, own), = blocks.items()
         dtype = own.dtype
         send = own.to(torch.uint8) if dtype == torch.bool else own
         parts = [torch.empty_like(send) for _ in range(dist.get_world_size())]
         dist.all_gather(parts, send.contiguous())
         full = torch.cat([
-            torch.cat([parts[iy * self.tx + ix] for ix in range(self.tx)],
+            torch.cat([parts[self._rank((iy, ix))] for ix in range(self.tx)],
                       dim=1) for iy in range(self.ty)])
         return full.to(dtype)
 
@@ -403,6 +409,62 @@ def make_stitched_tile_fn(cfg: StereoConfig, h: int, w: int, bh: int,
     return tile_fn
 
 
+def make_grid(mesh: TileMesh, b: int = 0):
+    """The exchange object of batch replica ``b``'s tile grid: its local
+    grid, or on a distributed mesh this rank's tile (whose replica the
+    rank fixes)."""
+    return DistributedGrid(mesh) if mesh.distributed else LocalGrid(mesh, b)
+
+
+def tile_body(cfg: StereoConfig, tile_cfg: TileConfig, ty: int, tx: int,
+              h: int, w: int, lr_stitch: Optional[bool], refusal: str):
+    """``(tile_fn, bh, bw)`` for h x w frames on a ty x tx grid: the block
+    shape of the frame padded to tile multiples, and its tile body, None
+    on a trivial grid (1 x 1 without padding: the whole frame runs). The
+    body is the stitched one where ``lr_stitch`` asks for it (None: where
+    tx > 1 and ``stitch_supported``), else the legacy one; ``lr_stitch=True``
+    where the stitched body does not apply raises ValueError(refusal)."""
+    hp, wp = padded_extent(h, ty), padded_extent(w, tx)
+    bh, bw = hp // ty, wp // tx
+    halo_y, halo_x_lo, halo_x_hi = _halo_widths(cfg, tile_cfg)
+    halo = tile_cfg.resolved_halo(cfg)
+    trivial = ty == 1 and tx == 1 and (hp, wp) == (h, w)
+    stitch = lr_stitch
+    if stitch is None:
+        stitch = not trivial and tx > 1 and stitch_supported(cfg, bw, halo)
+    elif stitch and (trivial or not stitch_supported(cfg, bw, halo)):
+        raise ValueError(refusal)
+    if trivial:
+        return None, bh, bw
+    if stitch:
+        return make_stitched_tile_fn(cfg, h, w, bh, bw, halo), bh, bw
+    return (make_tile_fn(cfg, h, w, bh, bw, halo_y, halo_x_lo, halo_x_hi),
+            bh, bw)
+
+
+def pad_frames(img: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """``img`` [..., H, W] padded with zeros below and to the right to
+    [..., hp, wp] (itself when it has that shape)."""
+    h, w = img.shape[-2:]
+    if (h, w) == (hp, wp):
+        return img
+    return torch.nn.functional.pad(img, (0, wp - w, 0, hp - h))
+
+
+def run_tiles(grid, tile_fn, left: torch.Tensor, right: torch.Tensor,
+              bh: int, bw: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame padded to the grid, [ty * bh, tx * bw], through ``tile_fn``:
+    this process's tiles take their blocks on their devices, and the
+    gathered (disp, valid) of the padded frame come back."""
+    def blocks(img):
+        return {(iy, ix): img[iy * bh:(iy + 1) * bh,
+                              ix * bw:(ix + 1) * bw].to(grid.devices[iy, ix])
+                for iy, ix in grid.tiles}
+
+    disp, valid = tile_fn(grid, blocks(left), blocks(right))
+    return grid.gather(disp), grid.gather(valid)
+
+
 def build_halo_pipeline(
     cfg: StereoConfig,
     mesh: TileMesh,
@@ -414,8 +476,9 @@ def build_halo_pipeline(
 
     Accepts any [H, W] pair (numpy arrays or tensors); the frame is padded
     with zeros to tile multiples, the padding is masked invalid and cropped
-    from the output. On a distributed mesh every rank passes the whole pair
-    and gets the whole (replicated) frame. The result stays on ``device``.
+    from the output. Batch replica 0's grid runs the frame; on a
+    distributed mesh every rank passes the whole pair and gets the whole
+    (replicated) frame. The result stays on ``device``.
 
     ``lr_stitch`` (None = auto): the stitched regime
     (``make_stitched_tile_fn``) where ``tx > 1`` and ``stitch_supported``
@@ -423,56 +486,29 @@ def build_halo_pipeline(
     the legacy regime.
     """
     tile_cfg = tile_cfg or TileConfig(mesh_shape=(mesh.ty, mesh.tx))
-    ty, tx = mesh.ty, mesh.tx
-    halo_y, halo_x_lo, halo_x_hi = _halo_widths(cfg, tile_cfg)
-    halo = tile_cfg.resolved_halo(cfg)
     device = torch.device(device)
 
     def tiled(left, right) -> StereoResult:
-        grid = (DistributedGrid if mesh.distributed else LocalGrid)(mesh)
+        grid = make_grid(mesh)
         left, right = torch.as_tensor(left), torch.as_tensor(right)
         if left.ndim != 2 or left.shape != right.shape:
             raise ValueError(f"expected two [H, W] images, got "
                              f"{tuple(left.shape)} and {tuple(right.shape)}")
         h, w = left.shape
-        hp, wp = padded_extent(h, ty), padded_extent(w, tx)
-        bh, bw = hp // ty, wp // tx
-        trivial = ty == 1 and tx == 1 and (hp, wp) == (h, w)
-        stitch = lr_stitch
-        if stitch is None:
-            stitch = (tx > 1 and stitch_supported(cfg, bw, halo)
-                      and not trivial)
-        elif stitch and (trivial or not stitch_supported(cfg, bw, halo)):
-            raise ValueError(
-                "lr_stitch needs a non-trivial tile grid, the cheap-LR "
-                "re-index (lr_check without lr_exact), SGM paths, a "
-                "census/rank cost, tiles at least D + min_disparity "
-                "wide, and a halo covering the descriptor window radius"
-            )
-        if trivial:
+        tile_fn, bh, bw = tile_body(
+            cfg, tile_cfg, mesh.ty, mesh.tx, h, w, lr_stitch,
+            "lr_stitch needs a non-trivial tile grid, the cheap-LR "
+            "re-index (lr_check without lr_exact), SGM paths, a "
+            "census/rank cost, tiles at least D + min_disparity "
+            "wide, and a halo covering the descriptor window radius")
+        if tile_fn is None:
             dev = grid.devices[(0, 0)]
             res = compute_disparity(left.to(dev), right.to(dev), cfg)
             return StereoResult(res.disp.to(device), res.valid.to(device))
-        if stitch:
-            tile_fn = make_stitched_tile_fn(cfg, h, w, bh, bw, halo)
-        else:
-            tile_fn = make_tile_fn(cfg, h, w, bh, bw, halo_y, halo_x_lo,
-                                   halo_x_hi)
-
-        def block(img):
-            """This process's tiles' [bh, bw] blocks of the frame padded
-            with zeros to [hp, wp]."""
-            out = {}
-            for iy, ix in grid.tiles:
-                b = img[iy * bh:(iy + 1) * bh, ix * bw:(ix + 1) * bw]
-                out[(iy, ix)] = img.new_zeros((bh, bw))
-                out[(iy, ix)][:b.shape[0], :b.shape[1]] = b
-                out[(iy, ix)] = out[(iy, ix)].to(grid.devices[(iy, ix)])
-            return out
-
-        disp, valid = tile_fn(grid, block(left), block(right))
-        return StereoResult(
-            disp=grid.gather(disp)[:h, :w].to(device),
-            valid=grid.gather(valid)[:h, :w].to(device))
+        hp, wp = mesh.ty * bh, mesh.tx * bw
+        disp, valid = run_tiles(grid, tile_fn, pad_frames(left, hp, wp),
+                                pad_frames(right, hp, wp), bh, bw)
+        return StereoResult(disp=disp[:h, :w].to(device),
+                            valid=valid[:h, :w].to(device))
 
     return tiled

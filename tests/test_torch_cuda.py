@@ -116,6 +116,31 @@ def test_transform_kernel(dev, window, dtype, h, w):
                        transform_words(img.to(torch.float32).floor(), window))
 
 
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_transform_kernel_takes_views_off_alignment(dev, dtype):
+    """Frame 1 of a stacked batch of 375 x 1242 uint8 frames starts off a
+    16-byte boundary, and a column slice is not contiguous: the wrapper
+    copies such an image once and launches on the copy, so whole-frame
+    paths take ``batch[i]`` as it is."""
+    rng = np.random.default_rng(7)
+    batch = torch.from_numpy(rng.integers(0, 256, size=(3, 375, 1242))
+                             ).to(dtype).to(dev)
+    frame = batch[1]
+    if dtype == torch.uint8:
+        assert frame.data_ptr() % 16
+    for img in (frame, batch[2, :, 3:200]):
+        reset_launch_counts()
+        got = transform_words(img, (9, 7))
+        assert launch_counts()["transform_words"] == 1
+        assert torch.equal(got, transform_words(img.clone(), (9, 7)))
+    pipe = build_pipeline(KITTI_SGM8_128.replace(num_disparities=32), dev)
+    left, right = batch[1].to(torch.uint8), batch[2].to(torch.uint8)
+    got = pipe(left, right)
+    want = pipe(left.clone(), right.clone())
+    assert torch.equal(got.disp, want.disp)
+    assert torch.equal(got.valid, want.valid)
+
+
 def test_transform_kernel_rejects(dev):
     img = torch.zeros((4, 5), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="64 bits"):
@@ -1026,3 +1051,79 @@ def test_local_grid_runs_the_kernels(dev, kw, shape, grid, lr_stitch):
         pair.left, pair.right)
     assert torch.equal(got.valid, want.valid)
     assert torch.equal(got.disp, want.disp)
+
+
+#: Launches per frame of the whole-frame census path, by wrapper.
+_FRAME_LAUNCHES = {"transform_words": 2, "census_cost": 1, "sgm_paths": 8,
+                   "sgm_select": 1, "median3x3": 1}
+
+
+@pytest.mark.parametrize("grid, replicas", [((1, 1), 1), ((1, 2), 2)],
+                         ids=["whole_frames", "two_replicas_of_1x2"])
+def test_stream_runs_the_kernels(dev, grid, replicas):
+    """StreamRunner.run_batches on the card: every frame equals the
+    per-frame path on the same grid (build_pipeline, or the halo-tiled
+    pipeline), and the whole-frame stream launches 13 kernels a frame."""
+    from stereo_tpu_torch.parallel import StreamRunner
+
+    cfg = KITTI_SGM8_128.replace(num_disparities=32)
+    shape = (41, 150)  # 6150-byte frames: not on 16-byte boundaries
+    pairs = [make_pair(shape, max_disp=24, texture="cloud", seed=40 + i)
+             for i in range(4)]
+    left = torch.from_numpy(np.stack([p.left for p in pairs])).to(dev)
+    right = torch.from_numpy(np.stack([p.right for p in pairs])).to(dev)
+    mesh = make_tile_mesh([dev] * (replicas * grid[0] * grid[1]), grid,
+                          batch=replicas)
+    runner = StreamRunner(cfg, mesh, shape, batch_size=4, device=dev)
+    outs = []
+    reset_launch_counts()
+    stats = runner.run_batches([(left, right)], on_result=outs.append)
+    counts = launch_counts()
+    assert stats["frames"] == 4 and outs[0].frames == range(4)
+    if grid == (1, 1):
+        assert {k: v for k, v in counts.items() if v} == {
+            k: 4 * v for k, v in _FRAME_LAUNCHES.items()}
+        frame = build_pipeline(cfg, dev)
+    else:
+        assert counts["sgm_paths"] == 4 * 2 * 8
+        frame = build_halo_pipeline(
+            cfg, make_tile_mesh([dev] * (grid[0] * grid[1]), grid),
+            device=dev)
+    for i, p in enumerate(pairs):
+        want = frame(p.left, p.right)
+        assert torch.equal(outs[0].disp[i], want.disp)
+        assert torch.equal(outs[0].valid[i], want.valid)
+
+
+def test_run_batches_refuses_host_batches(dev):
+    """run_batches on the card takes batches already there, of the
+    runner's batch extent and frame shape."""
+    from stereo_tpu_torch.parallel import StreamRunner
+
+    runner = StreamRunner(KITTI_SGM8_128.replace(num_disparities=16),
+                          make_tile_mesh([dev], (1, 1)), (24, 64),
+                          batch_size=2, device=dev)
+    host = np.zeros((2, 24, 64), np.uint8)
+    with pytest.raises(ValueError, match="already on"):
+        runner.run_batches([(host, host)])
+    with pytest.raises(ValueError, match="already on"):
+        runner.run_batches([(torch.from_numpy(host),) * 2])
+    wrong = torch.zeros((2, 24, 60), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError,
+                       match=r"stream pipeline built for 24x64 frames, got "
+                             r"\(2, 24, 60\)"):
+        runner.run_batches([(wrong, wrong)])
+    with pytest.raises(ValueError, match="batch extent 1 != runner batch 2"):
+        runner.run_batches([(wrong[:1], wrong[:1])])
+
+
+def test_native_pnm_library_builds(dev, tmp_path):
+    """The host library (speckle filter, occlusion fill, PNM/PFM files)
+    builds on the card's machine and reads back what it wrote."""
+    from stereo_tpu_torch import native
+
+    native.load()
+    img = np.arange(35, dtype=np.uint8).reshape(5, 7)
+    assert native.write_pnm_gray(str(tmp_path / "a.pgm"), img)
+    np.testing.assert_array_equal(native.read_pnm_gray(str(tmp_path /
+                                                           "a.pgm")), img)

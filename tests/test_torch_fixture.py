@@ -434,6 +434,9 @@ def test_port_imports_no_jax():
         "import stereo_tpu_torch.eval.harness, stereo_tpu_torch.utils.viz\n"
         "import stereo_tpu_torch.eval.roofline, stereo_tpu_torch.parallel\n"
         "import stereo_tpu_torch.ops.cuda.peak_kernel\n"
+        "import stereo_tpu_torch.parallel.stream, stereo_tpu_torch.data\n"
+        "import stereo_tpu_torch.eval.scaling, stereo_tpu_torch.utils.timing\n"
+        "import stereo_tpu_torch.data.kitti, stereo_tpu_torch.data.middlebury\n"
         "import chip_smoke, profile_paths\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stereo_tpu')]\n"
