@@ -10,8 +10,8 @@ result line):
   2. build: compiles the six CUDA kernels (nvcc, sm_90a, one compiler per
      source, all at once) and the host speckle and fill library (g++) from
      the sources in this checkout; prints ptxas's registers and spills of
-     every K2 instance with its ring (pixels staged per warp, shared memory
-     per block), of every K1 (transform and cost stage) and K3 instance,
+     every K2 instance (whole, rectangle and sheared forms) with its ring
+     (pixels staged per warp, shared memory per block), of every K1 (transform and cost stage) and K3 instance,
      and of every K5 (by sum type, window half-width and disparity chunk)
      and K4 instance with its shared memory per block (K5's at the paths'
      windows and D);
@@ -67,6 +67,20 @@ result line):
          version on the same tile (the plain K2 takes the rectangle as its
          valid mask); the launches of one frame are tallied by row as the
          tiles are held;
+       - the exact reshard mode (build_exact_pipeline on the local grid,
+         frame 0 of each exact path of phase 4): every kernel call of the
+         program, as it makes it, against the plain version on the same
+         inputs (``exact_rows``): K1's transform stage on a row band plus
+         the census window's radius and its cost stage on the band's rows
+         or, with the disparity-plane cost, on the whole frame over a slab
+         of D / n planes (K5 there for SAD), K2's subset forms (the two
+         horizontals of a row band, the two verticals of a column band)
+         and its sheared form (the verticals of a band of the sheared
+         volume, both signs, fixed and adaptive P2: 375x404 and 375x202 at
+         KITTI size, 497x304 at config 4's), K3 on a row band (base, and
+         the exact LR check's two forms) and K4 on the gathered frame
+         (rows "<kernel>/exact/<shape>[/form]"; a form that an earlier row
+         holds keeps that row); one frame's launches tallied by row;
        - K6 alu_peak in float32 and int32 at the anchor's two programs;
   4. slices: each path serves a few requests through get_model(...).build,
      host_postprocess and evaluate_disparity, with the launch counters set
@@ -96,8 +110,16 @@ result line):
      origin) and config 4 on 2x2 (legacy) and 1x2 (stitched) at 497x720
      and at 1988x2880, each with the launches that the kernels phase
      tallied for its tiles, and its median device ms beside the whole
-     frame's (a JSON line "tiled vs whole"). Frame 0 of each must
-     reproduce the reference package's hashes
+     frame's (a JSON line "tiled vs whole"); then the exact reshard mode
+     (build_exact_pipeline over make_tile_mesh(["cuda"] * n, grid)):
+     kitti_sgm8_128 on 2x2 and 4x2, kitti_sgm8_128_quality and
+     kitti_sgm8_128 with lr_exact on 2x2, kitti_sgm8_128 with the
+     disparity-plane cost on 2x2, tsukuba_sad16 (K5, no paths) with the
+     disparity-plane cost on 1x2 and config 4 at 497x720 on 2x2 (one
+     sheared family at 1988x2880 would be 2.48 GB), each with the launches
+     that the kernels phase tallied for it, frame 0 equal to the WHOLE
+     frame's fixture (so the disparity-plane runs equal the exact ones).
+     Frame 0 of each path must reproduce the reference package's hashes
      (stereo_tpu_torch/testdata/*_seed0.json) and the repeated seeds their
      first answers;
   5. hard suite: run_hard_suite(kitti_sgm8_128_quality, (160, 288), seeds
@@ -122,7 +144,12 @@ result line):
      scaling_report's row for the one card. Launches: 13 a frame (the
      kitti_sgm8_128 forms) for the 96 + 12 + 31 frames of the whole-frame
      runs, the 2x2 tiles' forms for the tiled one;
-  7. anchor: measure_alu_peak times K6 over the reference's two programs
+  7. exact: one JSON line "exact vs whole" per exact path with its median
+     device ms a frame beside the whole frame's, then
+     dryrun_multichip(8) on the card (a local grid of 8 tiles: the stream,
+     the halo pipeline stitched and legacy, the exact mode and its
+     disparity-plane cost, which must agree);
+  8. anchor: measure_alu_peak times K6 over the reference's two programs
      in float32 and int32 (one JSON line per program, then the best rate
      per type), with the launch counters set to 0 before and read after;
      every kernel row gains sol_fraction and sol_fraction_anchor.
@@ -234,15 +261,23 @@ from stereo_tpu_torch.ops.cuda.build import load_kernels  # noqa: E402
 from stereo_tpu_torch.ops.cuda.launch import run  # noqa: E402
 from stereo_tpu_torch.ops.cuda.peak_kernel import alu_peak_plain  # noqa: E402
 from stereo_tpu_torch.ops.postprocess import spill_width  # noqa: E402
-from stereo_tpu_torch.ops.sgm import PATH_STEPS  # noqa: E402
+from stereo_tpu_torch.ops.sgm import H_STEPS, PATH_STEPS  # noqa: E402
 from stereo_tpu_torch.eval.scaling import scaling_report  # noqa: E402
 from stereo_tpu_torch.parallel import (  # noqa: E402
     StreamRunner,
     build_banded_pipeline,
+    build_exact_pipeline,
     build_halo_pipeline,
     make_tile_mesh,
     plan_bands,
 )
+from stereo_tpu_torch.parallel import exact as exact_mode  # noqa: E402
+from stereo_tpu_torch.dryrun import dryrun_multichip  # noqa: E402
+from stereo_tpu_torch.ops.cost import (  # noqa: E402
+    census_cost_from_descriptors,
+    rank_cost_from_descriptors,
+)
+from stereo_tpu_torch.ops.cuda.sgm_kernel import sgm_paths_plain  # noqa: E402
 from stereo_tpu_torch.parallel.bands import right_context_of  # noqa: E402
 from stereo_tpu_torch.parallel.tiling import (  # noqa: E402
     _halo_widths,
@@ -463,6 +498,15 @@ class Slice(NamedTuple):
     forms: Dict[str, int]             # KERNEL_INFO row -> launches per frame
     model: str = ""                   # "": the fixture's model
     differs_from: str = ""            # print the share of pixels that differ
+    exact: tuple = ()                 # (grid, dplane_cost): the exact mode
+
+    @property
+    def name(self) -> str:
+        """The path's name: its fixture's, and the exact mode's grid."""
+        if not self.exact:
+            return self.fixture
+        (ty, tx), dplane = self.exact
+        return f"{self.fixture}_exact_{ty}x{tx}" + "_dplane" * dplane
 
 
 class BandedRunner(NamedTuple):
@@ -500,6 +544,27 @@ class TiledRunner(NamedTuple):
                               self.grid)
         return build_halo_pipeline(self.cfg, mesh, lr_stitch=self.lr_stitch,
                                    device=device)
+
+
+class ExactRunner(NamedTuple):
+    """A whole-frame fixture's configuration through the exact mode:
+    ``build(device)`` is ``build_exact_pipeline`` on the local grid, every
+    tile on ``device``."""
+
+    cfg: object
+    grid: Tuple[int, int]
+    dplane: bool
+
+    @property
+    def name(self) -> str:
+        return (f"exact {self.grid[0]}x{self.grid[1]} "
+                f"dplane_cost={self.dplane}")
+
+    def build(self, device):
+        mesh = make_tile_mesh([device] * (self.grid[0] * self.grid[1]),
+                              self.grid)
+        return build_exact_pipeline(self.cfg, mesh, dplane_cost=self.dplane,
+                                    device=device)
 
 
 #: A pyramid frame: the coarse pass at half size and D/2 (K1, K2 x 8, K3
@@ -573,6 +638,28 @@ TILED_SLICES = (
 )
 SLICES = SLICES + TILED_SLICES
 
+#: The exact reshard mode's paths (local grids on the card): frame 0 must
+#: give the WHOLE frame's fixture; their launches per frame are tallied by
+#: ``exact_rows`` in the kernels phase. Config 4 runs at 497x720: one
+#: sheared family at 1988x2880 would be 1988x4867x256 int8, 2.48 GB.
+EXACT_SLICES = (
+    Slice("kitti_sgm8_128", kitti_like_pair, (0, 1, 0), {},
+          exact=((2, 2), False)),
+    Slice("kitti_sgm8_128", kitti_like_pair, (0, 1, 0), {},
+          exact=((4, 2), False)),
+    Slice("kitti_sgm8_128_quality", kitti_like_pair, (0, 1, 0), {},
+          exact=((2, 2), False)),
+    Slice("kitti_sgm8_128_lr_exact", kitti_like_pair, (0, 1, 0), {},
+          exact=((2, 2), False)),
+    Slice("kitti_sgm8_128", kitti_like_pair, (0, 1, 0), {},
+          exact=((2, 2), True)),
+    Slice("tsukuba_sad16", tsukuba_pair, (0, 1, 0), {},
+          exact=((1, 2), True)),
+    Slice("middlebury_full_256_tiled_q", cfg4_pair((497, 720)), (0, 1, 0),
+          {}, exact=((2, 2), False)),
+)
+SLICES = SLICES + EXACT_SLICES
+
 #: While not None, ``held`` adds each call's launches here by row: one
 #: frame's launches of a tiled path, as ``tiled_rows`` holds its tiles.
 _TALLY = None
@@ -617,6 +704,8 @@ def load_slice(sl: Slice):
     """(fixture, config, model) of a slice, from its fixture file."""
     fx = json.loads((TESTDATA / f"{sl.fixture}_seed0.json").read_text())
     cfg = PRESETS[fx["preset"]].replace(**fx.get("overrides", {}))
+    if sl.exact:
+        return fx, cfg, ExactRunner(cfg, *sl.exact)
     if "bands" in fx:
         return fx, cfg, BandedRunner(cfg, tuple(fx["shape"]), fx["bands"])
     if "tiles" in fx:
@@ -739,20 +828,22 @@ def kernel_instances(kernel: str, log: str = "") -> Dict[str, dict]:
 
 def k2_instances() -> Dict[str, dict]:
     """Each K2 instance's registers and spills (``kernel_instances``; its
-    template arguments are DPL, PARTIAL, ADAPTIVE, RECT and the cost
-    type) and its ring from the C queries."""
+    template arguments are DPL, PARTIAL, ADAPTIVE, RUN (0 whole, 1 the
+    rectangle form, 2 the sheared form) and the cost type) and its ring
+    from the C queries."""
     lib = load_kernels()
     found: Dict[str, dict] = {}
     for args, row in kernel_instances("sgm_path_kernel").items():
-        dpl, partial, adaptive, rect, t = args.split("/")
+        dpl, partial, adaptive, run_form, t = args.split("/")
         cost_bytes = 1 if t == "a" else 2
         name = (f"dpl{dpl}{'/partial' * (partial == '1')}"
-                f"{'/adaptive' * (adaptive == '1')}{'/rect' * (rect == '1')}"
+                f"{'/adaptive' * (adaptive == '1')}"
+                f"{['', '/rect', '/shear'][int(run_form)]}"
                 f"/int{8 * cost_bytes}")
         d = 32 * int(dpl)
         found[name] = dict(stages=lib.stpu_sgm_path_stages(d),
                            smem=lib.stpu_sgm_path_smem(d, cost_bytes), **row)
-    if len(found) != 128:
+    if len(found) != 192:
         raise AssertionError(f"ptxas report: {len(found)} K2 instances")
     return dict(sorted(found.items()))
 
@@ -770,7 +861,7 @@ def per_direction_ms(dev, cost, scratch, image_ptr, cfg, rect=None
                         cost.element_size(), image_ptr, scratch.data_ptr(), h,
                         w, d, dy, dx, cfg.p1, cfg.p2, cfg.p2_min,
                         cfg.adaptive_grad_floor, 1, int(rect is not None),
-                        *box), reps=10)
+                        *box, 0, 0, 0), reps=10)
         for dy, dx in PATH_STEPS[: cfg.num_paths]
     }
 
@@ -1223,6 +1314,157 @@ def _tile_exact(dev, rows, tl, tr, cfg, x0, iw, box):
     return got[0]
 
 
+_V_PATHS = "stereo_tpu/ops/pallas/sgm_kernel.py:586"
+
+
+def _plain_words(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+class ExactCall(NamedTuple):
+    """One kernel call of the exact mode, as ``exact_rows`` holds it."""
+
+    name: str                 # its row, unless an earlier row holds its form
+    info: tuple               # the row's KERNEL_INFO entry
+    plain: Callable           # the plain version on the same inputs
+    bound: dict               # the row's bound (``eval.roofline``)
+    view: Callable            # the kernel's output as the plain one reads
+    plain_reps: int           # timed calls of the plain version
+
+
+def _exact_call(kernel: str, args, kw) -> ExactCall:
+    """The row of one kernel call of the exact mode."""
+    if kernel == "transform_words":
+        img, window = args[:2]
+        rank = kw.get("rank", False)
+        h, w = img.shape
+        fn = rank_transform_plain if rank else census_transform_plain
+        return ExactCall(f"census_transform/exact/{h}x{w}" + "/rank" * rank,
+                ("transform_words", _COST_CU, _RANK_T if rank else _CENSUS_T),
+                lambda: fn(img, window),
+                transform_bound(h, w, window, rank, img.element_size()),
+                (lambda got: got) if rank else _plain_words, 3)
+    if kernel in ("census_cost", "rank_cost"):
+        wl, wr, cfg = args[:3]
+        h, w = wl.shape[:2]
+        d = cfg.num_disparities
+        plain = cfg.replace(backend="torch")
+        rank = kernel == "rank_cost"
+        fn = rank_cost_from_descriptors if rank else (
+            lambda a, b, c: census_cost_from_descriptors(
+                _plain_words(a), _plain_words(b), c))
+        return ExactCall(f"census_cost/exact/{h}x{w}x{d}" + "/rank" * rank,
+                (kernel, _COST_CU, _COST_X if d >= 128 else _COST_D),
+                lambda: fn(wl, wr, plain),
+                cost_bound(h, w, d, 1 if rank else cfg.census_words,
+                           2 if rank else 5),
+                lambda got: got.to(torch.int32), 2)
+    if kernel == "sad_cost":
+        left, right, cfg = args[:3]
+        h, w = left.shape
+        d = cfg.num_disparities
+        plain = cfg.replace(backend="torch")
+        return ExactCall(f"sad_cost/exact/{h}x{w}x{d}",
+                ("sad_cost", _SAD_CU,
+                 "stereo_tpu/ops/pallas/cost_kernel.py:584"),
+                lambda: sad_cost_volume(left, right, plain),
+                sad_bound(h, w, d, cfg.sad_window),
+                lambda got: got.to(torch.int32), 3)
+    if kernel == "sgm_paths":
+        cost, cfg = args[:2]
+        h, w, d = cost.shape
+        steps = tuple(kw["steps"])
+        shear = kw.get("shear")
+        kind = (f"shear{shear[0]:+d}" if shear else
+                "h" if steps == H_STEPS else "v")
+        return ExactCall(f"sgm_paths/exact/{h}x{w}x{d}/{kind}"
+                + "/adaptive" * cfg.adaptive_p2
+                + "/int16" * (cost.dtype == torch.int16),
+                ("sgm_paths", _PATHS_CU,
+                 _H_PATHS if kind == "h" else _V_PATHS),
+                lambda: sgm_paths_plain(cost, cfg, image=kw.get("image"),
+                                        steps=steps, shear=shear),
+                paths_bound(cost, cfg, len(steps)),
+                lambda got: got, 1)
+    if kernel == "sgm_select":
+        s_, cfg = args[:2]
+        h, w, d = s_.shape
+        emit_d0 = kw.get("emit_d0", False)
+        plain = cfg.replace(backend="torch")
+        suffix = "/d0" if emit_d0 else "" if cfg.lr_check else "/int"
+        return ExactCall(f"sgm_select/exact/{h}x{w}x{d}{suffix}",
+                ("sgm_select", _SELECT_CU,
+                 "stereo_tpu/ops/pallas/sgm_kernel.py:1224" if emit_d0
+                 else _V_FUSED),
+                lambda: select_disparity(s_, plain, emit_d0=emit_d0),
+                select_bound(h, w, d, emit_d0=emit_d0),
+                lambda got: got, 2)
+    if kernel == "median3x3":
+        (disp,) = args
+        h, w = disp.shape
+        return ExactCall(f"median3x3/exact/{h}x{w}",
+                         ("median3x3", _MEDIAN_CU, _MEDIAN),
+                         lambda: median_3x3(disp), median_bound(h, w),
+                         lambda got: got, 5)
+    raise AssertionError(f"no exact-mode row for {kernel}")
+
+
+#: The kernel wrappers the exact mode calls, by name in its module.
+_EXACT_KERNELS = ("transform_words", "census_cost", "rank_cost", "sad_cost",
+                  "sgm_paths", "sgm_select", "median3x3")
+
+
+def exact_rows(dev, left, right, cfg, grid, dplane, forms) -> dict:
+    """Every kernel form ``build_exact_pipeline`` launches on the local
+    ``grid`` for this frame, each call held against its plain version on
+    the same inputs as the program runs: the exact mode's module calls its
+    kernels through wrappers that launch the kernel alone, compare it with
+    the plain version and time each row's first call. A form that an
+    earlier row holds keeps that row (the whole frame's K4, K1's transform
+    stage on the whole images of a disparity-plane cost); new rows are
+    ``<kernel>/exact/<shape>[/form]``. ``forms`` gets one frame's launches
+    by row."""
+    rows: dict = {}
+    forms.clear()
+    real = {k: getattr(exact_mode, k) for k in _EXACT_KERNELS}
+
+    def holding(kernel):
+        def call(*args, **kw):
+            call = _exact_call(kernel, args, kw)
+            reset_launch_counts()
+            got = real[kernel](*args, **kw)
+            torch.cuda.synchronize()
+            launched = launch_forms()
+            if len(launched) != 1 or next(iter(launched))[0] != call.info[0]:
+                raise AssertionError(f"{call.name}: launched {launched}")
+            (form, n), = launched.items()
+            name = HELD.setdefault(form, call.name)
+            KERNEL_INFO.setdefault(name, call.info)
+            forms[name] = forms.get(name, 0) + n
+            want = synced(call.plain)
+            pairs = (zip(got, want) if isinstance(got, tuple)
+                     else [(call.view(got), want)])
+            err = max(require_equal(f"{name} output {i}", g, w_)
+                      for i, (g, w_) in enumerate(pairs))
+            _first_row(rows, name, lambda: dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: real[kernel](*args, **kw), reps=3),
+                plain_ms=cuda_ms(call.plain, reps=call.plain_reps, warmup=0),
+                **call.bound))
+            return got
+        return call
+
+    try:
+        for k in _EXACT_KERNELS:
+            setattr(exact_mode, k, holding(k))
+        ExactRunner(cfg, grid, dplane).build(dev)(left, right)
+    finally:
+        for k, fn in real.items():
+            setattr(exact_mode, k, fn)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def peak_rows(dev) -> dict:
     """K6 in both element types at the anchor's programs, against its plain
     version (the chain's closed form) on quarter steps in [0, 64)."""
@@ -1438,6 +1680,16 @@ def phase_kernels(dev) -> dict:
         print(f"{sl.fixture}: launches per frame {sl.forms}")
         del gl, gr
         torch.cuda.empty_cache()
+    # The exact mode: every kernel call of one frame of each exact path,
+    # held as the program makes it; the launches tallied into its forms.
+    for sl in EXACT_SLICES:
+        _, cfg, runner = load_slice(sl)
+        gl, gr = to_dev(sl.pair(0), dev)
+        for name, row in exact_rows(dev, gl, gr, cfg, runner.grid,
+                                    runner.dplane, sl.forms).items():
+            rows.setdefault(name, row)
+        print(f"{sl.name}: launches per frame {sl.forms}")
+        del gl, gr
     rows.update(peak_rows(dev))
 
     for name, r in rows.items():
@@ -1481,12 +1733,12 @@ def run_slice(dev, sl: Slice, frame0: Dict[str, tuple],
         post = (sha16(disp), sha16(valid))
         if res.disp.shape != pair.left.shape or not bool(
                 torch.isfinite(res.disp).all()):
-            raise AssertionError(f"{sl.fixture} frame {i}: bad disparity map")
+            raise AssertionError(f"{sl.name} frame {i}: bad disparity map")
         if seed in answers and answers[seed] != (raw, post):
             raise AssertionError(
-                f"{sl.fixture} frame {i}: seed {seed} answered differently")
+                f"{sl.name} frame {i}: seed {seed} answered differently")
         answers[seed] = (raw, post)
-        print(f"{sl.fixture} frame {i} seed {seed}: device "
+        print(f"{sl.name} frame {i} seed {seed}: device "
               f"{device_ms[-1]:.3f} ms, end to end {e2e_ms[-1]:.3f} ms, bad3 "
               f"{m['bad3']:.6f}, density {m['density']:.6f}")
         if i == 0 and sl.differs_from:
@@ -1495,24 +1747,25 @@ def run_slice(dev, sl: Slice, frame0: Dict[str, tuple],
             print(f"{sl.fixture}: {float(differ.float().mean()):.6f} of the "
                   f"pixels differ from {sl.differs_from} (SGM warm-up at "
                   f"patch edges)")
-        elif i == 0 and any(sl.fixture == o.differs_from for o in SLICES):
+        elif i == 0 and not sl.exact and any(
+                sl.fixture == o.differs_from for o in SLICES):
             frame0[sl.fixture] = (res.disp, res.valid)
         if seed == 0:
             want = ((fx["disp"], fx["valid"]), (fx["post_disp"],
                                                  fx["post_valid"]))
             if (raw, post) != want or int(valid.sum()) != fx["post_n_valid"]:
-                raise AssertionError(f"{sl.fixture} frame {i}: hashes {raw} "
+                raise AssertionError(f"{sl.name} frame {i}: hashes {raw} "
                                      f"{post} != fixture {want}")
             if (m["bad3"], m["density"]) != (fx["bad3"], fx["density"]):
                 raise AssertionError(
-                    f"{sl.fixture} frame {i}: metrics {m} != fixture")
-    counts = counted_launches(sl.fixture)
+                    f"{sl.name} frame {i}: metrics {m} != fixture")
+    counts = counted_launches(sl.name)
     want_counts = expected_launches(sl.forms, len(sl.seeds))
     if counts != want_counts:
         raise AssertionError(
-            f"{sl.fixture}: launch counts {counts} != {want_counts}")
-    device_ms_of[sl.fixture] = statistics.median(device_ms)
-    print(f"slice {sl.fixture} ({model.name}): {len(sl.seeds)} frames, "
+            f"{sl.name}: launch counts {counts} != {want_counts}")
+    device_ms_of[sl.name] = statistics.median(device_ms)
+    print(f"slice {sl.name} ({model.name}): {len(sl.seeds)} frames, "
           f"median device {statistics.median(device_ms):.3f} ms, median end "
           f"to end {statistics.median(e2e_ms):.3f} ms; frame 0 matches the "
           f"reference hashes; launches {counts}")
@@ -1742,6 +1995,23 @@ def phase_stream(dev, smi: str) -> Dict[str, int]:
     return launches
 
 
+def phase_exact(device_ms_of: Dict[str, float]) -> None:
+    """The exact mode's paths ran in phase 4 (their frame 0 equal to the
+    whole frame's fixture, the disparity-plane runs therefore to the exact
+    ones); here one JSON line per path with its median device ms a frame
+    beside the whole frame's, then ``dryrun_multichip(8)`` on the card
+    (not counted: its tiny frames are no main path)."""
+    for sl in EXACT_SLICES:
+        print("exact vs whole, median device ms per frame: " + json.dumps({
+            "path": sl.name, "exact": device_ms_of[sl.name],
+            "whole": device_ms_of.get(sl.fixture), "whole_path": sl.fixture}))
+    t0 = time.perf_counter()
+    dryrun_multichip(8, device="cuda")
+    torch.cuda.synchronize()
+    print(f"dryrun_multichip(8) on the card: OK in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_anchor(dev):
     """The ALU anchor through its entry point; returns the best rate per
     element type and K6's launches by kernel form, as counted."""
@@ -1844,6 +2114,7 @@ def main(argv=None) -> int:
                      "whole": device_ms_of[sl.differs_from],
                      "whole_path": sl.differs_from}
         for sl in TILED_SLICES}))
+    phase_exact(device_ms_of)
     peak, anchor_counts = phase_anchor(dev)
     for form, n in anchor_counts.items():
         launches[form] += n

@@ -4,14 +4,17 @@
     python3 profile_paths.py --forms
     python3 profile_paths.py --k2
 
-For each named slice of ``chip_smoke.SLICES`` (all by default; config and
-model come from the slice's fixture file, as there) the model serves a few
-frames with the images already on the card and no synchronisation between
-frames, under ``torch.profiler``; the script prints one JSON line per slice
-with the wall time, the device's busy time and idle share, and the device
-time by kernel (the port's CUDA kernels by name, everything else as plain
-torch), all per frame. For a pyramid slice it also times the model's
-stages one by one with CUDA events (medians). The name
+For each named slice of ``chip_smoke.SLICES`` (all by default, the exact
+mode's paths such as ``kitti_sgm8_128_exact_2x2`` and
+``kitti_sgm8_128_exact_2x2_dplane`` included; config and model come from
+the slice's fixture file, as there) the model serves a few frames with the
+images already on the card and no synchronisation between frames, under
+``torch.profiler``; the script prints one JSON line per slice with the wall
+time, the device's busy time and idle share, and the device time by kernel
+(the port's CUDA kernels by name, everything else as plain torch, its six
+largest launches by name in ``plain_top``), all per frame. For a pyramid
+slice it also times the model's stages one by one with CUDA events
+(medians). The name
 ``kitti_stream_batch48`` (last by default) is the batched stream: one
 48-frame batch of ``chip_smoke.py``'s stream frames, on the card, through
 ``StreamRunner.run_batches`` after a warm-up batch, profiled the same way
@@ -29,7 +32,10 @@ device time the call spends (plain torch launches around the kernel;
 random costs: its whole-frame form at KITTI size (fixed and adaptive P2,
 375x1242x128) and at config 4's (1988x2880x256), and, where the checkout's
 ``sgm_paths`` takes a rectangle, its rectangle form at the same shapes
-(a tile's in-frame rectangle, 20 rows and 276 columns in from each edge).
+(a tile's in-frame rectangle, 20 rows and 276 columns in from each edge),
+and where it takes a shear, the down-right diagonals two ways: the whole
+form's two directions and the sheared form's two verticals of the whole
+sheared volume.
 It also runs against an older checkout (copy it there), whose K2 has the
 whole-frame form only: the two checkouts' whole forms compare in one call.
 """
@@ -100,6 +106,7 @@ def profiled(run, frames: int) -> dict:
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = dict.fromkeys((*KERNELS, "plain torch"), 0.0)
+    plain = {}
     launches = 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -109,6 +116,8 @@ def profiled(run, frames: int) -> dict:
             us = ev.self_cuda_time_total
         key = next((k for k in KERNELS if k in ev.key), "plain torch")
         by_kernel[key] += us / 1e3
+        if key == "plain torch":
+            plain[ev.key[:60]] = plain.get(ev.key[:60], 0.0) + us / 1e3
         launches += ev.count
     busy_ms = sum(by_kernel.values())
     if busy_ms == 0:
@@ -119,6 +128,8 @@ def profiled(run, frames: int) -> dict:
         "idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches": launches / frames,
         "device_ms": {k: v / frames for k, v in by_kernel.items()},
+        "plain_top": {k: v / frames for k, v in sorted(
+            plain.items(), key=lambda kv: -kv[1])[:6]},
     }
 
 
@@ -135,7 +146,7 @@ def profile_slice(sl, frames: int, dev: torch.device) -> dict:
             fn(left, right)
         torch.cuda.synchronize()
 
-    return {"slice": sl.fixture, "model": model.name,
+    return {"slice": sl.name, "model": model.name,
             "shape": list(left.shape), **profiled(run, frames)}
 
 
@@ -234,9 +245,13 @@ def kernel_forms(dev: torch.device, reps: int = 50) -> list:
 def k2_forms(dev: torch.device, reps: int = 10) -> list:
     """K2's whole-frame form, and its rectangle form where this checkout
     has one, at KITTI and config-4 sizes: device ms per call of eight
-    directions (``profiled_ms``, per launch times 8)."""
+    directions (``profiled_ms``, per launch times 8). Where the checkout
+    has the sheared form, also the two down-right diagonals of the whole
+    form and the sheared form's two verticals of the whole sheared volume
+    [H, W + H - 1, D] (the same scans), per call of those two."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    rect = "rect" in inspect.signature(sgm_paths).parameters
+    params = inspect.signature(sgm_paths).parameters
+    rect, shear = "rect" in params, "shear" in params
     rows = []
     for name, cfg, shape in (
             ("kitti 375x1242x128", KITTI_SGM8_128, (375, 1242, 128)),
@@ -261,12 +276,36 @@ def k2_forms(dev: torch.device, reps: int = 10) -> list:
             rows.append({"form": f"sgm_paths {form} {name}", "calls": reps,
                          "kernel_device_ms_per_call": got[0] * 8,
                          "other_device_ms": got[1]})
+        if shear:
+            from stereo_tpu_torch.ops.sgm import (
+                PATH_STEPS,
+                V_STEPS,
+                shear_window,
+            )
+
+            sheared = shear_window(cost, 0, h, 1, 0, w + h - 1)
+            image_sh = shear_window(image, 0, h, 1, 0, w + h - 1)
+            for form, call in (
+                    ("diagonals+1", lambda: sgm_paths(
+                        cost, cfg, image=image, steps=PATH_STEPS[4:6])),
+                    ("shear+1", lambda: sgm_paths(
+                        sheared, cfg, image=image_sh, steps=V_STEPS,
+                        shear=(1, 0, w)))):
+                got = profiled_ms(call, "sgm_path_kernel", reps=reps)
+                if got is None:
+                    raise RuntimeError(f"{name}: the profiler recorded no "
+                                       f"K2 launch")
+                rows.append({"form": f"sgm_paths {form} {name}",
+                             "calls": reps,
+                             "kernel_device_ms_per_call": got[0] * 2,
+                             "other_device_ms": got[1]})
+            del sheared, image_sh
         del cost, image
     return rows
 
 
 def main(argv=None) -> int:
-    by_name = {sl.fixture: sl for sl in SLICES}
+    by_name = {sl.name: sl for sl in SLICES}
     ap = argparse.ArgumentParser(prog="profile_paths.py")
     ap.add_argument("slices", nargs="*", default=[*by_name, STREAM_ROW],
                     help=f"slices to profile, of {sorted(by_name)} and "

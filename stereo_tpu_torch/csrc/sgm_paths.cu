@@ -24,6 +24,23 @@
 // step, not per round, and uniform over the warp; the whole-frame form
 // (RECT false) compiles without it, so its step is unchanged.
 //
+// Sheared form (SHEAR; the exact reshard mode's diagonals,
+// stereo_tpu/parallel/exact.py, stereo_tpu/ops/sgm.py:127-157, 238-256): a
+// vertical scan of a band of the sheared volume [H, W+H-1, D], in which
+// the down-right (sign +1: sheared column x' holds frame column
+// x' + y - (H-1)) or down-left (sign -1: x' - y) diagonals are columns.
+// Given the band's global sheared column origin x0' and the frame width W,
+// the scanline of sheared column x = x0' + line keeps its carry only over
+// the one run of rows whose source column lies in the frame, 0 <= x + y -
+// (H-1) < W or 0 <= x - y < W: outside the run L = C, and the run's first
+// row starts fresh. That is the rectangle form's per-step test with the
+// run [t_in, t_out) of each line taken from the shear instead of the
+// rectangle, computed once per line; the plain twin is the masked vertical
+// recurrence under the reference's sheared validity (_shear(valid) &
+// geometry), over the whole band, the rows outside the run too. Under
+// adaptive P2 the vertical predecessor in the sheared image is the frame's
+// diagonal predecessor, so the gradient needs nothing new.
+//
 // Adaptive P2 (stereo_tpu/ops/sgm.py:55-74, the Pallas kernels' `adaptive`
 // and `cp_mode` forms): given the reference image, each step replaces P2
 // with max(p2_min, P2 / g) where g = |I(p) - I(p-r)| - grad_floor > 0 (P2
@@ -242,16 +259,24 @@ __device__ __forceinline__ void axis_run(int p, int step, int lo, int hi,
   }
 }
 
-// The rectangle's bounds (the RECT form's only arguments).
+// The rectangle's bounds (the RECT form's arguments) and, for the SHEAR
+// form, the sheared band's shear sign (+1 or -1), its global sheared
+// column origin and the frame's width.
 struct Rect {
   int y_lo, y_hi, x_lo, x_hi;
+  int shear, x0, frame_w;
 };
 
+// Where a scanline keeps its carry: on every step (kWhole), over its run
+// inside a rectangle (kRect), or over the run of rows of a sheared column
+// whose source column lies in the frame (kShear).
+enum Run { kWhole = 0, kRect = 1, kShear = 2 };
+
 // DPL = disparities per lane, ceil(D / 32); PARTIAL: D = d < 32 * DPL
-// (registers past D are dead); ADAPTIVE: P2 from the image; RECT: paths
-// start fresh at the edges of `rect`; CostT: int8 (census, rank) or int16
-// (SAD) costs.
-template <int DPL, bool PARTIAL, bool ADAPTIVE, bool RECT, typename CostT>
+// (registers past D are dead); ADAPTIVE: P2 from the image; RUN: where
+// paths start fresh (enum Run); CostT: int8 (census, rank) or int16 (SAD)
+// costs.
+template <int DPL, bool PARTIAL, bool ADAPTIVE, int RUN, typename CostT>
 __global__ void __launch_bounds__(32)
     sgm_path_kernel(const CostT* __restrict__ cost,
                     const int* __restrict__ image, int16_t* __restrict__ sum,
@@ -294,15 +319,25 @@ __global__ void __launch_bounds__(32)
   const ptrdiff_t pix0 = (ptrdiff_t)y * w + x;
   const ptrdiff_t off0 = pix0 * D;
   const int live = D - lane * DPL;  // this lane's registers below D
-  // RECT: the steps whose pixel lies in the rectangle, [t_in, t_out); step
-  // t keeps its carry iff its predecessor t - 1 does: t_in < t <= t_out.
+  // RECT and SHEAR: the steps whose pixel lies in the run, [t_in, t_out);
+  // step t keeps its carry iff its predecessor t - 1 does: t_in < t <=
+  // t_out. SHEAR scans a column (step_x = 0): its run is the rows [lo, hi)
+  // whose source column x' + y - (H-1) (sign +1) or x' - y (sign -1) lies
+  // in [0, W).
   int t_in = 0, t_out = n;
-  if (RECT) {
+  if (RUN == kRect) {
     int ay, by, ax, bx;
     axis_run(y, step_y, rect.y_lo, rect.y_hi, n, ay, by);
     axis_run(x, step_x, rect.x_lo, rect.x_hi, n, ax, bx);
     t_in = max(max(ay, ax), 0);
     t_out = min(min(by, bx), n);
+  } else if (RUN == kShear) {
+    const int xs = rect.x0 + x;
+    const int lo = rect.shear > 0 ? h - 1 - xs : xs - rect.frame_w + 1;
+    int a, b;
+    axis_run(y, step_y, max(lo, 0), min(lo + rect.frame_w, h), n, a, b);
+    t_in = max(a, 0);
+    t_out = min(b, n);
   }
 
   // Start pixel t's copies (pixel pix, its voxels at off) into its slot,
@@ -378,7 +413,7 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
     for (int g = 0; g < kRound; ++g) {
       if (t0 + g >= n) break;  // uniform over the warp
-      if (RECT && !(t0 + g > t_in && t0 + g <= t_out)) {
+      if (RUN != kWhole && !(t0 + g > t_in && t0 + g <= t_out)) {
 #pragma unroll
         for (int j = 0; j < DPL; ++j) L[j] = 0;  // a fresh start: L = C
       }
@@ -427,7 +462,7 @@ __global__ void __launch_bounds__(32)
 template <int DPL, bool PARTIAL, typename CostT>
 cudaError_t launch(const void* cost, const int* image, int16_t* sum, int h,
                    int w, int d, int step_y, int step_x, int p1, int p2,
-                   int p2_min, int grad_floor, int accumulate, bool rect,
+                   int p2_min, int grad_floor, int accumulate, int run,
                    const Rect& r, cudaStream_t s) {
   int n_lines;
   if (step_y == 0) {
@@ -439,12 +474,16 @@ cudaError_t launch(const void* cost, const int* image, int16_t* sum, int h,
   }
   const auto* c = static_cast<const CostT*>(cost);
   constexpr int smem = block_smem(DPL, (int)sizeof(CostT));
-  auto* kernel =
-      image != nullptr
-          ? (rect ? sgm_path_kernel<DPL, PARTIAL, true, true, CostT>
-                  : sgm_path_kernel<DPL, PARTIAL, true, false, CostT>)
-          : (rect ? sgm_path_kernel<DPL, PARTIAL, false, true, CostT>
-                  : sgm_path_kernel<DPL, PARTIAL, false, false, CostT>);
+  using Kernel = decltype(&sgm_path_kernel<DPL, PARTIAL, true, kWhole, CostT>);
+  const Kernel adaptive[3] = {
+      sgm_path_kernel<DPL, PARTIAL, true, kWhole, CostT>,
+      sgm_path_kernel<DPL, PARTIAL, true, kRect, CostT>,
+      sgm_path_kernel<DPL, PARTIAL, true, kShear, CostT>};
+  const Kernel fixed[3] = {
+      sgm_path_kernel<DPL, PARTIAL, false, kWhole, CostT>,
+      sgm_path_kernel<DPL, PARTIAL, false, kRect, CostT>,
+      sgm_path_kernel<DPL, PARTIAL, false, kShear, CostT>};
+  const Kernel kernel = image != nullptr ? adaptive[run] : fixed[run];
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -471,21 +510,26 @@ extern "C" int stpu_sgm_path_smem(int d, int cost_bytes) {
 // int32 reference view for adaptive P2, or NULL for fixed P2. cost and sum
 // are 16-byte aligned. rect != 0 selects the rectangle form with the
 // in-frame rectangle [y_lo, y_hi) x [x_lo, x_hi) of the block (0 <= y_lo <=
-// y_hi <= h, 0 <= x_lo <= x_hi <= w).
+// y_hi <= h, 0 <= x_lo <= x_hi <= w). shear = +1 or -1 selects the sheared
+// form (a vertical step, no rectangle): the block is the sheared columns
+// [x0, x0 + w) of an h x frame_w frame, 0 <= x0, x0 + w <= frame_w + h - 1.
 extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
                              const void* image, void* sum, int h, int w,
                              int d, int step_y, int step_x, int p1, int p2,
                              int p2_min, int grad_floor, int accumulate,
                              int rect, int y_lo, int y_hi, int x_lo, int x_hi,
-                             void* stream) {
+                             int shear, int x0, int frame_w, void* stream) {
   if (h <= 0 || w <= 0 || d <= 0 || d > 256 || step_y < -1 || step_y > 1 ||
       step_x < -1 || step_x > 1 || (step_y == 0 && step_x == 0) ||
       (cost_bytes != 1 && cost_bytes != 2) || p1 < 0 || p2 < 0 ||
       p2_min < 0 || y_lo < 0 || y_lo > y_hi || y_hi > h || x_lo < 0 ||
-      x_lo > x_hi || x_hi > w) {
+      x_lo > x_hi || x_hi > w || shear < -1 || shear > 1 ||
+      (shear != 0 && (rect != 0 || step_x != 0 || frame_w < 1 || x0 < 0 ||
+                      (long long)x0 + w > (long long)frame_w + h - 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  const Rect r{y_lo, y_hi, x_lo, x_hi};
+  const Rect r{y_lo, y_hi, x_lo, x_hi, shear, x0, frame_w};
+  const int run = shear != 0 ? kShear : rect != 0 ? kRect : kWhole;
   if (((reinterpret_cast<uintptr_t>(cost) | reinterpret_cast<uintptr_t>(sum)) &
        15) != 0 ||
       (reinterpret_cast<uintptr_t>(image) & 3) != 0) {
@@ -497,7 +541,7 @@ extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
 #define STPU_PATH_AS(DPL, PARTIAL, T)                                       \
   return (int)launch<DPL, PARTIAL, T>(cost, im, s, h, w, d, step_y, step_x, \
                                       p1, p2, p2_min, grad_floor,           \
-                                      accumulate, rect != 0, r, st)
+                                      accumulate, run, r, st)
 #define STPU_PATH(DPL)                                                      \
   if (d == 32 * DPL) {                                                      \
     if (cost_bytes == 1) {                                                  \

@@ -35,14 +35,15 @@ def scaling_report(
     Frames split over the 'batch' axis; with ``tiles_per_device`` each
     frame also tiles over ('ty', 'tx'). ``devices`` defaults to every CUDA
     card, and without a card raises (the CPU only where the caller passes
-    it); counts above their number are dropped. Frames are random, made
+    it). The default counts are those of (1, 2, 4, 8, 16, 32) that the
+    devices hold; an explicit count above them raises ValueError from
+    ``make_tile_mesh``, as the reference's does. Frames are random, made
     from seed 0, and placed on the first device before timing. Each row
     names the devices it ran on (``device``).
     """
     devs = [torch.device(d) for d in (devices or cuda_devices())]
     if device_counts is None:
-        device_counts = (1, 2, 4, 8, 16, 32)
-    device_counts = [n for n in device_counts if n <= len(devs)]
+        device_counts = [n for n in (1, 2, 4, 8, 16, 32) if n <= len(devs)]
     ty, tx = tiles_per_device
 
     rng = np.random.default_rng(0)

@@ -56,9 +56,11 @@ KERNEL_SIGNATURES = {
                       _ci, _ci, _cu, _ci, _cf, _cf, _vp],
     # cost, cost_bytes, image (NULL: fixed P2), sum, h, w, d, step_y,
     # step_x, p1, p2, p2_min, grad_floor, accumulate, rect (0: the
-    # whole-frame form), y_lo, y_hi, x_lo, x_hi, stream
+    # whole-frame form), y_lo, y_hi, x_lo, x_hi, shear (0, or the sheared
+    # form's sign), x0 (its sheared column origin), frame_w, stream
     "stpu_sgm_path": [_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
-                      _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
+                      _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+                      _vp],
     # sum, disp, valid, d0 (NULL: not emitted), h, w, d, md, subpixel,
     # uniqueness, uniq_f, lr_check, lr_tau, x0, iw, lr_bit, qr (NULL: not
     # the emit_qr form), spill, own_lo, own_hi, sp, stream

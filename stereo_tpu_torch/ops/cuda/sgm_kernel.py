@@ -12,18 +12,23 @@ at D=16). K2's rectangle form replaces the Pallas kernels' ``bounds`` form
 (``frame_bounds``, ``stereo_tpu/ops/pallas/sgm_kernel.py:66-81``): a tile
 of a larger frame, whose paths start fresh at the edges of its in-frame
 rectangle; K3 takes a tile's origin, negative on the frame's left edge.
+The exact reshard mode (``parallel/exact.py``) runs K2 on a subset of the
+directions (``steps``: the horizontals of a row band, the verticals of a
+column band) and in its sheared form (``shear``): the verticals of a band
+of the sheared volume, in which the reference scans its diagonals
+(``stereo_tpu/ops/sgm.py:127-157``).
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ...config import StereoConfig
 from ..postprocess import select_disparity, spill_width
-from ..sgm import PATH_STEPS, sgm_aggregate
+from ..sgm import PATH_STEPS, V_STEPS, shear_valid, sum_paths
 from .build import load_kernels
 from .launch import count_launch, on_cpu, require, require_disparities, run
 
@@ -49,19 +54,10 @@ def _clip_rect(rect, h: int, w: int):
     return None if box == (0, h, 0, w) else box
 
 
-def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
-              image: Optional[torch.Tensor] = None,
-              rect: Optional[Tuple[int, int, int, int]] = None
-              ) -> torch.Tensor:
-    """[H, W, D] int16 S = sum of the cfg.num_paths (4 or 8) path costs of
-    an int8 (census, rank) or int16 (SAD) cost volume, any D in [1, 256]:
-    one kernel launch per direction. With ``cfg.adaptive_p2``, ``image``
-    ([H, W], the reference view) is required and each step's P2 comes from
-    it. ``rect`` = (y_lo, y_hi, x_lo, x_hi), a tile's in-frame rectangle:
-    L = C wherever a pixel's predecessor lies outside it (the rectangle
-    form; a rectangle that is the whole block is the whole-frame form). CPU
-    tensors take the plain version (``ops.sgm.sgm_aggregate`` with the
-    rectangle as its ``valid`` mask)."""
+def _form_args(cost: torch.Tensor, cfg: StereoConfig, image, rect, steps,
+               shear):
+    """Check a K2 call; returns (image or None, the clipped rectangle or
+    None, the steps)."""
     if cfg.num_paths not in (4, 8):
         raise ValueError(f"sgm_paths needs 4 or 8 paths, got {cfg.num_paths}")
     if cfg.adaptive_p2 and image is None:
@@ -71,13 +67,73 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
     if img is not None and img.shape != cost.shape[:2]:
         raise ValueError(f"image {tuple(img.shape)} != cost "
                          f"{tuple(cost.shape[:2])}")
+    steps = PATH_STEPS[: cfg.num_paths] if steps is None else tuple(
+        tuple(st) for st in steps)
+    if not steps or len(set(steps)) != len(steps) or not set(steps) <= set(
+            PATH_STEPS):
+        raise ValueError(f"steps {steps}: distinct travel steps of "
+                         f"{PATH_STEPS}")
     box = _clip_rect(rect, *cost.shape[:2])
-    if on_cpu(*(t for t in (cost, img) if t is not None)):
-        mask = None
-        if box is not None:
-            mask = torch.zeros(cost.shape[:2], dtype=torch.bool)
-            mask[box[0]:box[1], box[2]:box[3]] = True
-        return sgm_aggregate(cost, cfg, image=img, valid=mask).to(torch.int16)
+    if shear is not None:
+        sign, x0, frame_w = (int(v) for v in shear)
+        h, w = cost.shape[:2]
+        if sign not in (1, -1) or rect is not None:
+            raise ValueError(f"shear {shear}: sign +1 or -1, no rectangle")
+        if not set(steps) <= set(V_STEPS):
+            raise ValueError(f"the sheared form scans the verticals "
+                             f"{V_STEPS}, got {steps}")
+        if frame_w < 1 or x0 < 0 or x0 + w > frame_w + h - 1:
+            raise ValueError(f"sheared columns [{x0}, {x0 + w}) leave the "
+                             f"sheared frame [0, {frame_w + h - 1})")
+    return img, box, steps
+
+
+def sgm_paths_plain(cost: torch.Tensor, cfg: StereoConfig,
+                    image: Optional[torch.Tensor] = None,
+                    rect: Optional[Tuple[int, int, int, int]] = None,
+                    steps: Optional[Sequence] = None,
+                    shear: Optional[Tuple[int, int, int]] = None
+                    ) -> torch.Tensor:
+    """``sgm_paths``' plain version on any device: ``ops.sgm.sum_paths``
+    over the steps, under the rectangle or the sheared validity as its
+    ``valid`` mask."""
+    img, box, steps = _form_args(cost, cfg, image, rect, steps, shear)
+    h, w = cost.shape[:2]
+    mask = None
+    if box is not None:
+        mask = torch.zeros((h, w), dtype=torch.bool, device=cost.device)
+        mask[box[0]:box[1], box[2]:box[3]] = True
+    elif shear is not None:
+        sign, x0, frame_w = (int(v) for v in shear)
+        mask = shear_valid(h, frame_w, sign, x0, w, cost.device)
+    return sum_paths(cost, cfg, steps, img, mask).to(torch.int16)
+
+
+def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
+              image: Optional[torch.Tensor] = None,
+              rect: Optional[Tuple[int, int, int, int]] = None,
+              steps: Optional[Sequence] = None,
+              shear: Optional[Tuple[int, int, int]] = None
+              ) -> torch.Tensor:
+    """[H, W, D] int16 S = sum of the cfg.num_paths (4 or 8) path costs of
+    an int8 (census, rank) or int16 (SAD) cost volume, any D in [1, 256]:
+    one kernel launch per direction. With ``cfg.adaptive_p2``, ``image``
+    ([H, W], the reference view) is required and each step's P2 comes from
+    it. ``rect`` = (y_lo, y_hi, x_lo, x_hi), a tile's in-frame rectangle:
+    L = C wherever a pixel's predecessor lies outside it (the rectangle
+    form; a rectangle that is the whole block is the whole-frame form).
+
+    ``steps`` (a sub-tuple of ``ops.sgm.PATH_STEPS``; default the
+    cfg.num_paths first) launches only those directions, summed. ``shear``
+    = (sign, x0, W) makes the block the sheared columns [x0, x0 + w) of an
+    H x W frame (sign +1: column x' holds frame column x' + y - (H-1),
+    sign -1: x' - y; ``ops.sgm._shear``), scanned along the verticals only:
+    L = C wherever the predecessor's source column lies outside the frame
+    (the sheared form). CPU tensors take the plain version
+    (``sgm_paths_plain``)."""
+    if on_cpu(*(t for t in (cost, image) if t is not None)):
+        return sgm_paths_plain(cost, cfg, image, rect, steps, shear)
+    img, box, steps = _form_args(cost, cfg, image, rect, steps, shear)
     if cost.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"cost: expected int8 or int16, got {cost.dtype}")
     require(cost, "cost", cost.dtype, 3)
@@ -90,13 +146,19 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
         img_ptr = img.data_ptr()
     s = torch.empty((h, w, d), dtype=torch.int16, device=cost.device)
     y_lo, y_hi, x_lo, x_hi = box if box is not None else (0, h, 0, w)
-    for i, (step_y, step_x) in enumerate(PATH_STEPS[: cfg.num_paths]):
+    sign, x0, frame_w = (int(v) for v in shear) if shear else (0, 0, 0)
+    # The form: the steps launched and the run, as csrc's enum Run: the
+    # whole block, the rectangle, or the sheared form with its sign.
+    form = f"shear{sign:+d}" if sign else "rect" if box is not None else (
+        "whole")
+    for i, (step_y, step_x) in enumerate(steps):
         run("stpu_sgm_path", cost.device, cost.data_ptr(),
             cost.element_size(), img_ptr, s.data_ptr(), h, w, d, step_y,
             step_x, cfg.p1, cfg.p2, cfg.p2_min, cfg.adaptive_grad_floor,
-            int(i > 0), int(box is not None), y_lo, y_hi, x_lo, x_hi)
-        count_launch(sgm_paths, h, w, d, str(cost.dtype), cfg.num_paths,
-                     cfg.adaptive_p2, box is not None)
+            int(i > 0), int(box is not None), y_lo, y_hi, x_lo, x_hi, sign,
+            x0, frame_w)
+        count_launch(sgm_paths, h, w, d, str(cost.dtype), steps,
+                     cfg.adaptive_p2, form)
     return s
 
 

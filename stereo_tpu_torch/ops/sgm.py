@@ -23,11 +23,19 @@ With ``cfg.adaptive_p2`` and an image, P2 becomes per pixel and direction:
 ``P2(p) = max(p2_min, P2 // grad)`` where ``grad > 0``, else ``P2``
 (``adaptive_p2_map``). The predecessor of a diagonal step is the diagonal
 neighbour for the image as for the carry.
+
+With the reference's ``constrain`` hooks (its exact mode's sharding
+annotations, ``stereo_tpu/ops/sgm.py:238-256``) the sum follows the
+reference's structure instead: the horizontals on ``rows_local((cost,
+valid, img))``, the verticals on ``cols_local((cost, valid, img))``, and
+each diagonal family as the verticals of the sheared volume (``_shear``),
+under the sheared validity, then ``_unshear``. The bits are the same; the
+hooks see the reference's trees in its order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -39,6 +47,9 @@ PATH_STEPS = (
     (0, 1), (0, -1), (1, 0), (-1, 0),
     (1, 1), (-1, -1), (1, -1), (-1, 1),
 )
+#: The horizontals and the verticals: the exact mode scans the first on
+#: row bands, the second on column bands and on bands of the sheared volume.
+H_STEPS, V_STEPS = PATH_STEPS[:2], PATH_STEPS[2:4]
 
 
 def adaptive_p2_map(image: torch.Tensor, cfg: StereoConfig, dy: int, dx: int
@@ -131,6 +142,88 @@ def path_cost(cost: torch.Tensor, cfg: StereoConfig, step,
     return out
 
 
+def sum_paths(cost: torch.Tensor, cfg: StereoConfig, steps: Sequence,
+              image: Optional[torch.Tensor] = None,
+              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[H, W, D] int32 sum of ``path_cost`` over the travel ``steps``."""
+    s = None
+    for step in steps:
+        l_r = path_cost(cost, cfg, step, image, valid)
+        s = l_r if s is None else s + l_r
+    return s
+
+
+def _shear(x: torch.Tensor, sign: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shear rows so that diagonals become columns, as the reference's
+    ``_shear``: sign +1 ``sheared[y, x'] = x[y, x' + y - (H-1)]`` (the
+    down-right diagonal), sign -1 ``sheared[y, x'] = x[y, x' - y]`` (the
+    down-left one), source columns clipped into the frame. Returns
+    (sheared [H, W+H-1, ...], valid [H, W+H-1] bool: the source column lies
+    in the frame)."""
+    h, w = x.shape[:2]
+    return shear_window(x, 0, h, sign, 0, w + h - 1), shear_valid(
+        h, w, sign, 0, w + h - 1, x.device)
+
+
+def shear_source(y0: int, rows: int, h: int, sign: int, x0: int,
+                 width: int, device) -> torch.Tensor:
+    """[rows, width] int64 source column (unclipped) of the sheared columns
+    [x0, x0 + width) on the frame rows [y0, y0 + rows) of an h-row frame."""
+    ys = y0 + torch.arange(rows, device=device)[:, None]
+    xs = x0 + torch.arange(width, device=device)[None, :]
+    return xs + ys - (h - 1) if sign > 0 else xs - ys
+
+
+def shear_valid(h: int, w: int, sign: int, x0: int, width: int, device
+                ) -> torch.Tensor:
+    """[h, width] bool: where the sheared columns [x0, x0 + width) of an
+    h x w frame have their source column in the frame."""
+    src = shear_source(0, h, h, sign, x0, width, device)
+    return (src >= 0) & (src < w)
+
+
+def shear_window(x: torch.Tensor, y0: int, h: int, sign: int, x0: int,
+                 width: int) -> torch.Tensor:
+    """The sheared columns [x0, x0 + width) of the rows that ``x`` holds:
+    ``x`` is [rows, W, ...], the frame rows [y0, y0 + rows) of an h x W
+    frame; returns [rows, width, ...], source columns clipped into the
+    frame (``_shear`` restricted to a row band and a column band)."""
+    rows, w = x.shape[:2]
+    src = shear_source(y0, rows, h, sign, x0, width, x.device)
+    index = (torch.arange(rows, device=x.device)[:, None], src.clamp(0, w - 1))
+    pixel = x[0, 0].numel() * x.element_size() if rows and w else 0
+    if (x.dim() == 3 and x.is_contiguous() and pixel % 8 == 0
+            and x.storage_offset() * x.element_size() % 8 == 0):
+        # A pixel's values move as 8-byte words: the gather copies the
+        # same bytes with an eighth of the elements of an int8 volume.
+        return x.view(torch.int64)[index].view(x.dtype)
+    return x[index]
+
+
+def _unshear(x: torch.Tensor, sign: int, w: int) -> torch.Tensor:
+    """Inverse of ``_shear``: [H, W, ...] from [H, W+H-1, ...]."""
+    return unshear_rows(x, 0, x.shape[0], sign, w)
+
+
+def unshear_rows(x: torch.Tensor, y0: int, h: int, sign: int, w: int
+                 ) -> torch.Tensor:
+    """The unsheared [rows, w, ...] of ``x`` [rows, w+h-1, ...], the frame
+    rows [y0, y0 + rows) of a sheared h x w frame: frame column c of row y
+    is sheared column c - y + (h-1) (sign +1) or c + y (sign -1). A
+    strided view of ``x``, which must be contiguous."""
+    if not x.is_contiguous():
+        raise ValueError("unshear_rows needs a contiguous tensor")
+    rows, wp = x.shape[:2]
+    inner = x[0, 0].numel() if rows and wp else 1
+    if sign > 0:
+        row_stride, first = (wp - 1) * inner, (h - 1 - y0) * inner
+    else:
+        row_stride, first = (wp + 1) * inner, y0 * inner
+    return x.as_strided((rows, w, *x.shape[2:]),
+                        (row_stride, inner, *x.stride()[2:]),
+                        x.storage_offset() + first)
+
+
 def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig,
                   image: Optional[torch.Tensor] = None,
                   valid: Optional[torch.Tensor] = None,
@@ -144,23 +237,37 @@ def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig,
         ``cfg.adaptive_p2`` (without it P2 stays fixed, as in the reference).
       valid: [H, W] bool mask of real pixels (a tile's in-frame rectangle);
         None: all valid.
-      constrain: the reference's sharding annotators of its exact mode;
-        not ported, anything but None raises.
+      constrain: the reference's (rows_local, cols_local) hooks of its
+        exact mode: ``rows_local`` is applied to the (cost, valid, image)
+        tuple before the horizontals, ``cols_local`` to it before the
+        verticals and to each sheared family's tuple before its scans
+        (the module docstring). Each takes a tuple and returns one.
 
     Returns:
       [H, W, D] int32 summed volume; num_paths=0 returns the cost as int32.
     """
-    if constrain is not None:
-        raise NotImplementedError(
-            "constrain (the exact reshard mode's sharding hooks) is not "
-            "ported yet (ROADMAP Queue 1: parallel/exact.py)")
     if cfg.num_paths == 0:
         return cost.to(torch.int32)
     if valid is not None and tuple(valid.shape) != tuple(cost.shape[:2]):
         raise ValueError(f"valid {tuple(valid.shape)} != cost "
                          f"{tuple(cost.shape[:2])}")
-    s = None
-    for step in PATH_STEPS[: cfg.num_paths]:
-        l_r = path_cost(cost, cfg, step, image, valid)
-        s = l_r if s is None else s + l_r
+    if constrain is None:
+        return sum_paths(cost, cfg, PATH_STEPS[: cfg.num_paths], image, valid)
+    h, w = cost.shape[:2]
+    if valid is None:
+        valid = torch.ones((h, w), dtype=torch.bool, device=cost.device)
+    img = image if cfg.adaptive_p2 else None
+    rows_local, cols_local = constrain[0], constrain[1]
+    c_r, v_r, i_r = rows_local((cost, valid, img))
+    s = sum_paths(c_r, cfg, H_STEPS, i_r, v_r)
+    c_c, v_c, i_c = cols_local((cost, valid, img))
+    s = s + sum_paths(c_c, cfg, V_STEPS, i_c, v_c)
+    if cfg.num_paths == 8:
+        for sign in (+1, -1):
+            c_sh, v_geom = _shear(c_c, sign)
+            v_sh = _shear(v_c, sign)[0] & v_geom
+            i_sh = _shear(i_c, sign)[0] if i_c is not None else None
+            c_sh, v_sh, i_sh = cols_local((c_sh, v_sh, i_sh))
+            d_out = sum_paths(c_sh, cfg, V_STEPS, i_sh, v_sh)
+            s = s + _unshear(d_out.contiguous(), sign, w)
     return s

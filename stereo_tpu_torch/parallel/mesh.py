@@ -82,12 +82,6 @@ def cuda_devices(n: int = 0):
     return [torch.device("cuda", i % count) for i in range(n or count)]
 
 
-def _default_devices(n: int):
-    if torch.cuda.is_available():
-        return cuda_devices(n)
-    return [torch.device("cpu")] * (n or 1)
-
-
 def make_tile_mesh(
     devices: Optional[Sequence] = None,
     mesh_shape: Optional[Tuple[int, int]] = None,
@@ -99,14 +93,14 @@ def make_tile_mesh(
     ``mesh_shape=None`` the non-batch devices are factored as square as
     possible, favouring 'ty' (row tiling needs no disparity-aware halo).
     ``devices`` may repeat one device (a local grid on one card). Default:
-    one device per process of the process group (rank r on CUDA card r
-    modulo the count, or the CPU), or without a group every CUDA card (the
-    CPU without one).
+    one CUDA device per process of the process group (rank r on card r
+    modulo the count), or without a group every CUDA card; without a card
+    the default raises RuntimeError (pass the CPU to run there).
     """
     procs = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
     if devices is None:
-        devices = _default_devices(procs if procs > 1 else 0)
+        devices = cuda_devices(procs if procs > 1 else 0)
     devices = tuple(torch.device(d) for d in devices)
     n = len(devices)
     if n % batch:

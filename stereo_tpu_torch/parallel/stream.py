@@ -55,6 +55,7 @@ def build_stream_pipeline(
     mesh: TileMesh,
     image_shape: Tuple[int, int],
     tile_cfg: Optional[TileConfig] = None,
+    donate: bool = False,
     lr_stitch: Optional[bool] = None,
     device="cuda",
 ):
@@ -70,10 +71,11 @@ def build_stream_pipeline(
     ``compute_disparity`` on each frame. Inputs may be numpy arrays or
     tensors; the result lies on ``device``.
 
-    The reference's ``donate`` has no counterpart here and is not a
-    parameter: PyTorch's caching allocator already reuses each frame's
+    ``donate`` stands where the reference's does (its fifth parameter) and
+    has no effect: PyTorch's caching allocator already reuses each frame's
     memory for the next.
     """
+    del donate  # no effect (see above)
     tile_cfg = tile_cfg or TileConfig(mesh_shape=(mesh.ty, mesh.tx))
     h, w = image_shape
     tile_fn, bh, bw = tile_body(

@@ -22,7 +22,11 @@ object (``LocalGrid``, ``DistributedGrid``):
     k steps before it along ``axis`` (``fill`` where there is none): the
     reference's ``ppermute`` with its zero fill for strips with no source;
   * ``gather(blocks)`` assembles the [bh, bw] blocks of every tile into the
-    replicated frame, as the reference's replicated ``out_shardings``.
+    replicated frame, as the reference's replicated ``out_shardings``;
+  * ``all_to_all(chunks, shape)`` hands each tile the tensors every tile
+    addressed to it (the exact mode's reshards, ``parallel/exact.py``),
+    and ``gather_rows(bands, rows)`` assembles the row bands of every
+    tile, in tile order, into the replicated frame.
 
 The local grid runs every tile in one process, one after another, a halo
 strip being a slice of the neighbour's block (one card). The distributed
@@ -33,6 +37,7 @@ give the same bits (``tests/test_torch_tiling.py``).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -58,6 +63,8 @@ from .mesh import TileMesh
 Tile = Tuple[int, int]
 #: Per-tile values of one stage: tile index (iy, ix) -> tensor.
 Vals = Dict[Tile, torch.Tensor]
+#: The shape of the chunk tile src sends tile dst in an all-to-all.
+ChunkShape = Callable[[Tile, Tile], Tuple[int, ...]]
 
 
 class LocalGrid:
@@ -68,6 +75,7 @@ class LocalGrid:
         self.ty, self.tx = mesh.ty, mesh.tx
         self.tiles = [(iy, ix) for iy in range(self.ty)
                       for ix in range(self.tx)]
+        self.order = self.tiles  # every tile of the grid, row-major
         self.devices = {t: mesh.device(b, *t) for t in self.tiles}
 
     def map(self, fn: Callable, *vals: Vals) -> Dict[Tile, object]:
@@ -90,6 +98,27 @@ class LocalGrid:
             torch.cat([blocks[(iy, ix)] for ix in range(self.tx)], dim=1)
             for iy in range(self.ty)])
 
+    def all_to_all(self, chunks: Dict[Tile, Vals], shape: ChunkShape
+                   ) -> Dict[Tile, Vals]:
+        """``chunks[src][dst]`` -> ``out[dst][src]``: every tile sends one
+        chunk to every tile, all of one dtype, of ``shape(src, dst)`` (the
+        distributed grid's receivers size their buffers by it; here it is
+        checked). Sources in tile order, each tensor moved to its
+        destination's device (no copy where the two devices are one)."""
+        _check_chunks(chunks, shape, self.order)
+        return {t: {s: chunks[s][t].to(self.devices[t]) for s in self.order}
+                for t in self.tiles}
+
+    def gather_rows(self, bands: Vals, rows) -> torch.Tensor:
+        """The tiles' row bands (tile i's holds ``rows[i]`` = (lo, hi) of
+        the frame) stacked in tile order, on the first tile's device."""
+        for t, (lo, hi) in zip(self.order, rows):
+            if bands[t].shape[0] != hi - lo:
+                raise ValueError(f"tile {t}: band of {bands[t].shape[0]} "
+                                 f"rows, expected rows [{lo}, {hi})")
+        dev = self.devices[self.order[0]]
+        return torch.cat([bands[t].to(dev) for t in self.order])
+
 
 class DistributedGrid:
     """This rank's tile of a grid spread one tile per rank over the
@@ -110,6 +139,8 @@ class DistributedGrid:
         self.base = rank - rank % (self.ty * self.tx)  # replica's rank 0
         t = divmod(rank - self.base, self.tx)
         self.tiles = [t]
+        self.order = [(iy, ix) for iy in range(self.ty)
+                      for ix in range(self.tx)]
         self.device = mesh.devices[rank]
         self.devices = {t: self.device}
 
@@ -151,6 +182,66 @@ class DistributedGrid:
             torch.cat([parts[self._rank((iy, ix))] for ix in range(self.tx)],
                       dim=1) for iy in range(self.ty)])
         return full.to(dtype)
+
+    def all_to_all(self, chunks: Dict[Tile, Vals], shape: ChunkShape
+                   ) -> Dict[Tile, Vals]:
+        """This rank's ``{dst: tensor}`` -> ``{src: tensor}``, sources in
+        tile order, as ``LocalGrid.all_to_all``: one
+        ``all_to_all_single`` over the whole process group (every rank of
+        every replica joins, as in ``gather``) moves the chunks as bytes
+        with split sizes, so they may differ in size. Every rank runs the
+        same step, so a received chunk has this rank's dtype and
+        ``shape(src, this tile)``. gloo moves no int16, so the payload
+        travels as uint8, a bool's too (``bool`` is one byte)."""
+        (t, out), = chunks.items()
+        _check_chunks(chunks, shape, self.order)
+        dtype = next(iter(out.values())).dtype
+        size = torch.empty((), dtype=dtype).element_size()
+        world = dist.get_world_size()
+        send, recv = [0] * world, [0] * world
+        for u in self.order:
+            r = self._rank(u)
+            send[r] = out[u].numel() * size
+            recv[r] = math.prod(shape(u, t)) * size
+        payload = torch.cat([out[u].contiguous().reshape(-1).view(torch.uint8)
+                             for u in self.order]).to(self.device)
+        buf = torch.empty(sum(recv), dtype=torch.uint8, device=self.device)
+        dist.all_to_all_single(buf, payload, recv, send)
+        pieces = buf.split([recv[self._rank(u)] for u in self.order])
+        return {t: {u: x.clone().view(dtype).reshape(shape(u, t))
+                    for u, x in zip(self.order, pieces)}}
+
+    def gather_rows(self, bands: Vals, rows) -> torch.Tensor:
+        """Every tile's row band (tile i's holds ``rows[i]`` = (lo, hi) of
+        the frame), stacked in tile order on this rank: an ``all_to_all``
+        in which each tile sends its band to every tile of its replica."""
+        (t, band), = bands.items()
+
+        def shape(src, _):
+            lo, hi = rows[self.order.index(src)]
+            return (hi - lo, *band.shape[1:])
+
+        got = self.all_to_all({t: {u: band for u in self.order}}, shape)[t]
+        return torch.cat([got[u] for u in self.order])
+
+
+def _check_chunks(chunks: Dict[Tile, Vals], shape: ChunkShape, order
+                  ) -> None:
+    """An all-to-all's chunks: each tile's go to every tile of ``order``,
+    all of one dtype, each of ``shape(src, dst)``."""
+    dtypes = set()
+    for src, out in chunks.items():
+        if set(out) != set(order):
+            raise ValueError(f"tile {src} sends to {sorted(out)}, not to "
+                             f"every tile {order}")
+        for dst, x in out.items():
+            dtypes.add(x.dtype)
+            if tuple(x.shape) != tuple(shape(src, dst)):
+                raise ValueError(f"chunk {src}->{dst}: shape "
+                                 f"{tuple(x.shape)}, expected "
+                                 f"{tuple(shape(src, dst))}")
+    if len(dtypes) > 1:
+        raise ValueError(f"an all-to-all moves one dtype, got {dtypes}")
 
 
 def _step(t: Tile, axis: int, k: int) -> Tile:

@@ -10,7 +10,10 @@ right view's integer winners, and the consistency compare runs in plain
 torch on [H, W] maps, as it runs in XLA on the TPU. On CPU tensors it runs
 the plain staged path (cost volume, SGM, WTA, post-processing), the same
 composition as the reference's ``compute_disparity`` with
-``backend="jnp"``; both give the same bits.
+``backend="jnp"``; both give the same bits. The kernels take neither a
+``valid`` mask nor the ``constrain`` hooks, so a masked or constrained call
+on CUDA tensors raises unless ``backend="torch"`` asks for the plain path
+(``kernels_for``); on CPU tensors it runs the plain path.
 
 A static column patch (``parallel/bands.py``) passes its global column
 origin ``x_offset``, the frame's ``image_width`` and ``right_context``
@@ -77,6 +80,23 @@ def use_kernels(cfg: StereoConfig, device: torch.device) -> bool:
             raise ValueError("backend='cuda' needs CUDA tensors")
         return True
     return device.type == "cuda"
+
+
+def kernels_for(cfg: StereoConfig, device: torch.device, valid=None,
+                constrain=None) -> bool:
+    """Whether a call on tensors on ``device`` runs the kernels
+    (``use_kernels``). The kernels take a tile's in-frame rectangle, never
+    a mask or hooks, and a call that ``use_kernels`` sends to them never
+    falls back to the plain path: a masked call (a ``valid`` mask) or a
+    constrained one (``constrain`` hooks) raises there, under
+    ``backend="auto"`` and ``"cuda"`` alike."""
+    kernels = use_kernels(cfg, device)
+    if kernels and (valid is not None or constrain is not None):
+        raise NotImplementedError(
+            "the CUDA kernels take neither a valid mask nor constrain hooks "
+            "(a tile's in-frame rectangle is image_height): run such calls "
+            "on CPU tensors or with backend='torch'")
+    return kernels
 
 
 def _kernel_cost(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
@@ -156,10 +176,19 @@ def _kernel_path(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
 
 def _aggregate(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
                x_offset: int = 0, right_context: int = 0,
-               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain cost volume + SGM for one reference view."""
+               valid: Optional[torch.Tensor] = None,
+               constrain=None) -> torch.Tensor:
+    """Plain cost volume + SGM for one reference view. ``constrain[2]``,
+    where given, is the disparity-plane hook: it takes the cost volume
+    first, and ``constrain[:2]`` go to ``sgm_aggregate``, as the
+    reference's ``_aggregate`` (``stereo_tpu/pipeline/pipeline.py:186``)."""
     cost = cost_volume(left, right, cfg, x_offset, right_context)
-    return sgm_aggregate(cost, cfg, image=left, valid=valid)
+    if constrain is not None and len(constrain) > 2 and (
+            constrain[2] is not None):
+        cost = constrain[2](cost)
+        constrain = constrain[:2]
+    return sgm_aggregate(cost, cfg, image=left, valid=valid,
+                         constrain=constrain)
 
 
 def frame_rect(shape: Tuple[int, int], x_offset: int, y_offset: int,
@@ -184,8 +213,7 @@ def rect_mask(rect: Rect, shape: Tuple[int, int], device) -> torch.Tensor:
 
 def _check_block(left: torch.Tensor, right: torch.Tensor, x_offset: int,
                  image_width: Optional[int], right_context: int,
-                 y_offset: int, image_height: Optional[int],
-                 constrain) -> int:
+                 y_offset: int, image_height: Optional[int]) -> int:
     """Validate one block of a frame and its framing; returns the frame's
     width. A column patch (no ``image_height``) lies inside its frame; a
     rectangular tile may reach past any edge of it."""
@@ -200,10 +228,6 @@ def _check_block(left: torch.Tensor, right: torch.Tensor, x_offset: int,
         )
     if left.device != right.device:
         raise ValueError(f"images on {left.device} and {right.device}")
-    if constrain is not None:
-        raise NotImplementedError(
-            "constrain (the exact reshard mode's sharding hooks) is not "
-            "ported yet (ROADMAP Queue 1: parallel/exact.py)")
     if right_context < 0:
         raise ValueError("right_context must be >= 0")
     if image_height is not None:
@@ -256,22 +280,24 @@ def compute_disparity(
         rectangular tile of the frame at (``y_offset``, ``x_offset``), both
         possibly negative: SGM paths start fresh at the edges of its
         in-frame rectangle (``frame_rect``).
-      valid: [H, W] bool mask of real pixels (plain path only; on CUDA
-        tensors the kernels take the rectangle, and a mask raises).
-      constrain: the reference's exact-mode sharding hooks; not ported,
-        anything but None raises.
+      valid: [H, W] bool mask of real pixels; plain path only, a masked
+        call that would run the kernels raises (``kernels_for``).
+      constrain: the reference's exact-mode hooks (rows_local, cols_local[,
+        dplanes]): ``dplanes`` takes the cost volume, the other two go to
+        ``sgm_aggregate`` (both views under ``lr_exact``); plain path
+        only, as ``valid``. ``parallel/exact.py`` is the exact mode itself,
+        on the kernels.
 
     Returns: StereoResult(disp [H, W] float32, valid [H, W] bool).
     """
     iw = _check_block(left, right, x_offset, image_width, right_context,
-                      y_offset, image_height, constrain)
+                      y_offset, image_height)
     rect = image_height is not None
     if right_context and (cfg.lr_exact or rect):
         raise NotImplementedError(
             "right_context supports static column patches only (no lr_exact "
             "flipped pass, no rectangular-tile mode)")
-    if use_kernels(cfg, left.device):
-        _refuse_mask(valid)
+    if kernels_for(cfg, left.device, valid, constrain):
         box = (frame_rect(left.shape, x_offset, y_offset, iw, image_height)
                if rect else None)
         return _kernel_path(left, right, cfg, x_offset, iw, right_context,
@@ -280,27 +306,21 @@ def compute_disparity(
         valid = rect_mask(frame_rect(left.shape, x_offset, y_offset, iw,
                                      image_height), left.shape, left.device)
 
-    s = _aggregate(left, right, cfg, x_offset, right_context, valid)
+    s = _aggregate(left, right, cfg, x_offset, right_context, valid,
+                   constrain)
     disp, ok, d_int = wta_with_aux(s, cfg)
     if cfg.lr_check and cfg.lr_exact:
         # The reference's staged exact check: the right view matched as
         # the flipped pair (at the flipped global origin, with no mask),
         # integer winners compared on both sides.
         s_r = _aggregate(right.flip(1), left.flip(1), cfg,
-                         x_offset=iw - x_offset - left.shape[1])
+                         x_offset=iw - x_offset - left.shape[1],
+                         constrain=constrain)
         _, _, d_int_r = wta_with_aux(s_r, cfg)
         ok = ok & lr_consistency(d_int, d_int_r.flip(1), cfg, x_offset, iw)
     disp, ok = apply_postprocess(disp, ok, s, cfg, x_offset, iw,
                                  disp_int=d_int)
     return StereoResult(disp=disp, valid=ok)
-
-
-def _refuse_mask(valid: Optional[torch.Tensor]) -> None:
-    if valid is not None:
-        raise NotImplementedError(
-            "the CUDA kernels take a tile's in-frame rectangle "
-            "(image_height), not a valid mask: run masks on CPU tensors or "
-            "with backend='torch'")
 
 
 class PatchParts(NamedTuple):
@@ -354,11 +374,10 @@ def compute_patch_parts(
             "compute_patch_parts requires lr_check (re-index mode) + SGM"
         )
     iw = _check_block(left, right, x_offset, image_width, right_context,
-                      y_offset, image_height, None)
+                      y_offset, image_height)
     rect = (frame_rect(left.shape, x_offset, y_offset, iw, image_height)
             if image_height is not None else None)
-    if use_kernels(cfg, left.device):
-        _refuse_mask(valid)
+    if kernels_for(cfg, left.device, valid):
         cost = _kernel_cost(left, right, cfg, x_offset, right_context)
         parts = sgm_select(kernel_sum(cost, cfg, left, rect), cfg,
                            x_offset=x_offset, image_width=iw, emit_qr=True,

@@ -54,6 +54,7 @@ from stereo_tpu_torch.ops.census import (
 )
 from stereo_tpu_torch.ops.cuda.build import load_kernels
 from stereo_tpu_torch.ops.postprocess import spill_width
+from stereo_tpu_torch.ops.sgm import PATH_STEPS
 from stereo_tpu_torch.ops.cuda.peak_kernel import PROGRAMS, alu_peak_plain
 from stereo_tpu_torch.parallel import (
     build_banded_pipeline,
@@ -298,7 +299,8 @@ def test_pipeline_runs_the_kernels(dev):
     assert launch_forms() == {
         ("transform_words", 48, 160, 9, 7, False, "torch.uint8"): 2,
         ("census_cost", 48, 160, 32, 2, False): 1,
-        ("sgm_paths", 48, 160, 32, "torch.int8", 8, False, False): 8,
+        ("sgm_paths", 48, 160, 32, "torch.int8", PATH_STEPS, False,
+         "whole"): 8,
         ("sgm_select", 48, 160, 32, 0, True, True, True, False, False,
          False): 1,
         ("median3x3", 48, 160): 1,
@@ -895,7 +897,8 @@ def test_patch_parts_run_the_kernels(dev):
         ("transform_words", 32, 108, *window, False, "torch.uint8"): 1,
         ("transform_words", 32, 123, *window, False, "torch.uint8"): 1,
         ("census_cost", 32, 108, 16, 1, True): 1,
-        ("sgm_paths", 32, 108, 16, "torch.int8", 8, False, False): 8,
+        ("sgm_paths", 32, 108, 16, "torch.int8", PATH_STEPS, False,
+         "whole"): 8,
         ("sgm_select", 32, 108, 16, 0, True, False, True, False, True,
          True): 1,
         ("median3x3", 32, 108): 1,
@@ -941,8 +944,9 @@ def test_sgm_paths_rect_form(dev, rect, d, paths, adaptive, cost_t):
     reset_launch_counts()
     got = sgm_paths(cost, cfg, image=image, rect=box)
     torch.cuda.synchronize()
-    assert launch_forms() == {("sgm_paths", h, w, d, str(cost_t), paths,
-                               adaptive, rect != "all"): paths}
+    run = "whole" if rect == "all" else "rect"
+    assert launch_forms() == {("sgm_paths", h, w, d, str(cost_t),
+                               PATH_STEPS[:paths], adaptive, run): paths}
     want = sgm_aggregate(cost, cfg, image=image,
                          valid=rect_mask(box, (h, w), dev))
     assert torch.equal(got, want.to(torch.int16))
@@ -1045,7 +1049,7 @@ def test_local_grid_runs_the_kernels(dev, kw, shape, grid, lr_stitch):
     cost = "sad_cost" if cfg.cost_fn == "sad" else "census_cost"
     assert any(f[0] == cost and -1 in f[1:] for f in forms)
     if cfg.num_paths:
-        assert any(f[0] == "sgm_paths" and f[-1] is True for f in forms)
+        assert any(f[0] == "sgm_paths" and f[-1] == "rect" for f in forms)
     want = build_halo_pipeline(cfg.replace(backend="torch"), mesh,
                                lr_stitch=lr_stitch, device=dev)(
         pair.left, pair.right)
@@ -1127,3 +1131,141 @@ def test_native_pnm_library_builds(dev, tmp_path):
     assert native.write_pnm_gray(str(tmp_path / "a.pgm"), img)
     np.testing.assert_array_equal(native.read_pnm_gray(str(tmp_path /
                                                            "a.pgm")), img)
+
+
+# --- the exact reshard mode: K2's subset and sheared forms ----------------
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("steps", [(0, 1), (2, 3), (4, 7), (5,)],
+                         ids=["horizontals", "verticals", "pair", "one"])
+@pytest.mark.parametrize("adaptive, cost_t", [(False, torch.int8),
+                                              (True, torch.int8),
+                                              (True, torch.int16)])
+def test_sgm_paths_subset_form(dev, d, steps, adaptive, cost_t):
+    """K2 on a subset of the directions: only those launch, summed, equal
+    to the plain sum of their path costs."""
+    from stereo_tpu_torch.ops.cuda.sgm_kernel import sgm_paths_plain
+
+    h, w = 29, 71
+    cfg = StereoConfig(num_disparities=d, num_paths=8, p1=14, p2=120,
+                       adaptive_p2=adaptive, p2_min=30, adaptive_grad_floor=6)
+    rng = np.random.default_rng(d + len(steps))
+    top = 64 if cost_t == torch.int8 else 256
+    cost = torch.from_numpy(rng.integers(0, top, size=(h, w, d))).to(
+        cost_t).to(dev)
+    image = _images(d, h, w, dev)[0]
+    sub = tuple(PATH_STEPS[i] for i in steps)
+    reset_launch_counts()
+    got = sgm_paths(cost, cfg, image=image, steps=sub)
+    torch.cuda.synchronize()
+    assert launch_forms() == {("sgm_paths", h, w, d, str(cost_t), sub,
+                               adaptive, "whole"): len(sub)}
+    assert torch.equal(got, sgm_paths_plain(cost, cfg, image=image,
+                                            steps=sub))
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("band", ["first", "middle", "last", "whole",
+                                  "narrow"])
+@pytest.mark.parametrize("d", [16, 128, 256])
+@pytest.mark.parametrize("adaptive, cost_t", [(False, torch.int8),
+                                              (True, torch.int8),
+                                              (True, torch.int16)])
+def test_sgm_paths_sheared_form(dev, sign, band, d, adaptive, cost_t):
+    """K2's sheared form on a band of a sheared volume: equal to the plain
+    masked vertical recurrence over the whole band, the rows outside each
+    column's run too; the bands of a frame add up to its diagonals."""
+    from stereo_tpu_torch.ops.cuda.sgm_kernel import sgm_paths_plain
+    from stereo_tpu_torch.ops.sgm import _unshear, shear_window
+
+    h, w = 37, 90  # sheared width 126
+    x0, width = {"first": (0, 40), "middle": (41, 43), "last": (86, 40),
+                 "whole": (0, 126), "narrow": (60, 3)}[band]
+    cfg = StereoConfig(num_disparities=d, num_paths=8, p1=14, p2=120,
+                       adaptive_p2=adaptive, p2_min=30, adaptive_grad_floor=6)
+    rng = np.random.default_rng(d + x0)
+    top = 64 if cost_t == torch.int8 else 256
+    frame = torch.from_numpy(rng.integers(0, top, size=(h, w, d))).to(
+        cost_t).to(dev)
+    image = _images(d + 1, h, w, dev)[0]
+    cost = shear_window(frame, 0, h, sign, x0, width).contiguous()
+    img = shear_window(image, 0, h, sign, x0, width)
+    reset_launch_counts()
+    got = sgm_paths(cost, cfg, image=img, steps=PATH_STEPS[2:4],
+                    shear=(sign, x0, w))
+    torch.cuda.synchronize()
+    assert launch_forms() == {("sgm_paths", h, width, d, str(cost_t),
+                               PATH_STEPS[2:4], adaptive,
+                               f"shear{sign:+d}"): 2}
+    assert torch.equal(got, sgm_paths_plain(
+        cost, cfg, image=img, steps=PATH_STEPS[2:4], shear=(sign, x0, w)))
+    if band == "whole":
+        diag = PATH_STEPS[4:6] if sign > 0 else PATH_STEPS[6:8]
+        want = sgm_paths_plain(frame, cfg, image=image, steps=diag)
+        assert torch.equal(_unshear(got, sign, w), want)
+
+
+@pytest.mark.parametrize(
+    "kw, shape, grid, dplane",
+    [(dict(num_disparities=32), (45, 130), (2, 2), False),
+     (dict(num_disparities=32), (45, 130), (2, 2), True),
+     (dict(num_disparities=32, adaptive_p2=True, p2_min=30,
+           adaptive_grad_floor=12), (41, 101), (4, 2), False),
+     (dict(num_disparities=24, lr_exact=True), (40, 120), (1, 3), False),
+     (dict(cost_fn="sad", num_disparities=16, num_paths=0,
+           sad_window=(9, 9)), (40, 120), (1, 2), True),
+     (dict(num_disparities=256), (50, 300), (2, 2), False)],
+    ids=["2x2", "2x2_dplane", "adaptive_4x2", "lr_exact_1x3",
+         "sad_dplane", "d256"],
+)
+def test_exact_mode_runs_the_kernels(dev, kw, shape, grid, dplane):
+    """The exact mode on a local grid on the card: equal to the whole
+    frame, through K2's subset and sheared forms and no plain twin."""
+    from stereo_tpu_torch.parallel import build_exact_pipeline
+
+    pair = make_pair(shape, max_disp=20, texture="cloud", seed=11)
+    cfg = KITTI_SGM8_128.replace(**kw)
+    mesh = make_tile_mesh([dev] * (grid[0] * grid[1]), grid)
+    reset_launch_counts()
+    got = build_exact_pipeline(cfg, mesh, dplane_cost=dplane, device=dev)(
+        pair.left, pair.right)
+    torch.cuda.synchronize()
+    forms = launch_forms()
+    n = grid[0] * grid[1]
+    views = 2 if cfg.lr_exact else 1
+    assert launch_counts()["sgm_select"] == n * views
+    assert launch_counts()["median3x3"] == 1
+    if cfg.num_paths:
+        runs = {f[-1] for f in forms if f[0] == "sgm_paths"}
+        assert runs == {"whole", "shear+1", "shear-1"}
+        assert launch_counts()["sgm_paths"] == 8 * n * views
+    want = build_pipeline(cfg, dev)(pair.left, pair.right)
+    assert torch.equal(got.disp, want.disp)
+    assert torch.equal(got.valid, want.valid)
+
+
+def test_masked_call_raises_on_the_card(dev):
+    """A masked or constrained call on CUDA tensors raises under
+    backend="auto" and "cuda", launching nothing (the kernels take neither
+    a mask nor hooks); backend="torch" runs the plain path it asks for,
+    equal to the same call on the CPU."""
+    pair = make_pair((30, 80), max_disp=12, kind="shapes", seed=4)
+    cfg = KITTI_SGM8_128.replace(num_disparities=16)
+    rng = np.random.default_rng(4)
+    valid = torch.from_numpy(rng.random((30, 80)) < 0.8)
+    args = [torch.from_numpy(a) for a in (pair.left, pair.right)]
+    on_card = [a.to(dev) for a in args]
+    reset_launch_counts()
+    for backend in ("auto", "cuda"):
+        for kw in (dict(valid=valid.to(dev)),
+                   dict(constrain=(lambda t: t, lambda t: t))):
+            with pytest.raises(NotImplementedError, match="backend='torch'"):
+                compute_disparity(*on_card, cfg.replace(backend=backend),
+                                  **kw)
+    assert sum(launch_counts().values()) == 0
+    got = compute_disparity(*on_card, cfg.replace(backend="torch"),
+                            valid=valid.to(dev))
+    want = compute_disparity(*args, cfg, valid=valid)
+    assert torch.equal(got.disp.cpu(), want.disp)
+    assert torch.equal(got.valid.cpu(), want.valid)

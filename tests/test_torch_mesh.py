@@ -10,6 +10,7 @@ import torch
 
 from stereo_tpu.parallel import make_tile_mesh as j_mesh
 from stereo_tpu_torch.config import StereoConfig
+from stereo_tpu_torch.data import make_pair
 from stereo_tpu_torch.parallel import (
     TileMesh,
     build_exact_pipeline,
@@ -17,6 +18,7 @@ from stereo_tpu_torch.parallel import (
     initialize_multihost,
     make_tile_mesh,
 )
+from stereo_tpu_torch.pipeline import compute_disparity
 
 torch.set_num_threads(1)
 
@@ -48,10 +50,16 @@ def test_mesh_errors_match_reference(n, mesh_shape, batch, match):
         j_mesh(jax.devices()[:n], mesh_shape, batch)
 
 
-def test_default_devices_without_a_process_group():
-    mesh = make_tile_mesh()
-    want = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    assert len(mesh.devices) == want and not mesh.distributed
+def test_default_devices_without_a_process_group(monkeypatch):
+    """Without ``devices`` the mesh takes every CUDA card; without a card
+    it raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        mesh = make_tile_mesh()
+        assert len(mesh.devices) == torch.cuda.device_count()
+        assert not mesh.distributed
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_tile_mesh()
 
 
 def test_initialize_multihost_single_process_is_a_noop():
@@ -73,5 +81,13 @@ def test_distributed_grid_needs_a_process_group():
 
 
 def test_exact_pipeline_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_exact_pipeline(StereoConfig(), make_tile_mesh(["cpu"], (1, 1)))
+    """A 1x1 grid reshards nothing: the exact mode is ``compute_disparity``
+    on the whole frame."""
+    cfg = StereoConfig(num_disparities=16)
+    pair = make_pair((24, 64), max_disp=10, kind="shapes", seed=5)
+    got = build_exact_pipeline(cfg, make_tile_mesh(["cpu"], (1, 1)),
+                               device="cpu")(pair.left, pair.right)
+    want = compute_disparity(torch.from_numpy(pair.left),
+                             torch.from_numpy(pair.right), cfg)
+    assert torch.equal(got.disp, want.disp)
+    assert torch.equal(got.valid, want.valid)

@@ -184,37 +184,33 @@ def test_sad_through_sgm_matches_reference(paths):
                  _ref(pair.left, pair.right, kw, "jnp"))
 
 
+def _identity(tree):
+    return tree
+
+
 @pytest.mark.parametrize(
     "kw, call_kw",
     [
         ({}, dict(y_offset=2)),
         ({}, dict(valid=torch.ones((8, 40), dtype=torch.bool))),
-        ({}, dict(constrain=(None, None))),
+        ({}, dict(constrain=(_identity, _identity))),
         ({}, dict(image_height=64)),
     ],
 )
 def test_unported_modes_raise(kw, call_kw):
-    """Of the reference's masking and rectangular-tile arguments only
-    ``constrain`` (the exact mode's sharding hooks) stays unported: it
-    raises, naming its ROADMAP item and nothing else. A ``valid`` mask,
-    ``y_offset`` and ``image_height`` now run (tests/test_torch_tiling.py
-    holds them against the reference); here an all-valid mask, an offset
-    without a frame height and a tile that lies inside its frame each give
-    the whole frame's result."""
+    """The reference's masking, rectangular-tile and exact-mode arguments
+    all run now (tests/test_torch_tiling.py and tests/test_torch_exact.py
+    hold them against the reference); here an all-valid mask, identity
+    ``constrain`` hooks, an offset without a frame height and a tile that
+    lies inside its frame each give the whole frame's result."""
     cfg = tconfig.KITTI_SGM8_128.replace(num_disparities=32, **kw)
     pair = make_pair((8, 40), max_disp=6, seed=3)
     left, right = torch.from_numpy(pair.left), torch.from_numpy(pair.right)
-    if "constrain" in call_kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            tpipe.compute_disparity(left, right, cfg, **call_kw)
-        assert "x_offset" not in str(err.value)
-        assert "right_context" not in str(err.value)
-        return
     got = tpipe.compute_disparity(left, right, cfg, **call_kw)
     want = tpipe.compute_disparity(left, right, cfg)
     assert torch.equal(got.disp, want.disp)
     assert torch.equal(got.valid, want.valid)
-    if "valid" not in call_kw:
+    if "valid" not in call_kw and "constrain" not in call_kw:
         got = tpipe.compute_patch_parts(left, right, cfg, **call_kw)
         want = tpipe.compute_patch_parts(left, right, cfg)
         for g, w in zip(got, want):

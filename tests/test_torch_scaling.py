@@ -48,14 +48,15 @@ def test_scaling_rows_match_reference(counts, tiles):
 
 
 def test_scaling_counts_capped_at_the_devices():
-    """Counts above the devices given are dropped; the default counts are
-    those that fit."""
+    """The default counts are those that fit the devices; an explicit count
+    above them raises ValueError from ``make_tile_mesh``, as the
+    reference's does."""
     cfg = TCfg(**CFG)
-    rows = t_scaling(cfg, image_shape=(24, 40), device_counts=[1, 2, 4],
-                     iters=1, devices=["cpu"] * 2)
-    assert [r["devices"] for r in rows] == [1, 2]
     rows = t_scaling(cfg, image_shape=(24, 40), iters=1, devices=["cpu"] * 3)
     assert [r["devices"] for r in rows] == [1, 2]
+    with pytest.raises(ValueError, match="devices|batch"):
+        t_scaling(cfg, image_shape=(24, 40), device_counts=[1, 2, 4],
+                  iters=1, devices=["cpu"] * 2)
 
 
 def test_scaling_without_devices_needs_a_card(monkeypatch):

@@ -105,6 +105,21 @@ def test_stream_frames_are_the_halo_pipelines():
         assert torch.equal(whole.valid[i], want.valid)
 
 
+def test_stream_positional_arguments_in_reference_order():
+    """The fifth parameter is ``donate``, as the reference's (no effect
+    here), then ``lr_stitch`` and ``device``: a positional call in the
+    reference's order gives the keyword call's frames."""
+    pairs = [make_pair((32, 96), max_disp=10, kind="shapes", seed=40 + i)
+             for i in range(2)]
+    left, right = _stack(pairs)
+    cfg, mesh = TCfg(**SGM), t_mesh(["cpu"] * 2, (1, 2))
+    got = t_stream(cfg, mesh, (32, 96), None, True, False, "cpu")(left, right)
+    want = t_stream(cfg, mesh, (32, 96), lr_stitch=False, device="cpu")(
+        left, right)
+    assert torch.equal(got.disp, want.disp)
+    assert torch.equal(got.valid, want.valid)
+
+
 def test_stream_refusals_match_reference():
     """Frames of another shape, and lr_stitch=True on a trivial grid, raise
     the reference's messages; a batch that does not split over the
