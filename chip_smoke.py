@@ -10,7 +10,8 @@ result line):
   2. build: compiles the six CUDA kernels (nvcc, sm_90a, one compiler per
      source, all at once) and the host speckle and fill library (g++) from
      the sources in this checkout; prints ptxas's registers and spills of
-     every K2 instance (whole, rectangle and sheared forms) with its ring
+     every K2 instance (whole, rectangle, sheared and mask forms) with its
+     ring
      (pixels staged per warp, shared memory per block), of every K1 (transform and cost stage) and K3 instance,
      and of every K5 (by sum type, window half-width and disparity chunk)
      and K4 instance with its shared memory per block (K5's at the paths'
@@ -81,6 +82,13 @@ result line):
          the exact LR check's two forms) and K4 on the gathered frame
          (rows "<kernel>/exact/<shape>[/form]"; a form that an earlier row
          holds keeps that row); one frame's launches tallied by row;
+       - K2's mask form (``sgm_paths/mask*``) on kitti_like_pair(seed=0)'s
+         costs at 375x1242x128 under a seeded mask (about 20% of the
+         pixels off and a disk-shaped hole): all 8 directions, fixed and
+         adaptive P2, the constrained route's horizontals and verticals,
+         and the verticals of its sheared volume at 375x1616x128 (fixed
+         and adaptive; the adaptive one no path launches), against
+         sgm_paths_plain with the same mask;
        - K6 alu_peak in float32 and int32 at the anchor's two programs;
   4. slices: each path serves a few requests through get_model(...).build,
      host_postprocess and evaluate_disparity, with the launch counters set
@@ -144,12 +152,27 @@ result line):
      scaling_report's row for the one card. Launches: 13 a frame (the
      kitti_sgm8_128 forms) for the 96 + 12 + 31 frames of the whole-frame
      runs, the 2x2 tiles' forms for the tiled one;
-  7. exact: one JSON line "exact vs whole" per exact path with its median
+  7. masked: compute_disparity at KITTI size under backend="auto" with
+     that mask (kitti_sgm8_128 and its quality preset), with hooks that
+     move the tuple, with the disparity-plane hook too, and with lr_exact
+     and hooks, each with the launch counters set to 0 just before and
+     read just after: every launch a form that phase 3 held, K2's only in
+     its mask form, each result bit-equal to backend="torch" on the card;
+     then a JSON line "masked vs whole" of device ms;
+  8. cli: ``python -m stereo_tpu_torch.cli`` in subprocesses on the
+     card: run on kitti_like_pair(seed=0) written as PNGs with --rig,
+     --depth-out and --ply (the PFM equal to
+     build_pipeline + host_postprocess, the depth to disparity_to_depth on
+     the CPU), run --tiles 2,2 (equal to build_halo_pipeline) and
+     --exact-mesh 2,2 (equal to the whole frame), eval --hard-suite
+     (rows equal to run_hard_suite in this process) and info, all five at
+     once; then bench --iters 20 alone (its fps beside the card's name);
+  9. exact: one JSON line "exact vs whole" per exact path with its median
      device ms a frame beside the whole frame's, then
      dryrun_multichip(8) on the card (a local grid of 8 tiles: the stream,
      the halo pipeline stitched and legacy, the exact mode and its
      disparity-plane cost, which must agree);
-  8. anchor: measure_alu_peak times K6 over the reference's two programs
+  10. anchor: measure_alu_peak times K6 over the reference's two programs
      in float32 and int32 (one JSON line per program, then the best rate
      per type), with the launch counters set to 0 before and read after;
      every kernel row gains sol_fraction and sol_fraction_anchor.
@@ -261,7 +284,12 @@ from stereo_tpu_torch.ops.cuda.build import load_kernels  # noqa: E402
 from stereo_tpu_torch.ops.cuda.launch import run  # noqa: E402
 from stereo_tpu_torch.ops.cuda.peak_kernel import alu_peak_plain  # noqa: E402
 from stereo_tpu_torch.ops.postprocess import spill_width  # noqa: E402
-from stereo_tpu_torch.ops.sgm import H_STEPS, PATH_STEPS  # noqa: E402
+from stereo_tpu_torch.ops.sgm import (  # noqa: E402
+    H_STEPS,
+    PATH_STEPS,
+    V_STEPS,
+    _shear,
+)
 from stereo_tpu_torch.eval.scaling import scaling_report  # noqa: E402
 from stereo_tpu_torch.parallel import (  # noqa: E402
     StreamRunner,
@@ -285,7 +313,18 @@ from stereo_tpu_torch.parallel.tiling import (  # noqa: E402
     stitch_supported,
 )
 from stereo_tpu_torch.config import TileConfig  # noqa: E402
-from stereo_tpu_torch.pipeline import frame_rect, rect_mask  # noqa: E402
+from stereo_tpu_torch.pipeline import (  # noqa: E402
+    _kernel_cost,
+    compute_disparity,
+    frame_rect,
+    kernel_sum,
+    rect_mask,
+)
+from stereo_tpu_torch.utils.depth import (  # noqa: E402
+    CameraRig,
+    disparity_to_depth,
+)
+from stereo_tpu_torch.data.middlebury import read_pfm  # noqa: E402
 
 TESTDATA = ROOT / "stereo_tpu_torch" / "testdata"
 CFG = KITTI_SGM8_128
@@ -382,6 +421,19 @@ KERNEL_INFO = {
     "median3x3/160x288": ("median3x3", _MEDIAN_CU, _MEDIAN),
     # tsukuba_sad16: 288x384
     "median3x3/288x384": ("median3x3", _MEDIAN_CU, _MEDIAN),
+    # K2's mask form (masked and constrained calls, phase 7): 375x1242
+    # under a seeded mask, all 8 directions (fixed and adaptive P2) and the
+    # constrained route's horizontals and verticals, then its sheared
+    # volume's verticals at 375x1616
+    "sgm_paths/mask": ("sgm_paths", _PATHS_CU, _H_PATHS),
+    "sgm_paths/mask/adaptive": ("sgm_paths", _PATHS_CU, _H_PATHS),
+    "sgm_paths/mask/h": ("sgm_paths", _PATHS_CU, _H_PATHS),
+    "sgm_paths/mask/v": ("sgm_paths", _PATHS_CU,
+                         "stereo_tpu/ops/pallas/sgm_kernel.py:586"),
+    "sgm_paths/mask/sheared": ("sgm_paths", _PATHS_CU,
+                               "stereo_tpu/ops/pallas/sgm_kernel.py:586"),
+    "sgm_paths/mask/sheared/adaptive": (
+        "sgm_paths", _PATHS_CU, "stereo_tpu/ops/pallas/sgm_kernel.py:586"),
 }
 
 
@@ -465,7 +517,8 @@ for _rows, _k, _chains in ANCHOR_PROGRAMS:
         KERNEL_INFO[f"alu_peak/{_type}/k{_k}"] = ("alu_peak", _PEAK_CU, _PEAK)
 
 #: Rows held against their plain version that no path launches yet.
-OFF_PATH = {"sad_cost/ctx", "sad_cost/kitti"}
+OFF_PATH = {"sad_cost/ctx", "sad_cost/kitti",
+            "sgm_paths/mask/sheared/adaptive"}
 
 #: (wrapper, *form) as the wrappers count their launches -> the KERNEL_INFO
 #: row whose comparison in the kernels phase launched that form.
@@ -750,6 +803,19 @@ def synced(fn):
     return out
 
 
+def once_ms(fn):
+    """(``fn()``, its device ms by CUDA events), waited for: a plain SGM
+    version takes seconds, so the run that is compared is also the one
+    timed."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's main path runs on the card")
@@ -770,6 +836,11 @@ def phase_build() -> None:
     native.load()
     print(f"build: kernels + speckle library in "
           f"{time.perf_counter() - t0:.2f} s")
+    log = Path(load_kernels()._name + ".log").read_text()
+    print("build: wall seconds of each kernel source's compile (all at "
+          "once): " + json.dumps(dict(re.findall(
+              r" -c -o \S+ \S*/(\S+)\n(?:.*\n)*?# compiled in ([\d.]+) s",
+              log))))
     print("K2 instances (ptxas registers and spill bytes; ring: pixels "
           "staged per warp, shared bytes per block): "
           + json.dumps(k2_instances()))
@@ -829,8 +900,8 @@ def kernel_instances(kernel: str, log: str = "") -> Dict[str, dict]:
 def k2_instances() -> Dict[str, dict]:
     """Each K2 instance's registers and spills (``kernel_instances``; its
     template arguments are DPL, PARTIAL, ADAPTIVE, RUN (0 whole, 1 the
-    rectangle form, 2 the sheared form) and the cost type) and its ring
-    from the C queries."""
+    rectangle form, 2 the sheared form, 3 the mask form) and the cost type)
+    and its ring from the C queries."""
     lib = load_kernels()
     found: Dict[str, dict] = {}
     for args, row in kernel_instances("sgm_path_kernel").items():
@@ -838,12 +909,12 @@ def k2_instances() -> Dict[str, dict]:
         cost_bytes = 1 if t == "a" else 2
         name = (f"dpl{dpl}{'/partial' * (partial == '1')}"
                 f"{'/adaptive' * (adaptive == '1')}"
-                f"{['', '/rect', '/shear'][int(run_form)]}"
+                f"{['', '/rect', '/shear', '/mask'][int(run_form)]}"
                 f"/int{8 * cost_bytes}")
         d = 32 * int(dpl)
         found[name] = dict(stages=lib.stpu_sgm_path_stages(d),
                            smem=lib.stpu_sgm_path_smem(d, cost_bytes), **row)
-    if len(found) != 192:
+    if len(found) != 256:
         raise AssertionError(f"ptxas report: {len(found)} K2 instances")
     return dict(sorted(found.items()))
 
@@ -861,7 +932,7 @@ def per_direction_ms(dev, cost, scratch, image_ptr, cfg, rect=None
                         cost.element_size(), image_ptr, scratch.data_ptr(), h,
                         w, d, dy, dx, cfg.p1, cfg.p2, cfg.p2_min,
                         cfg.adaptive_grad_floor, 1, int(rect is not None),
-                        *box, 0, 0, 0), reps=10)
+                        *box, 0, 0, 0, None), reps=10)
         for dy, dx in PATH_STEPS[: cfg.num_paths]
     }
 
@@ -941,13 +1012,12 @@ def paths_row(name, dev, cost, cost_plain, cfg, image=None, reps=10):
     plain S)."""
     plain = cfg.replace(backend="torch")
     s = held(name, lambda: sgm_paths(cost, cfg, image=image))
-    s_plain = synced(lambda: sgm_aggregate(cost_plain, plain, image=image))
+    s_plain, plain_ms = once_ms(
+        lambda: sgm_aggregate(cost_plain, plain, image=image))
     row = dict(
         max_abs_err=require_equal(name, s.to(torch.int32), s_plain),
         ms=cuda_ms(lambda: sgm_paths(cost, cfg, image=image), reps=reps),
-        plain_ms=cuda_ms(lambda: sgm_aggregate(cost_plain, plain, image=image),
-                         reps=2),
-        **paths_bound(cost, cfg),
+        plain_ms=plain_ms, **paths_bound(cost, cfg),
     )
     ptr = None if image is None else image.to(torch.int32)
     scratch = torch.empty_like(s)
@@ -987,6 +1057,35 @@ def median_row(name, disp, disp_plain):
         **median_bound(*disp.shape),
     )
     return row, med_plain
+
+
+def kitti_mask(dev, shape=(375, 1242)) -> torch.Tensor:
+    """[H, W] bool, seeded: about 20% of the pixels off at random, and a
+    disk-shaped hole (radius 90 at KITTI size)."""
+    h, w = shape
+    ys, xs = np.mgrid[:h, :w]
+    hole = (ys - h * 0.48) ** 2 + (xs - w * 0.56) ** 2 < (h * 0.24) ** 2
+    off = np.random.default_rng(13).random((h, w)) < 0.2
+    return torch.from_numpy(~off & ~hole).to(dev)
+
+
+def mask_row(name, cost, cfg, mask, image=None, steps=None):
+    """One K2 mask form against its plain version (the masked recurrence)
+    on the same costs and mask; returns the row (bound: C and the mask
+    read once, S written once)."""
+    def kernel():
+        return sgm_paths(cost, cfg, image=image, steps=steps, mask=mask)
+
+    def plain():
+        return sgm_paths_plain(cost, cfg, image=image, steps=steps,
+                               mask=mask)
+
+    got = held(name, kernel)
+    want, plain_ms = once_ms(plain)
+    return dict(
+        max_abs_err=require_equal(name, got, want),
+        ms=cuda_ms(kernel, reps=10), plain_ms=plain_ms,
+        **paths_bound(cost, cfg, len(steps) if steps else None, mask=True))
 
 
 def _first_row(rows: dict, name: str, make) -> None:
@@ -1120,8 +1219,8 @@ def _banded_paths(dev, rows, name, cost, cost_plain, cfg, image=None,
                   rect=None):
     """K2 on a patch's costs against plain SGM on the same (``rect``: a
     tile's in-frame rectangle, the plain version's valid mask); returns
-    (the patch's S, its plain S). The plain version is timed once, after
-    the run that was compared (it takes seconds on a full-size patch)."""
+    (the patch's S, its plain S). The plain version is timed on the run
+    that is compared (it takes seconds on a full-size patch)."""
     plain = cfg.replace(backend="torch")
     img = image if cfg.adaptive_p2 else None
     mask = None if rect is None else rect_mask(rect, cost.shape[:2],
@@ -1131,7 +1230,7 @@ def _banded_paths(dev, rows, name, cost, cost_plain, cfg, image=None,
         return sgm_aggregate(cost_plain, plain, image=img, valid=mask)
 
     s = held(name, lambda: sgm_paths(cost, cfg, image=img, rect=rect))
-    s_plain = synced(plain_fn)
+    s_plain, plain_ms = once_ms(plain_fn)
     err = require_equal(name, s, s_plain)
     if name not in rows:
         scratch = torch.empty_like(s)
@@ -1144,8 +1243,7 @@ def _banded_paths(dev, rows, name, cost, cost_plain, cfg, image=None,
             max_abs_err=err,
             ms=cuda_ms(lambda: sgm_paths(cost, cfg, image=img, rect=rect),
                        reps=3),
-            plain_ms=cuda_ms(plain_fn, reps=1, warmup=0),
-            **paths_bound(cost, cfg))
+            plain_ms=plain_ms, **paths_bound(cost, cfg))
     return s, s_plain
 
 
@@ -1441,7 +1539,7 @@ def exact_rows(dev, left, right, cfg, grid, dplane, forms) -> dict:
             name = HELD.setdefault(form, call.name)
             KERNEL_INFO.setdefault(name, call.info)
             forms[name] = forms.get(name, 0) + n
-            want = synced(call.plain)
+            want, want_ms = once_ms(call.plain)
             pairs = (zip(got, want) if isinstance(got, tuple)
                      else [(call.view(got), want)])
             err = max(require_equal(f"{name} output {i}", g, w_)
@@ -1449,7 +1547,8 @@ def exact_rows(dev, left, right, cfg, grid, dplane, forms) -> dict:
             _first_row(rows, name, lambda: dict(
                 max_abs_err=err,
                 ms=cuda_ms(lambda: real[kernel](*args, **kw), reps=3),
-                plain_ms=cuda_ms(call.plain, reps=call.plain_reps, warmup=0),
+                plain_ms=want_ms if call.plain_reps == 1 else cuda_ms(
+                    call.plain, reps=call.plain_reps, warmup=0),
                 **call.bound))
             return got
         return call
@@ -1521,6 +1620,23 @@ def phase_kernels(dev) -> dict:
         "sgm_select/int", s, s_plain,
         LRCFG.replace(subpixel=False, uniqueness_ratio=0.0))
     rows["median3x3"], med_plain = median_row("median3x3", disp, disp_plain)
+    # K2's mask form on the same costs: a masked call's 8 directions (fixed
+    # and adaptive P2) and the constrained route's families, the sheared
+    # volume's (375x1616) as the composition builds it.
+    valid = kitti_mask(dev)
+    for name, cfg, image, steps in (
+            ("sgm_paths/mask", CFG, None, None),
+            ("sgm_paths/mask/adaptive", QCFG, left, None),
+            ("sgm_paths/mask/h", CFG, None, H_STEPS),
+            ("sgm_paths/mask/v", CFG, None, V_STEPS)):
+        rows[name] = mask_row(name, cost, cfg, valid, image, steps)
+    c_sh, v_geom = _shear(cost, 1)
+    v_sh = _shear(valid, 1)[0] & v_geom
+    for name, cfg, image in (
+            ("sgm_paths/mask/sheared", CFG, None),
+            ("sgm_paths/mask/sheared/adaptive", QCFG, _shear(left, 1)[0])):
+        rows[name] = mask_row(name, c_sh, cfg, v_sh, image, V_STEPS)
+    del c_sh, v_sh, v_geom
 
     # The plain chain on the card is the reference composition too.
     fx = json.loads((TESTDATA / "kitti_sgm8_128_seed0.json").read_text())
@@ -1995,6 +2111,191 @@ def phase_stream(dev, smi: str) -> Dict[str, int]:
     return launches
 
 
+def _moves(tree):
+    """A ``constrain`` hook that moves every tensor of the tuple: a copy,
+    transposed there and back (a strided view, as a sharding hook may hand
+    back)."""
+    return tuple(None if x is None else x.transpose(0, 1).clone()
+                 .transpose(0, 1) for x in tree)
+
+
+def _still(tree):
+    return tree
+
+
+def _planes(vol):
+    """The disparity-plane hook: the cost volume moved along D and back."""
+    return vol.flip(2).clone().flip(2)
+
+
+#: The masked phase's calls at KITTI size: (config, keyword arguments of
+#: compute_disparity apart from the mask, with the mask), K2 launches.
+MASKED_CALLS = {
+    "masked": (CFG, {}, True, 8),
+    "masked quality": (QCFG, {}, True, 8),
+    "constrained": (CFG, dict(constrain=(_moves, _moves)), False, 8),
+    "dplane": (CFG, dict(constrain=(_moves, _moves, _planes)), False, 8),
+    "lr_exact constrained": (LRCFG, dict(constrain=(_moves, _moves)),
+                             False, 16),
+}
+
+
+def phase_masked(dev) -> Dict[str, int]:
+    """Masked and constrained calls at KITTI size (kitti_sgm8_128 and its
+    quality preset) through ``compute_disparity`` under backend="auto":
+    each with the launch counters set to 0 just before and read just after,
+    every launch a form that the kernels phase held (K2 only in its mask
+    form), the result bit-equal to the same call with backend="torch" on
+    the card (the comparison only). Then the device ms of each call beside
+    the whole frame's, and of the constrained route's K2 (hooks that move
+    nothing) beside the whole form. Returns the launches by form."""
+    left, right = to_dev(kitti_like_pair(seed=0), dev)
+    valid = kitti_mask(dev, left.shape)
+    launches: Dict[str, int] = {}
+    times = {"whole": cuda_ms(lambda: compute_disparity(left, right, CFG),
+                              reps=5)}
+    for name, (cfg, kw, masked, k2) in MASKED_CALLS.items():
+        kw = dict(kw, valid=valid) if masked else kw
+
+        def call(cfg=cfg, kw=kw):
+            return compute_disparity(left, right, cfg, **kw)
+
+        synced(call)  # warm-up: the allocator
+        reset_launch_counts()
+        got = synced(call)
+        counts = counted_launches(f"masked: {name}")
+        k2_rows = {row for row in counts if row.startswith("sgm_paths")}
+        if sum(counts[r] for r in k2_rows) != k2 or not all(
+                r.startswith("sgm_paths/mask") for r in k2_rows):
+            raise AssertionError(f"masked: {name}: K2 launches {counts}")
+        want = synced(lambda: compute_disparity(
+            left, right, cfg.replace(backend="torch"), **kw))
+        require_equal(f"masked: {name} disp", got.disp, want.disp)
+        require_equal(f"masked: {name} valid", got.valid, want.valid)
+        if not bool(torch.isfinite(got.disp).all()):
+            raise AssertionError(f"masked: {name}: non-finite disparities")
+        for form, n in counts.items():
+            launches[form] = launches.get(form, 0) + n
+        times[name] = cuda_ms(call, reps=5)
+        print(f"masked: {name}: equal to the plain path; launches {counts}")
+    cost = _kernel_cost(left, right, CFG)
+    k2 = {"whole": cuda_ms(lambda: sgm_paths(cost, CFG), reps=10),
+          "masked": cuda_ms(lambda: kernel_sum(cost, CFG, left, valid=valid),
+                            reps=10),
+          "constrained, hooks that move nothing": cuda_ms(
+              lambda: kernel_sum(cost, CFG, left, constrain=(_still, _still)),
+              reps=10)}
+    print("masked vs whole, device ms (CUDA events, 375x1242x128): "
+          + json.dumps({"compute_disparity": times, "k2_route": k2}))
+    return launches
+
+
+#: The CLI's subprocesses run from the checkout's root.
+CLI = [sys.executable, "-m", "stereo_tpu_torch.cli"]
+
+
+def phase_cli(dev, smi: str) -> None:
+    """The CLI as a user runs it, in subprocesses on the card: ``run`` on
+    files (kitti_like_pair(seed=0) and its GT written as PNGs) with --rig,
+    --depth-out and --ply, with --tiles 2,2 and with --exact-mesh 2,2;
+    ``eval --hard-suite``; ``info``; then ``bench`` alone. Each output is
+    held against the same work done in this process; a subprocess that
+    exits nonzero fails the phase."""
+    import tempfile
+
+    from PIL import Image
+
+    from stereo_tpu_torch.data.kitti import write_kitti_disparity
+
+    pair = kitti_like_pair(seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files = [str(tmp / f) for f in ("l.png", "r.png", "gt.png")]
+        for f, img in zip(files, (pair.left, pair.right)):
+            Image.fromarray(img, mode="L").save(f)
+        write_kitti_disparity(files[2], pair.gt_disp, pair.gt_valid)
+        base = ["run", "--left", files[0], "--right", files[1]]
+        runs = {
+            "run": base + ["--gt", files[2], "--out", str(tmp / "d.pfm"),
+                           "--rig", "721.5,0.54", "--depth-out",
+                           str(tmp / "z.npy"), "--ply", str(tmp / "c.ply")],
+            "tiles": base + ["--tiles", "2,2", "--out", str(tmp / "t.pfm")],
+            "exact": base + ["--exact-mesh", "2,2", "--out",
+                             str(tmp / "e.pfm")],
+            "hard suite": ["eval", "--hard-suite", "--limit", "1",
+                           "--demo-shape", "160", "288", "--preset",
+                           "kitti_sgm8_128_quality"],
+            "info": ["info"],
+        }
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            CLI + args, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for name, args in runs.items()}
+        outs = {}
+        try:
+            for name, proc in procs.items():
+                out, err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"cli {name}: exit "
+                                         f"{proc.returncode}\n{err[-3000:]}")
+                outs[name] = out
+                print(f"cli {name}: " + " | ".join(
+                    (out + err).strip().splitlines()[-3:]))
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        print(f"cli: five commands at once in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # The same work in this process, on the card.
+        res = build_pipeline(CFG, dev)(pair.left, pair.right)
+        disp, ok = host_postprocess(res.disp, res.valid, CFG)
+        want = np.where(ok, disp, np.inf).astype(np.float32)
+        if not np.array_equal(read_pfm(str(tmp / "d.pfm")), want):
+            raise AssertionError("cli run: PFM differs from build_pipeline")
+        z = disparity_to_depth(disp, ok, CameraRig(721.5, 0.54),
+                               device="cpu")
+        if not np.array_equal(np.load(tmp / "z.npy"), z.numpy()):
+            raise AssertionError("cli run: depth differs from the CPU's")
+        m = evaluate_disparity(disp, pair.gt_disp, pair.gt_valid, ok)
+        got_m = json.loads(outs["run"].strip().splitlines()[-1])
+        if abs(got_m["bad3"] - m["bad3"]) > 1e-4:
+            raise AssertionError(f"cli run: metrics {got_m} vs {m}")
+        halo = build_halo_pipeline(CFG, make_tile_mesh([dev] * 4, (2, 2)),
+                                   device=dev)(pair.left, pair.right)
+        hd, hv = host_postprocess(halo.disp, halo.valid, CFG)
+        if not np.array_equal(read_pfm(str(tmp / "t.pfm")),
+                              np.where(hv, hd, np.inf).astype(np.float32)):
+            raise AssertionError("cli run --tiles: PFM differs from "
+                                 "build_halo_pipeline")
+        if not np.array_equal(read_pfm(str(tmp / "e.pfm")), want):
+            raise AssertionError("cli run --exact-mesh: PFM differs from "
+                                 "the whole frame's")
+        rows = run_hard_suite(PRESETS["kitti_sgm8_128_quality"],
+                              shape=(160, 288), seeds=(0,), device=dev)
+        got_rows = [json.loads(line) for line in
+                    outs["hard suite"].strip().splitlines()]
+        if got_rows != rows:
+            raise AssertionError("cli eval --hard-suite: rows differ from "
+                                 "run_hard_suite's")
+        if "presets:" not in outs["info"]:
+            raise AssertionError("cli info: no preset table")
+        print("cli: run's PFM and depth, --tiles 2,2, --exact-mesh 2,2 and "
+              "eval --hard-suite equal the same work in this process")
+
+    proc = subprocess.run(CLI + ["bench", "--iters", "20"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli bench: exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    if rec["device"] != torch.cuda.get_device_name(0) or not rec["fps"] > 0:
+        raise AssertionError(f"cli bench: {rec}")
+    print("cli bench: " + json.dumps({**rec, "card": smi}))
+
+
 def phase_exact(device_ms_of: Dict[str, float]) -> None:
     """The exact mode's paths ran in phase 4 (their frame 0 equal to the
     whole frame's fixture, the disparity-plane runs therefore to the exact
@@ -2086,6 +2387,14 @@ def write_fixtures(dev, out_dir: Path) -> None:
         print(f"wrote {path}")
 
 
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, printing the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--write-fixtures", type=Path, metavar="DIR",
@@ -2095,18 +2404,23 @@ def main(argv=None) -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    timed("build", phase_build)
     if args.write_fixtures is not None:
         write_fixtures(dev, args.write_fixtures)
         return 0
-    rows = phase_kernels(dev)
+    rows = timed("kernels", phase_kernels, dev)
     # From here on every launch is one a wrapper counted on a main path.
     launches = dict.fromkeys(KERNEL_INFO, 0)
     frame0: Dict[str, tuple] = {}
     device_ms_of: Dict[str, float] = {}
-    for counts in (*(run_slice(dev, sl, frame0, device_ms_of)
-                     for sl in SLICES), phase_hard_suite(dev),
-                   phase_stream(dev, smi)):
+
+    def slices():
+        return [run_slice(dev, sl, frame0, device_ms_of) for sl in SLICES]
+
+    for counts in (*timed("slices", slices),
+                   timed("hard suite", phase_hard_suite, dev),
+                   timed("stream", phase_stream, dev, smi),
+                   timed("masked", phase_masked, dev)):
         for form, n in counts.items():
             launches[form] += n
     print("tiled vs whole, median device ms per frame: " + json.dumps({
@@ -2114,8 +2428,9 @@ def main(argv=None) -> int:
                      "whole": device_ms_of[sl.differs_from],
                      "whole_path": sl.differs_from}
         for sl in TILED_SLICES}))
-    phase_exact(device_ms_of)
-    peak, anchor_counts = phase_anchor(dev)
+    timed("cli", phase_cli, dev, smi)
+    timed("exact", phase_exact, device_ms_of)
+    peak, anchor_counts = timed("anchor", phase_anchor, dev)
     for form, n in anchor_counts.items():
         launches[form] += n
     missing = [form for form, n in launches.items()

@@ -12,7 +12,9 @@ P2) -> WTA + subpixel + uniqueness + cheap or exact LR check -> 3x3 median
 from .config import (
     KITTI_SGM8_128,
     KITTI_SGM8_128_QUALITY,
+    KITTI_STREAM_MULTIHOST,
     MIDDLEBURY_CENSUS_SGM4_64,
+    MIDDLEBURY_FULL_256_TILED,
     PRESETS,
     TSUKUBA_SAD16,
     StereoConfig,
@@ -41,4 +43,6 @@ __all__ = [
     "KITTI_SGM8_128_QUALITY",
     "MIDDLEBURY_CENSUS_SGM4_64",
     "TSUKUBA_SAD16",
+    "MIDDLEBURY_FULL_256_TILED",
+    "KITTI_STREAM_MULTIHOST",
 ]

@@ -41,6 +41,17 @@
 // adaptive P2 the vertical predecessor in the sheared image is the frame's
 // diagonal predecessor, so the gradient needs nothing new.
 //
+// Mask form (MASK; the reference's golden path under an arbitrary `valid`
+// mask, stereo_tpu/ops/sgm.py:83, and every family of its constrained
+// composition, :232-256, whose sheared validity is a mask too): given an
+// [H, W] byte mask of the block, step t keeps its carry iff t > 0 and
+// mask[pixel t - 1]; otherwise L = 0, so L = C, whatever the pixel's own
+// byte. A scanline may restart many times. Lane 1 stages the 4-byte word
+// that holds a pixel's byte into its ring slot beside I(p), so a round's
+// bytes arrive with its C and S, after the same wait, and the test on the
+// chain is a bit of a register, uniform over the warp. Under adaptive P2
+// nothing changes at a restart: L = C whatever P2 is.
+//
 // Adaptive P2 (stereo_tpu/ops/sgm.py:55-74, the Pallas kernels' `adaptive`
 // and `cp_mode` forms): given the reference image, each step replaces P2
 // with max(p2_min, P2 / g) where g = |I(p) - I(p-r)| - grad_floor > 0 (P2
@@ -91,6 +102,29 @@
 #include <cstddef>
 #include <cstdint>
 
+// This file builds twice, one nvcc each, in parallel: as itself, with the
+// C entry points and the instances for int8 costs, and included by
+// sgm_paths_int16.cu (STPU_K2_INT16) with the instances for int16 costs,
+// which ::stpu_k2::launch_int16 launches.
+namespace stpu_k2 {
+
+// The rectangle's bounds (the RECT form's arguments) and, for the SHEAR
+// form, the sheared band's shear sign (+1 or -1), its global sheared
+// column origin and the frame's width.
+struct Rect {
+  int y_lo, y_hi, x_lo, x_hi;
+  int shear, x0, frame_w;
+};
+
+int launch_int16(const void* cost, const int* image, const uint8_t* mask,
+                 int16_t* sum, int h, int w, int d, int step_y, int step_x,
+                 int p1, int p2, int p2_min, int grad_floor, int accumulate,
+                 int run, const Rect& r, cudaStream_t s);
+
+}  // namespace stpu_k2
+
+using stpu_k2::Rect;
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -110,8 +144,9 @@ __host__ __device__ constexpr int ring_stages(int dpl) {
   return 4 * round_pixels(dpl);
 }
 
-// One ring slot: a pixel's C, its S and I(p), each part a multiple of 16
-// bytes, with room for the 0-3 leading bytes of a word-aligned copy.
+// One ring slot: a pixel's C, its S, then I(p) and the word holding its
+// mask byte, each part a multiple of 16 bytes, with room for the 0-3
+// leading bytes of a word-aligned copy.
 __host__ __device__ constexpr int slot_c(int dpl, int cost_bytes) {
   return 32 * dpl * cost_bytes + 16;
 }
@@ -259,18 +294,11 @@ __device__ __forceinline__ void axis_run(int p, int step, int lo, int hi,
   }
 }
 
-// The rectangle's bounds (the RECT form's arguments) and, for the SHEAR
-// form, the sheared band's shear sign (+1 or -1), its global sheared
-// column origin and the frame's width.
-struct Rect {
-  int y_lo, y_hi, x_lo, x_hi;
-  int shear, x0, frame_w;
-};
-
 // Where a scanline keeps its carry: on every step (kWhole), over its run
-// inside a rectangle (kRect), or over the run of rows of a sheared column
-// whose source column lies in the frame (kShear).
-enum Run { kWhole = 0, kRect = 1, kShear = 2 };
+// inside a rectangle (kRect), over the run of rows of a sheared column
+// whose source column lies in the frame (kShear), or after each pixel
+// whose mask byte is set (kMask).
+enum Run { kWhole = 0, kRect = 1, kShear = 2, kMask = 3 };
 
 // DPL = disparities per lane, ceil(D / 32); PARTIAL: D = d < 32 * DPL
 // (registers past D are dead); ADAPTIVE: P2 from the image; RUN: where
@@ -279,10 +307,11 @@ enum Run { kWhole = 0, kRect = 1, kShear = 2 };
 template <int DPL, bool PARTIAL, bool ADAPTIVE, int RUN, typename CostT>
 __global__ void __launch_bounds__(32)
     sgm_path_kernel(const CostT* __restrict__ cost,
-                    const int* __restrict__ image, int16_t* __restrict__ sum,
-                    int h, int w, int d, int step_y, int step_x, int p1,
-                    int p2, int p2_min, int grad_floor, int accumulate,
-                    Rect rect) {
+                    const int* __restrict__ image,
+                    const uint8_t* __restrict__ mask,
+                    int16_t* __restrict__ sum, int h, int w, int d,
+                    int step_y, int step_x, int p1, int p2, int p2_min,
+                    int grad_floor, int accumulate, Rect rect) {
   constexpr int kCB = (int)sizeof(CostT);
   constexpr int kStages = ring_stages(DPL);
   constexpr int kRound = round_pixels(DPL);
@@ -348,12 +377,15 @@ __global__ void __launch_bounds__(32)
       stage_bytes(slot, cost + off, D * kCB, lane);
       if (accumulate) stage_bytes(slot + kC, sum + off, 2 * D, lane);
       if (ADAPTIVE && lane == 0) cp_async4(slot + kC + kS, image + pix);
+      if (RUN == kMask && lane == 1) {  // the word holding pix's byte
+        cp_async4(slot + kC + kS + 4, mask + (pix & ~ptrdiff_t(3)));
+      }
     }
     cp_async_commit();
   };
-  // Read pixel t's C, S and I(p) (voxels at off) from its slot.
+  // Read pixel t's C, S, I(p) and mask byte (voxels at off) from its slot.
   auto read = [&](int t, ptrdiff_t off, int (&c)[DPL], int (&s_old)[DPL],
-                  int& img) {
+                  int& img, unsigned& on) {
     const char* slot = ring + (t & (kStages - 1)) * kSlot;
     const int c_shift =
         PARTIAL ? (int)(reinterpret_cast<uintptr_t>(cost + off) & 3) : 0;
@@ -371,6 +403,10 @@ __global__ void __launch_bounds__(32)
       for (int j = 0; j < DPL; ++j) s_old[j] = 0;
     }
     img = ADAPTIVE ? *reinterpret_cast<const int*>(slot + kC + kS) : 0;
+    if (RUN == kMask) {
+      const ptrdiff_t pix = pix0 + (ptrdiff_t)t * pix_step;
+      on = slot[kC + kS + 4 + (int)(pix & 3)] != 0;
+    }
   };
 
   // A round handles kRound pixels: it refills the kRound slots of the
@@ -392,6 +428,7 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
   for (int j = 0; j < DPL; ++j) L[j] = 0;
   int img_prev = 0;  // I(p - r)
+  unsigned on_prev = 0;  // the mask byte of p - r (none before t = 0)
   ptrdiff_t off = off0;
 #pragma unroll 1
   for (int t0 = 0; t0 < n; t0 += kRound) {
@@ -405,15 +442,22 @@ __global__ void __launch_bounds__(32)
     cp_async_wait<kStages - kRound>();
     __syncwarp();
     int c[kRound][DPL], s_old[kRound][DPL], img[kRound] = {};
+    // MASK: bit g is the mask byte of step g's predecessor.
+    unsigned pred_on = on_prev;
 #pragma unroll
     for (int g = 0; g < kRound; ++g) {
-      if (t0 + g < n) read(t0 + g, off + g * voxel_step, c[g], s_old[g], img[g]);
+      if (t0 + g < n) {
+        unsigned on = 0;
+        read(t0 + g, off + g * voxel_step, c[g], s_old[g], img[g], on);
+        pred_on |= on << (g + 1);
+      }
     }
 
 #pragma unroll
     for (int g = 0; g < kRound; ++g) {
       if (t0 + g >= n) break;  // uniform over the warp
-      if (RUN != kWhole && !(t0 + g > t_in && t0 + g <= t_out)) {
+      if (RUN == kMask ? !((pred_on >> g) & 1u)
+                       : RUN != kWhole && !(t0 + g > t_in && t0 + g <= t_out)) {
 #pragma unroll
         for (int j = 0; j < DPL; ++j) L[j] = 0;  // a fresh start: L = C
       }
@@ -454,16 +498,17 @@ __global__ void __launch_bounds__(32)
                               live);
     }
     img_prev = img[kRound - 1];
+    on_prev = (pred_on >> kRound) & 1u;
     off += kRound * voxel_step;
   }
   cp_async_wait<0>();
 }
 
 template <int DPL, bool PARTIAL, typename CostT>
-cudaError_t launch(const void* cost, const int* image, int16_t* sum, int h,
-                   int w, int d, int step_y, int step_x, int p1, int p2,
-                   int p2_min, int grad_floor, int accumulate, int run,
-                   const Rect& r, cudaStream_t s) {
+cudaError_t launch(const void* cost, const int* image, const uint8_t* mask,
+                   int16_t* sum, int h, int w, int d, int step_y, int step_x,
+                   int p1, int p2, int p2_min, int grad_floor, int accumulate,
+                   int run, const Rect& r, cudaStream_t s) {
   int n_lines;
   if (step_y == 0) {
     n_lines = h;
@@ -475,26 +520,74 @@ cudaError_t launch(const void* cost, const int* image, int16_t* sum, int h,
   const auto* c = static_cast<const CostT*>(cost);
   constexpr int smem = block_smem(DPL, (int)sizeof(CostT));
   using Kernel = decltype(&sgm_path_kernel<DPL, PARTIAL, true, kWhole, CostT>);
-  const Kernel adaptive[3] = {
+  const Kernel adaptive[4] = {
       sgm_path_kernel<DPL, PARTIAL, true, kWhole, CostT>,
       sgm_path_kernel<DPL, PARTIAL, true, kRect, CostT>,
-      sgm_path_kernel<DPL, PARTIAL, true, kShear, CostT>};
-  const Kernel fixed[3] = {
+      sgm_path_kernel<DPL, PARTIAL, true, kShear, CostT>,
+      sgm_path_kernel<DPL, PARTIAL, true, kMask, CostT>};
+  const Kernel fixed[4] = {
       sgm_path_kernel<DPL, PARTIAL, false, kWhole, CostT>,
       sgm_path_kernel<DPL, PARTIAL, false, kRect, CostT>,
-      sgm_path_kernel<DPL, PARTIAL, false, kShear, CostT>};
+      sgm_path_kernel<DPL, PARTIAL, false, kShear, CostT>,
+      sgm_path_kernel<DPL, PARTIAL, false, kMask, CostT>};
   const Kernel kernel = image != nullptr ? adaptive[run] : fixed[run];
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<n_lines, 32, smem, s>>>(c, image, sum, h, w, d, step_y, step_x, p1,
-                                  p2, p2_min, grad_floor, accumulate, r);
+  kernel<<<n_lines, 32, smem, s>>>(c, image, mask, sum, h, w, d, step_y,
+                                  step_x, p1, p2, p2_min, grad_floor,
+                                  accumulate, r);
   return cudaGetLastError();
 }
 
+// The instance for d disparities of CostT costs: DPL = ceil(d / 32),
+// PARTIAL unless d = 32 * DPL.
+template <typename CostT>
+int launch_costs(const void* cost, const int* image, const uint8_t* mask,
+                 int16_t* sum, int h, int w, int d, int step_y, int step_x,
+                 int p1, int p2, int p2_min, int grad_floor, int accumulate,
+                 int run, const Rect& r, cudaStream_t s) {
+#define STPU_PATH(DPL)                                                      \
+  if (d == 32 * DPL) {                                                      \
+    return (int)launch<DPL, false, CostT>(cost, image, mask, sum, h, w, d,  \
+                                          step_y, step_x, p1, p2, p2_min,   \
+                                          grad_floor, accumulate, run, r,   \
+                                          s);                               \
+  }                                                                         \
+  return (int)launch<DPL, true, CostT>(cost, image, mask, sum, h, w, d,     \
+                                       step_y, step_x, p1, p2, p2_min,      \
+                                       grad_floor, accumulate, run, r, s)
+  switch ((d + 31) / 32) {
+    case 1: STPU_PATH(1);
+    case 2: STPU_PATH(2);
+    case 3: STPU_PATH(3);
+    case 4: STPU_PATH(4);
+    case 5: STPU_PATH(5);
+    case 6: STPU_PATH(6);
+    case 7: STPU_PATH(7);
+    default: STPU_PATH(8);
+  }
+#undef STPU_PATH
+  return (int)cudaErrorInvalidValue;  // not reached
+}
+
 }  // namespace
+
+#ifdef STPU_K2_INT16
+
+int stpu_k2::launch_int16(const void* cost, const int* image,
+                          const uint8_t* mask, int16_t* sum, int h, int w,
+                          int d, int step_y, int step_x, int p1, int p2,
+                          int p2_min, int grad_floor, int accumulate, int run,
+                          const Rect& r, cudaStream_t s) {
+  return launch_costs<int16_t>(cost, image, mask, sum, h, w, d, step_y,
+                               step_x, p1, p2, p2_min, grad_floor,
+                               accumulate, run, r, s);
+}
+
+#else
 
 // The ring of the K2 form for d disparities: pixels staged per warp, and
 // (for cost_bytes-byte costs) dynamic shared memory per block.
@@ -513,57 +606,48 @@ extern "C" int stpu_sgm_path_smem(int d, int cost_bytes) {
 // y_hi <= h, 0 <= x_lo <= x_hi <= w). shear = +1 or -1 selects the sheared
 // form (a vertical step, no rectangle): the block is the sheared columns
 // [x0, x0 + w) of an h x frame_w frame, 0 <= x0, x0 + w <= frame_w + h - 1.
+// mask != NULL selects the mask form: [h, w] bytes (0 or 1), contiguous,
+// 4-byte aligned; it takes neither a rectangle nor a shear.
 extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
                              const void* image, void* sum, int h, int w,
                              int d, int step_y, int step_x, int p1, int p2,
                              int p2_min, int grad_floor, int accumulate,
                              int rect, int y_lo, int y_hi, int x_lo, int x_hi,
-                             int shear, int x0, int frame_w, void* stream) {
+                             int shear, int x0, int frame_w, const void* mask,
+                             void* stream) {
   if (h <= 0 || w <= 0 || d <= 0 || d > 256 || step_y < -1 || step_y > 1 ||
       step_x < -1 || step_x > 1 || (step_y == 0 && step_x == 0) ||
       (cost_bytes != 1 && cost_bytes != 2) || p1 < 0 || p2 < 0 ||
       p2_min < 0 || y_lo < 0 || y_lo > y_hi || y_hi > h || x_lo < 0 ||
       x_lo > x_hi || x_hi > w || shear < -1 || shear > 1 ||
       (shear != 0 && (rect != 0 || step_x != 0 || frame_w < 1 || x0 < 0 ||
-                      (long long)x0 + w > (long long)frame_w + h - 1))) {
+                      (long long)x0 + w > (long long)frame_w + h - 1)) ||
+      (mask != nullptr && (rect != 0 || shear != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   const Rect r{y_lo, y_hi, x_lo, x_hi, shear, x0, frame_w};
-  const int run = shear != 0 ? kShear : rect != 0 ? kRect : kWhole;
+  const int run = mask != nullptr ? kMask
+                  : shear != 0    ? kShear
+                  : rect != 0     ? kRect
+                                  : kWhole;
   if (((reinterpret_cast<uintptr_t>(cost) | reinterpret_cast<uintptr_t>(sum)) &
        15) != 0 ||
-      (reinterpret_cast<uintptr_t>(image) & 3) != 0) {
+      ((reinterpret_cast<uintptr_t>(image) |
+        reinterpret_cast<uintptr_t>(mask)) & 3) != 0) {
     return (int)cudaErrorMisalignedAddress;
   }
   const auto* im = static_cast<const int*>(image);
+  const auto* mk = static_cast<const uint8_t*>(mask);
   auto* s = static_cast<int16_t*>(sum);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define STPU_PATH_AS(DPL, PARTIAL, T)                                       \
-  return (int)launch<DPL, PARTIAL, T>(cost, im, s, h, w, d, step_y, step_x, \
-                                      p1, p2, p2_min, grad_floor,           \
-                                      accumulate, run, r, st)
-#define STPU_PATH(DPL)                                                      \
-  if (d == 32 * DPL) {                                                      \
-    if (cost_bytes == 1) {                                                  \
-      STPU_PATH_AS(DPL, false, int8_t);                                     \
-    }                                                                       \
-    STPU_PATH_AS(DPL, false, int16_t);                                      \
-  }                                                                         \
-  if (cost_bytes == 1) {                                                    \
-    STPU_PATH_AS(DPL, true, int8_t);                                        \
-  }                                                                         \
-  STPU_PATH_AS(DPL, true, int16_t)
-  switch ((d + 31) / 32) {
-    case 1: STPU_PATH(1);
-    case 2: STPU_PATH(2);
-    case 3: STPU_PATH(3);
-    case 4: STPU_PATH(4);
-    case 5: STPU_PATH(5);
-    case 6: STPU_PATH(6);
-    case 7: STPU_PATH(7);
-    default: STPU_PATH(8);
+  if (cost_bytes == 1) {
+    return launch_costs<int8_t>(cost, im, mk, s, h, w, d, step_y, step_x, p1,
+                                p2, p2_min, grad_floor, accumulate, run, r,
+                                st);
   }
-#undef STPU_PATH
-#undef STPU_PATH_AS
-  return (int)cudaErrorInvalidValue;  // not reached
+  return stpu_k2::launch_int16(cost, im, mk, s, h, w, d, step_y, step_x, p1,
+                               p2, p2_min, grad_floor, accumulate, run, r,
+                               st);
 }
+
+#endif  // STPU_K2_INT16

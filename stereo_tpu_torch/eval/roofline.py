@@ -96,16 +96,18 @@ def sad_bound(h, w, d, window, right_context=0, image_bytes=1):
                  h * w * d * 8)
 
 
-def paths_bound(cost, cfg, n_paths=None):
+def paths_bound(cost, cfg, n_paths=None, mask=False):
     """K2 (all directions of one call: ``n_paths`` of them, default
     cfg.num_paths): the cost volume in, the int16 S out, the int32 image in
-    with adaptive P2; per voxel and direction about 10 integer operations
-    (3 adds, 5 mins counting the reduction, the renormalising subtract, the
-    accumulate)."""
+    with adaptive P2, the [H, W] byte mask in with the mask form; per voxel
+    and direction about 10 integer operations (3 adds, 5 mins counting the
+    reduction, the renormalising subtract, the accumulate)."""
     h, w, d = cost.shape
     nbytes = h * w * d * (cost.element_size() + 2)
     if cfg.adaptive_p2:
         nbytes += h * w * 4
+    if mask:
+        nbytes += h * w
     return bound(nbytes, h * w * d * (n_paths or cfg.num_paths) * 10)
 
 

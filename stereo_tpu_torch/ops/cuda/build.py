@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -57,10 +58,11 @@ KERNEL_SIGNATURES = {
     # cost, cost_bytes, image (NULL: fixed P2), sum, h, w, d, step_y,
     # step_x, p1, p2, p2_min, grad_floor, accumulate, rect (0: the
     # whole-frame form), y_lo, y_hi, x_lo, x_hi, shear (0, or the sheared
-    # form's sign), x0 (its sheared column origin), frame_w, stream
+    # form's sign), x0 (its sheared column origin), frame_w, mask (NULL, or
+    # the mask form's [h, w] bytes), stream
     "stpu_sgm_path": [_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                       _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
-                      _vp],
+                      _vp, _vp],
     # sum, disp, valid, d0 (NULL: not emitted), h, w, d, md, subpixel,
     # uniqueness, uniq_f, lr_check, lr_tau, x0, iw, lr_bit, qr (NULL: not
     # the emit_qr form), spill, own_lo, own_hi, sp, stream
@@ -96,7 +98,8 @@ def compile_library(name: str, sources: Sequence[Path],
     """Compile each of ``sources`` with ``compiler + [-c, -o obj, src]``,
     all in parallel, and link them with ``compiler[0] -shared`` into
     BUILD_DIR, unless a library of the same sources and command exists.
-    The compilers' output is kept beside the library as ``<lib>.log``."""
+    The compilers' output, and each compile's wall seconds, are kept
+    beside the library as ``<lib>.log``."""
     digest = hashlib.sha256()
     for part in compiler:
         digest.update(part.encode() + b"\0")
@@ -110,13 +113,24 @@ def compile_library(name: str, sources: Sequence[Path],
     objs = [str(work / f"{src.stem}.o") for src in sources]
     procs = []
     try:
+        t0 = time.perf_counter()
         for src, obj in zip(sources, objs):
             cmd = [*compiler, "-c", "-o", obj, str(src)]
-            procs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        runs = [(cmd, proc.communicate(timeout=600)[0], proc.returncode)
-                for cmd, proc in procs]
+            # Output to a file: a full pipe would stall the compiler.
+            with open(work / f"{src.stem}.out", "w") as out:
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=out, stderr=subprocess.STDOUT)))
+        seconds = {}
+        while len(seconds) < len(procs):
+            for i, (_, proc) in enumerate(procs):
+                if i not in seconds and proc.poll() is not None:
+                    seconds[i] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError(f"building {name}: over 600 s")
+            time.sleep(0.05)
+        runs = [(cmd, (work / f"{src.stem}.out").read_text()
+                 + f"# compiled in {seconds[i]:.1f} s\n", proc.returncode)
+                for i, (src, (cmd, proc)) in enumerate(zip(sources, procs))]
         if all(rc == 0 for *_, rc in runs):
             cmd = [compiler[0], "-shared", "-o", str(work / lib.name), *objs]
             proc = subprocess.run(cmd, stdout=subprocess.PIPE,

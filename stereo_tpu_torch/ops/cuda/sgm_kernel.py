@@ -16,7 +16,11 @@ The exact reshard mode (``parallel/exact.py``) runs K2 on a subset of the
 directions (``steps``: the horizontals of a row band, the verticals of a
 column band) and in its sheared form (``shear``): the verticals of a band
 of the sheared volume, in which the reference scans its diagonals
-(``stereo_tpu/ops/sgm.py:127-157``).
+(``stereo_tpu/ops/sgm.py:127-157``). K2's mask form (``mask``) runs the
+reference's golden path under an arbitrary ``valid`` mask
+(``stereo_tpu/ops/sgm.py:83``): a path restarts after every pixel whose
+mask is False; ``pipeline.kernel_sum`` runs each family of the constrained
+composition in it.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ def _clip_rect(rect, h: int, w: int):
 
 
 def _form_args(cost: torch.Tensor, cfg: StereoConfig, image, rect, steps,
-               shear):
+               shear, mask):
     """Check a K2 call; returns (image or None, the clipped rectangle or
     None, the steps)."""
     if cfg.num_paths not in (4, 8):
@@ -74,6 +78,12 @@ def _form_args(cost: torch.Tensor, cfg: StereoConfig, image, rect, steps,
         raise ValueError(f"steps {steps}: distinct travel steps of "
                          f"{PATH_STEPS}")
     box = _clip_rect(rect, *cost.shape[:2])
+    if mask is not None:
+        if rect is not None or shear is not None:
+            raise ValueError("a mask takes neither a rectangle nor a shear")
+        if tuple(mask.shape) != tuple(cost.shape[:2]):
+            raise ValueError(f"mask {tuple(mask.shape)} != cost "
+                             f"{tuple(cost.shape[:2])}")
     if shear is not None:
         sign, x0, frame_w = (int(v) for v in shear)
         h, w = cost.shape[:2]
@@ -92,15 +102,16 @@ def sgm_paths_plain(cost: torch.Tensor, cfg: StereoConfig,
                     image: Optional[torch.Tensor] = None,
                     rect: Optional[Tuple[int, int, int, int]] = None,
                     steps: Optional[Sequence] = None,
-                    shear: Optional[Tuple[int, int, int]] = None
-                    ) -> torch.Tensor:
+                    shear: Optional[Tuple[int, int, int]] = None,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``sgm_paths``' plain version on any device: ``ops.sgm.sum_paths``
-    over the steps, under the rectangle or the sheared validity as its
-    ``valid`` mask."""
-    img, box, steps = _form_args(cost, cfg, image, rect, steps, shear)
+    over the steps, under the mask, the rectangle or the sheared validity
+    as its ``valid`` mask."""
+    img, box, steps = _form_args(cost, cfg, image, rect, steps, shear, mask)
     h, w = cost.shape[:2]
-    mask = None
-    if box is not None:
+    if mask is not None:
+        mask = mask.to(torch.bool)
+    elif box is not None:
         mask = torch.zeros((h, w), dtype=torch.bool, device=cost.device)
         mask[box[0]:box[1], box[2]:box[3]] = True
     elif shear is not None:
@@ -113,8 +124,8 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
               image: Optional[torch.Tensor] = None,
               rect: Optional[Tuple[int, int, int, int]] = None,
               steps: Optional[Sequence] = None,
-              shear: Optional[Tuple[int, int, int]] = None
-              ) -> torch.Tensor:
+              shear: Optional[Tuple[int, int, int]] = None,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[H, W, D] int16 S = sum of the cfg.num_paths (4 or 8) path costs of
     an int8 (census, rank) or int16 (SAD) cost volume, any D in [1, 256]:
     one kernel launch per direction. With ``cfg.adaptive_p2``, ``image``
@@ -129,11 +140,13 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
     H x W frame (sign +1: column x' holds frame column x' + y - (H-1),
     sign -1: x' - y; ``ops.sgm._shear``), scanned along the verticals only:
     L = C wherever the predecessor's source column lies outside the frame
-    (the sheared form). CPU tensors take the plain version
+    (the sheared form). ``mask`` ([H, W] bool, no rectangle, no shear):
+    L = C wherever a pixel's predecessor is False, whatever the pixel's own
+    value (the mask form). CPU tensors take the plain version
     (``sgm_paths_plain``)."""
-    if on_cpu(*(t for t in (cost, image) if t is not None)):
-        return sgm_paths_plain(cost, cfg, image, rect, steps, shear)
-    img, box, steps = _form_args(cost, cfg, image, rect, steps, shear)
+    if on_cpu(*(t for t in (cost, image, mask) if t is not None)):
+        return sgm_paths_plain(cost, cfg, image, rect, steps, shear, mask)
+    img, box, steps = _form_args(cost, cfg, image, rect, steps, shear, mask)
     if cost.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"cost: expected int8 or int16, got {cost.dtype}")
     require(cost, "cost", cost.dtype, 3)
@@ -144,19 +157,27 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
         # int32, as the reference's astype(int32), for any image dtype.
         img = img.to(torch.int32).contiguous()
         img_ptr = img.data_ptr()
+    mask_ptr = None
+    if mask is not None:
+        # Bytes of 0 or 1, contiguous and word-aligned, for any mask dtype.
+        mask = mask.to(torch.bool).contiguous()
+        if mask.data_ptr() % 4:
+            mask = mask.clone()
+        mask_ptr = mask.data_ptr()
     s = torch.empty((h, w, d), dtype=torch.int16, device=cost.device)
     y_lo, y_hi, x_lo, x_hi = box if box is not None else (0, h, 0, w)
     sign, x0, frame_w = (int(v) for v in shear) if shear else (0, 0, 0)
     # The form: the steps launched and the run, as csrc's enum Run: the
-    # whole block, the rectangle, or the sheared form with its sign.
-    form = f"shear{sign:+d}" if sign else "rect" if box is not None else (
-        "whole")
+    # whole block, the rectangle, the sheared form with its sign, or the
+    # mask.
+    form = ("mask" if mask is not None else f"shear{sign:+d}" if sign
+            else "rect" if box is not None else "whole")
     for i, (step_y, step_x) in enumerate(steps):
         run("stpu_sgm_path", cost.device, cost.data_ptr(),
             cost.element_size(), img_ptr, s.data_ptr(), h, w, d, step_y,
             step_x, cfg.p1, cfg.p2, cfg.p2_min, cfg.adaptive_grad_floor,
             int(i > 0), int(box is not None), y_lo, y_hi, x_lo, x_hi, sign,
-            x0, frame_w)
+            x0, frame_w, mask_ptr)
         count_launch(sgm_paths, h, w, d, str(cost.dtype), steps,
                      cfg.adaptive_p2, form)
     return s

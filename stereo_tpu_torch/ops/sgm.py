@@ -227,7 +227,7 @@ def unshear_rows(x: torch.Tensor, y0: int, h: int, sign: int, w: int
 def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig,
                   image: Optional[torch.Tensor] = None,
                   valid: Optional[torch.Tensor] = None,
-                  constrain=None) -> torch.Tensor:
+                  constrain=None, scan=sum_paths) -> torch.Tensor:
     """Sum of SGM path costs S(p, d) = sum_r L_r(p, d).
 
     Args:
@@ -242,9 +242,13 @@ def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig,
         tuple before the horizontals, ``cols_local`` to it before the
         verticals and to each sheared family's tuple before its scans
         (the module docstring). Each takes a tuple and returns one.
+      scan: ``(cost, cfg, steps, image, valid) -> S`` of one family of
+        directions: ``sum_paths``, or K2's wrapper on the kernel route
+        (``pipeline.kernel_sum``).
 
     Returns:
-      [H, W, D] int32 summed volume; num_paths=0 returns the cost as int32.
+      [H, W, D] summed volume (int32 from ``sum_paths``); num_paths=0
+      returns the cost as int32.
     """
     if cfg.num_paths == 0:
         return cost.to(torch.int32)
@@ -252,22 +256,22 @@ def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig,
         raise ValueError(f"valid {tuple(valid.shape)} != cost "
                          f"{tuple(cost.shape[:2])}")
     if constrain is None:
-        return sum_paths(cost, cfg, PATH_STEPS[: cfg.num_paths], image, valid)
+        return scan(cost, cfg, PATH_STEPS[: cfg.num_paths], image, valid)
     h, w = cost.shape[:2]
     if valid is None:
         valid = torch.ones((h, w), dtype=torch.bool, device=cost.device)
     img = image if cfg.adaptive_p2 else None
     rows_local, cols_local = constrain[0], constrain[1]
     c_r, v_r, i_r = rows_local((cost, valid, img))
-    s = sum_paths(c_r, cfg, H_STEPS, i_r, v_r)
+    s = scan(c_r, cfg, H_STEPS, i_r, v_r)
     c_c, v_c, i_c = cols_local((cost, valid, img))
-    s = s + sum_paths(c_c, cfg, V_STEPS, i_c, v_c)
+    s = s + scan(c_c, cfg, V_STEPS, i_c, v_c)
     if cfg.num_paths == 8:
         for sign in (+1, -1):
             c_sh, v_geom = _shear(c_c, sign)
             v_sh = _shear(v_c, sign)[0] & v_geom
             i_sh = _shear(i_c, sign)[0] if i_c is not None else None
             c_sh, v_sh, i_sh = cols_local((c_sh, v_sh, i_sh))
-            d_out = sum_paths(c_sh, cfg, V_STEPS, i_sh, v_sh)
+            d_out = scan(c_sh, cfg, V_STEPS, i_sh, v_sh)
             s = s + _unshear(d_out.contiguous(), sign, w)
     return s

@@ -10,10 +10,11 @@ right view's integer winners, and the consistency compare runs in plain
 torch on [H, W] maps, as it runs in XLA on the TPU. On CPU tensors it runs
 the plain staged path (cost volume, SGM, WTA, post-processing), the same
 composition as the reference's ``compute_disparity`` with
-``backend="jnp"``; both give the same bits. The kernels take neither a
-``valid`` mask nor the ``constrain`` hooks, so a masked or constrained call
-on CUDA tensors raises unless ``backend="torch"`` asks for the plain path
-(``kernels_for``); on CPU tensors it runs the plain path.
+``backend="jnp"``; both give the same bits. A masked call (a ``valid``
+mask) runs K2's mask form; a constrained one (the ``constrain`` hooks) runs
+the reference's composition of the hooks and the path families with each
+family in K2's mask form (``kernel_sum``); the rest of the chain is the
+same.
 
 A static column patch (``parallel/bands.py``) passes its global column
 origin ``x_offset``, the frame's ``image_width`` and ``right_context``
@@ -82,93 +83,116 @@ def use_kernels(cfg: StereoConfig, device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def kernels_for(cfg: StereoConfig, device: torch.device, valid=None,
-                constrain=None) -> bool:
-    """Whether a call on tensors on ``device`` runs the kernels
-    (``use_kernels``). The kernels take a tile's in-frame rectangle, never
-    a mask or hooks, and a call that ``use_kernels`` sends to them never
-    falls back to the plain path: a masked call (a ``valid`` mask) or a
-    constrained one (``constrain`` hooks) raises there, under
-    ``backend="auto"`` and ``"cuda"`` alike."""
-    kernels = use_kernels(cfg, device)
-    if kernels and (valid is not None or constrain is not None):
-        raise NotImplementedError(
-            "the CUDA kernels take neither a valid mask nor constrain hooks "
-            "(a tile's in-frame rectangle is image_height): run such calls "
-            "on CPU tensors or with backend='torch'")
-    return kernels
-
-
 def _kernel_cost(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
-                 x_offset: int = 0, right_context: int = 0) -> torch.Tensor:
+                 x_offset: int = 0, right_context: int = 0,
+                 constrain=None) -> torch.Tensor:
     """The cost volume of one reference view through K1 (its transform
     stage on each image, ``tgt`` with its context columns, into 32-bit
-    words, then its cost stage) or K5."""
+    words, then its cost stage) or K5; the disparity-plane hook
+    ``constrain[2]``, where given, takes it first, as in ``_aggregate``."""
     if cfg.cost_fn == "sad":
-        return sad_cost(ref, tgt, cfg, x_offset, right_context)
-    rank = cfg.cost_fn == "rank"
-    words = [transform_words(img, cfg.census_window, rank=rank)
-             for img in (ref, tgt)]
-    cost = rank_cost if rank else census_cost
-    return cost(*words, cfg, x_offset, right_context)
+        cost = sad_cost(ref, tgt, cfg, x_offset, right_context)
+    else:
+        rank = cfg.cost_fn == "rank"
+        words = [transform_words(img, cfg.census_window, rank=rank)
+                 for img in (ref, tgt)]
+        cost = (rank_cost if rank else census_cost)(
+            *words, cfg, x_offset, right_context)
+    if _dplanes(constrain) is not None:
+        cost = constrain[2](cost)
+    return cost
+
+
+def _dplanes(constrain):
+    """The disparity-plane hook of ``constrain``, or None."""
+    if constrain is None or len(constrain) < 3:
+        return None
+    return constrain[2]
 
 
 def _kernel_view(ref: torch.Tensor, tgt: torch.Tensor, cfg: StereoConfig,
                  emit_d0: bool = False, x_offset: int = 0,
                  image_width: Optional[int] = None, right_context: int = 0,
-                 rect: Optional[Rect] = None):
+                 rect: Optional[Rect] = None,
+                 valid: Optional[torch.Tensor] = None, constrain=None):
     """One reference view through the kernels: cost volume (K1 or K5),
     then ``kernel_select``."""
-    cost = _kernel_cost(ref, tgt, cfg, x_offset, right_context)
+    cost = _kernel_cost(ref, tgt, cfg, x_offset, right_context, constrain)
     return kernel_select(cost, cfg, ref, emit_d0=emit_d0, x_offset=x_offset,
-                         image_width=image_width, rect=rect)
+                         image_width=image_width, rect=rect, valid=valid,
+                         constrain=constrain)
+
+
+def _k2_family(cost, cfg, steps, image, valid):
+    """One family of path directions in K2 (``sgm_aggregate``'s scan), in
+    its mask form where ``valid`` is given. A hook may hand back a strided
+    view; K2 reads a contiguous volume."""
+    return sgm_paths(cost.contiguous(), cfg, image=image, steps=steps,
+                     mask=valid)
 
 
 def kernel_sum(cost: torch.Tensor, cfg: StereoConfig, image: torch.Tensor,
-               rect: Optional[Rect] = None) -> torch.Tensor:
-    """S in int16: K2 per direction on a cost volume (paths starting fresh
-    at the edges of ``rect`` where one is given), or the cost itself for
-    num_paths=0."""
+               rect: Optional[Rect] = None,
+               valid: Optional[torch.Tensor] = None,
+               constrain=None) -> torch.Tensor:
+    """S in int16: K2 per direction on a cost volume, or the cost itself
+    for num_paths=0. Paths start fresh at the edges of ``rect`` where one
+    is given, or after every invalid pixel of a ``valid`` mask (K2's mask
+    form; the mask wins over ``rect``). With the ``constrain`` hooks
+    (rows_local, cols_local[, dplanes]; the cost volume has taken the
+    third) S is the reference's composition (``ops.sgm.sgm_aggregate``):
+    each family of directions one K2 call in its mask form on the hooked
+    tuple, the diagonals on the sheared volume, the int16 sums added (the
+    bound K2's wrapper checks covers their total)."""
     if cfg.num_paths == 0:
         return cost.to(torch.int16)
-    return sgm_paths(cost, cfg, image=image, rect=rect)
+    if constrain is None and valid is None:
+        return sgm_paths(cost, cfg, image=image, rect=rect)
+    return sgm_aggregate(cost, cfg, image=image, valid=valid,
+                         constrain=None if constrain is None
+                         else constrain[:2], scan=_k2_family)
 
 
 def kernel_select(cost: torch.Tensor, cfg: StereoConfig, image: torch.Tensor,
                   emit_d0: bool = False, x_offset: int = 0,
                   image_width: Optional[int] = None,
-                  rect: Optional[Rect] = None):
+                  rect: Optional[Rect] = None,
+                  valid: Optional[torch.Tensor] = None, constrain=None):
     """``kernel_sum``, then K3. Returns ``sgm_select``'s outputs."""
-    return sgm_select(kernel_sum(cost, cfg, image, rect), cfg,
-                      emit_d0=emit_d0, x_offset=x_offset,
+    return sgm_select(kernel_sum(cost, cfg, image, rect, valid, constrain),
+                      cfg, emit_d0=emit_d0, x_offset=x_offset,
                       image_width=image_width)
 
 
 def _kernel_path(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
                  x_offset: int, image_width: int, right_context: int,
-                 rect: Optional[Rect] = None) -> StereoResult:
+                 rect: Optional[Rect] = None,
+                 valid: Optional[torch.Tensor] = None,
+                 constrain=None) -> StereoResult:
     if cfg.lr_check and cfg.lr_exact:
         # As the reference's fused lr_exact: the left view keeps its
         # uniqueness gate and integer winners; the flipped pair gives the
         # right view's integer winners (subpixel and uniqueness affect
         # nothing the compare reads). On a patch or a tile the flipped pair
-        # sits at the flipped global origin, with no rectangle, as the
-        # reference's golden path runs it.
+        # sits at the flipped global origin, with no rectangle and no mask
+        # but with the hooks, as the reference's golden path runs it.
         disp, ok, d0 = _kernel_view(
             left, right, cfg.replace(lr_check=False), emit_d0=True,
-            x_offset=x_offset, rect=rect)
+            x_offset=x_offset, rect=rect, valid=valid, constrain=constrain)
         cfg_r = cfg.replace(lr_check=False, subpixel=False,
                             uniqueness_ratio=0.0)
         disp_rf, _ = _kernel_view(
             right.flip(1), left.flip(1), cfg_r,
-            x_offset=image_width - x_offset - left.shape[1])
+            x_offset=image_width - x_offset - left.shape[1],
+            constrain=constrain)
         d_int_l = d0.to(torch.float32) + cfg.min_disparity
         ok = ok & lr_consistency(d_int_l, disp_rf.flip(1), cfg, x_offset,
                                  image_width)
     else:
         disp, ok = _kernel_view(left, right, cfg, x_offset=x_offset,
                                 image_width=image_width,
-                                right_context=right_context, rect=rect)
+                                right_context=right_context, rect=rect,
+                                valid=valid, constrain=constrain)
     if cfg.median_filter:
         disp = median3x3(disp)
     return StereoResult(disp=disp, valid=ok)
@@ -183,9 +207,9 @@ def _aggregate(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
     first, and ``constrain[:2]`` go to ``sgm_aggregate``, as the
     reference's ``_aggregate`` (``stereo_tpu/pipeline/pipeline.py:186``)."""
     cost = cost_volume(left, right, cfg, x_offset, right_context)
-    if constrain is not None and len(constrain) > 2 and (
-            constrain[2] is not None):
+    if _dplanes(constrain) is not None:
         cost = constrain[2](cost)
+    if constrain is not None:
         constrain = constrain[:2]
     return sgm_aggregate(cost, cfg, image=left, valid=valid,
                          constrain=constrain)
@@ -280,13 +304,14 @@ def compute_disparity(
         rectangular tile of the frame at (``y_offset``, ``x_offset``), both
         possibly negative: SGM paths start fresh at the edges of its
         in-frame rectangle (``frame_rect``).
-      valid: [H, W] bool mask of real pixels; plain path only, a masked
-        call that would run the kernels raises (``kernels_for``).
+      valid: [H, W] bool mask of real pixels: SGM paths start fresh after
+        every invalid pixel (K2's mask form on the kernels); it wins over
+        the rectangle of ``image_height``, as in the reference.
       constrain: the reference's exact-mode hooks (rows_local, cols_local[,
         dplanes]): ``dplanes`` takes the cost volume, the other two go to
-        ``sgm_aggregate`` (both views under ``lr_exact``); plain path
-        only, as ``valid``. ``parallel/exact.py`` is the exact mode itself,
-        on the kernels.
+        the path families (``kernel_sum``, ``sgm_aggregate``; both views
+        under ``lr_exact``, the flipped one without the mask).
+        ``parallel/exact.py`` is the exact mode itself.
 
     Returns: StereoResult(disp [H, W] float32, valid [H, W] bool).
     """
@@ -297,11 +322,11 @@ def compute_disparity(
         raise NotImplementedError(
             "right_context supports static column patches only (no lr_exact "
             "flipped pass, no rectangular-tile mode)")
-    if kernels_for(cfg, left.device, valid, constrain):
+    if use_kernels(cfg, left.device):
         box = (frame_rect(left.shape, x_offset, y_offset, iw, image_height)
                if rect else None)
         return _kernel_path(left, right, cfg, x_offset, iw, right_context,
-                            box)
+                            box, valid, constrain)
     if rect and valid is None:
         valid = rect_mask(frame_rect(left.shape, x_offset, y_offset, iw,
                                      image_height), left.shape, left.device)
@@ -377,9 +402,9 @@ def compute_patch_parts(
                       y_offset, image_height)
     rect = (frame_rect(left.shape, x_offset, y_offset, iw, image_height)
             if image_height is not None else None)
-    if kernels_for(cfg, left.device, valid):
+    if use_kernels(cfg, left.device):
         cost = _kernel_cost(left, right, cfg, x_offset, right_context)
-        parts = sgm_select(kernel_sum(cost, cfg, left, rect), cfg,
+        parts = sgm_select(kernel_sum(cost, cfg, left, rect, valid), cfg,
                            x_offset=x_offset, image_width=iw, emit_qr=True,
                            own=own)
         median = median3x3

@@ -1245,27 +1245,121 @@ def test_exact_mode_runs_the_kernels(dev, kw, shape, grid, dplane):
     assert torch.equal(got.valid, want.valid)
 
 
-def test_masked_call_raises_on_the_card(dev):
-    """A masked or constrained call on CUDA tensors raises under
-    backend="auto" and "cuda", launching nothing (the kernels take neither
-    a mask nor hooks); backend="torch" runs the plain path it asks for,
+def _plain_op_refused(*args, **kwargs):
+    raise AssertionError("a plain op ran on the card")
+
+
+def test_masked_call_raises_on_the_card(dev, monkeypatch):
+    """A masked or constrained call on CUDA tensors under backend="auto"
+    and "cuda" runs the kernels, K2 in its mask form, raising nothing and
+    running no plain op (each plain twin on the path is made to fail),
     equal to the same call on the CPU."""
+    from stereo_tpu_torch import pipeline as tpipe
+    from stereo_tpu_torch.ops.cuda import sgm_kernel
+
     pair = make_pair((30, 80), max_disp=12, kind="shapes", seed=4)
     cfg = KITTI_SGM8_128.replace(num_disparities=16)
     rng = np.random.default_rng(4)
     valid = torch.from_numpy(rng.random((30, 80)) < 0.8)
     args = [torch.from_numpy(a) for a in (pair.left, pair.right)]
     on_card = [a.to(dev) for a in args]
+    hooks = (lambda t: t, lambda t: t)
+    for kw in (dict(valid=valid), dict(constrain=hooks)):
+        want = compute_disparity(*args, cfg, **kw)
+        card_kw = {k: v.to(dev) if k == "valid" else v
+                   for k, v in kw.items()}
+        with monkeypatch.context() as m:
+            for name in ("cost_volume", "wta_with_aux", "apply_postprocess",
+                         "select_disparity", "median_3x3"):
+                m.setattr(tpipe, name, _plain_op_refused)
+            m.setattr(sgm_kernel, "sum_paths", _plain_op_refused)
+            for backend in ("auto", "cuda"):
+                reset_launch_counts()
+                got = compute_disparity(*on_card,
+                                        cfg.replace(backend=backend),
+                                        **card_kw)
+                torch.cuda.synchronize()
+                runs = {f[-1] for f in launch_forms() if f[0] == "sgm_paths"}
+                assert runs == {"mask"}
+                assert launch_counts()["sgm_select"] == 1
+                assert torch.equal(got.disp.cpu(), want.disp)
+                assert torch.equal(got.valid.cpu(), want.valid)
+
+
+@pytest.mark.parametrize("d", [16, 100, 128])
+@pytest.mark.parametrize("step", range(8))
+@pytest.mark.parametrize("adaptive, cost_t", [(False, torch.int8),
+                                              (True, torch.int8),
+                                              (True, torch.int16)])
+def test_sgm_paths_mask_form(dev, d, step, adaptive, cost_t):
+    """K2's mask form, one direction: a path restarts after every pixel
+    whose mask is False, equal to the plain masked recurrence at full and
+    partial D and on int16 costs."""
+    from stereo_tpu_torch.ops.cuda.sgm_kernel import sgm_paths_plain
+
+    h, w = 29, 71
+    cfg = StereoConfig(num_disparities=d, num_paths=8, p1=14, p2=120,
+                       adaptive_p2=adaptive, p2_min=30, adaptive_grad_floor=6)
+    rng = np.random.default_rng(d + step)
+    top = 64 if cost_t == torch.int8 else 256
+    cost = torch.from_numpy(rng.integers(0, top, size=(h, w, d))).to(
+        cost_t).to(dev)
+    image = _images(d, h, w, dev)[0]
+    mask = torch.from_numpy(rng.random((h, w)) < 0.7).to(dev)
+    sub = (PATH_STEPS[step],)
     reset_launch_counts()
-    for backend in ("auto", "cuda"):
-        for kw in (dict(valid=valid.to(dev)),
-                   dict(constrain=(lambda t: t, lambda t: t))):
-            with pytest.raises(NotImplementedError, match="backend='torch'"):
-                compute_disparity(*on_card, cfg.replace(backend=backend),
-                                  **kw)
-    assert sum(launch_counts().values()) == 0
-    got = compute_disparity(*on_card, cfg.replace(backend="torch"),
-                            valid=valid.to(dev))
-    want = compute_disparity(*args, cfg, valid=valid)
+    got = sgm_paths(cost, cfg, image=image, steps=sub, mask=mask)
+    torch.cuda.synchronize()
+    assert launch_forms() == {("sgm_paths", h, w, d, str(cost_t), sub,
+                               adaptive, "mask"): 1}
+    assert torch.equal(got, sgm_paths_plain(cost, cfg, image=image,
+                                            steps=sub, mask=mask))
+
+
+def test_sgm_paths_mask_form_refusals(dev):
+    """A mask takes neither a rectangle nor a shear and has the block's
+    shape; an all-True mask gives the whole form's S."""
+    cfg = StereoConfig(num_disparities=32, num_paths=8)
+    cost = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 64, size=(9, 40, 32))).to(torch.int8).to(dev)
+    mask = torch.ones((9, 40), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="neither"):
+        sgm_paths(cost, cfg, rect=(0, 4, 0, 40), mask=mask)
+    with pytest.raises(ValueError, match="neither"):
+        sgm_paths(cost, cfg, steps=PATH_STEPS[2:4], shear=(1, 0, 40),
+                  mask=mask)
+    with pytest.raises(ValueError, match="mask"):
+        sgm_paths(cost, cfg, mask=mask[:, :39])
+    assert torch.equal(sgm_paths(cost, cfg, mask=mask), sgm_paths(cost, cfg))
+
+
+def _moves(tree):
+    return tuple(None if x is None else x.transpose(0, 1).clone()
+                 .transpose(0, 1) for x in tree)
+
+
+@pytest.mark.parametrize("call", ["masked", "hooks", "dplane", "lr_exact"])
+@pytest.mark.parametrize("preset", ["kitti", "quality"])
+def test_masked_and_constrained_on_the_card(dev, call, preset):
+    """Masked, constrained, disparity-plane-hooked and lr_exact constrained
+    calls on the card (K2's mask form between the hooks) equal the same
+    calls on the CPU."""
+    pair = make_pair((37, 90), max_disp=12, kind="shapes", seed=9)
+    base = KITTI_SGM8_128 if preset == "kitti" else KITTI_SGM8_128_QUALITY
+    cfg = base.replace(num_disparities=16, lr_exact=call == "lr_exact")
+    rng = np.random.default_rng(9)
+    valid = torch.from_numpy(rng.random((37, 90)) < 0.8)
+    hooks = (_moves, _moves)
+    if call == "dplane":
+        hooks = hooks + (lambda v: v.flip(2).clone().flip(2),)
+    kw = dict(valid=valid) if call == "masked" else dict(constrain=hooks)
+    args = [torch.from_numpy(a) for a in (pair.left, pair.right)]
+    want = compute_disparity(*args, cfg, **kw)
+    reset_launch_counts()
+    got = compute_disparity(*[a.to(dev) for a in args], cfg,
+                            **{k: v.to(dev) if k == "valid" else v
+                               for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert {f[-1] for f in launch_forms() if f[0] == "sgm_paths"} == {"mask"}
     assert torch.equal(got.disp.cpu(), want.disp)
     assert torch.equal(got.valid.cpu(), want.valid)

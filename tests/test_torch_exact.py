@@ -49,7 +49,8 @@ from stereo_tpu_torch.parallel import make_tile_mesh as t_mesh
 from stereo_tpu_torch.parallel.exact import band_bounds
 from stereo_tpu_torch.parallel.tiling import LocalGrid
 from stereo_tpu_torch.pipeline import compute_disparity as t_compute
-from stereo_tpu_torch.pipeline import kernels_for
+from stereo_tpu_torch import pipeline as tpipe
+from stereo_tpu_torch.pipeline import use_kernels
 
 torch.set_num_threads(1)
 
@@ -240,23 +241,33 @@ def test_compute_disparity_dplanes_hook_matches_reference(lr_exact):
     assert log_t == log_j and log_t[0] == ("planes", ((24, 48, 12),))
 
 
-def test_kernels_for_masked_and_constrained_calls():
-    """The backend rule of a call: a masked or constrained call on CUDA
-    tensors raises under auto and backend='cuda' (the kernels take neither,
-    and never fall back to the plain path), runs the plain path where
-    backend='torch' asks for it and on the CPU; the rest as
-    ``use_kernels`` (the device is an object: no card)."""
+def test_kernels_for_masked_and_constrained_calls(monkeypatch):
+    """The backend rule of a call: the device and ``backend`` alone decide
+    (``use_kernels``; the device is an object: no card), so a masked or
+    constrained call that ``use_kernels`` sends to the kernels takes the
+    kernel route with its mask and hooks under ``backend="auto"`` and
+    ``"cuda"`` alike, raising nothing, and backend='torch' or CPU tensors
+    take the plain path."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    mask, hooks = torch.ones(2, 2, dtype=torch.bool), (_identity, _identity)
     auto, forced, plain = TCfg(), TCfg(backend="cuda"), TCfg(backend="torch")
-    assert kernels_for(auto, cuda) and kernels_for(forced, cuda)
-    assert not kernels_for(plain, cuda)
-    for kw in (dict(valid=mask), dict(constrain=hooks)):
-        assert not kernels_for(auto, cpu, **kw)
-        assert not kernels_for(plain, cuda, **kw)
+    assert use_kernels(auto, cuda) and use_kernels(forced, cuda)
+    assert not use_kernels(plain, cuda) and not use_kernels(auto, cpu)
+    routed = []
+
+    def kernel_path(left, right, cfg, x_offset, iw, ctx, box, valid,
+                    constrain):
+        routed.append((valid, constrain))
+        return "kernels"
+
+    monkeypatch.setattr(tpipe, "_kernel_path", kernel_path)
+    monkeypatch.setattr(tpipe, "use_kernels", lambda cfg, device: True)
+    img = torch.zeros(2, 8, dtype=torch.uint8)
+    mask, hooks = torch.ones(2, 8, dtype=torch.bool), (_identity, _identity)
+    for kw in (dict(valid=mask), dict(constrain=hooks),
+               dict(valid=mask, constrain=hooks + (_identity,))):
         for cfg in (auto, forced):
-            with pytest.raises(NotImplementedError, match="backend='torch'"):
-                kernels_for(cfg, cuda, **kw)
+            assert t_compute(img, img, cfg, **kw) == "kernels"
+            assert routed.pop() == (kw.get("valid"), kw.get("constrain"))
 
 
 def _paths_want(cost, cfg, steps, image=None, valid=None):

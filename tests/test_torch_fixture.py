@@ -438,6 +438,8 @@ def test_port_imports_no_jax():
         "import stereo_tpu_torch.eval.scaling, stereo_tpu_torch.utils.timing\n"
         "import stereo_tpu_torch.data.kitti, stereo_tpu_torch.data.middlebury\n"
         "import stereo_tpu_torch.parallel.exact, stereo_tpu_torch.dryrun\n"
+        "import stereo_tpu_torch.utils.depth, stereo_tpu_torch.utils.log\n"
+        "import stereo_tpu_torch.eval.tuning\n"
         "import chip_smoke, profile_paths\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'stereo_tpu')]\n"
