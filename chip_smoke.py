@@ -128,13 +128,19 @@ result line):
      that the kernels phase tallied for it, frame 0 equal to the WHOLE
      frame's fixture (so the disparity-plane runs equal the exact ones).
      Frame 0 of each path must reproduce the reference package's hashes
-     (stereo_tpu_torch/testdata/*_seed0.json) and the repeated seeds their
-     first answers;
+     (stereo_tpu_torch/testdata/*_seed0.json; the whole config-4 frame at
+     1988x2880 from the banded golden run of the reference's ops,
+     tests/torch_golden_bands.py) and the repeated seeds their first
+     answers;
   5. hard suite: run_hard_suite(kitti_sgm8_128_quality, (160, 288), seeds
      0-2) and census_vs_sad_robustness(kitti_sgm8_128, (160, 288), seed 0)
-     on the card, rows equal to the reference's
+     on the card, then the bench's quality record at its size:
+     run_hard_suite at (375, 1242), seed 0, for kitti_sgm8_128 and
+     kitti_sgm8_128_quality (one pair of each of the ten scenarios, the
+     KITTI slices' forms); rows equal to the reference's
      (testdata/hard_suite_*.json, census_vs_sad_*.json), launch counters
-     checked; prints the rows and the sweep's wall time;
+     checked by form; prints the rows, each preset's full_res_bad3_worst
+     and each sweep's wall time beside the card's name and power limit;
   6. stream: config 5, the batched video stream, through its entry points
      (each run with the launch counters set to 0 just before and read
      just after, by form): kitti_sgm8_128 at 375x1242 through
@@ -185,7 +191,9 @@ through the plain torch path (backend="torch") and through the kernels,
 the two must agree bit for bit, and DIR/<fixture>_seed0.json gets the
 hashes (to be copied into stereo_tpu_torch/testdata). The quarter-size
 fixtures, which the reference package makes on the CPU, tie that plain
-path to the reference.
+path to the reference. A fixture that the reference's ops made (its
+testdata file has no ``made_by``: the whole frame, from the banded golden
+run) is refused, with the reason, and the other splits are written.
 
 K1's two stages are separate rows: ``census_transform*`` rows time the
 transform stage on one image (each image of a pair is one launch), and
@@ -1899,10 +1907,53 @@ _ROBUST_FORMS = {"census_transform/160x288": 2, "census_cost/160x288": 1,
                  "sgm_select/160x288": 2, "median3x3/160x288": 2}
 
 
-def phase_hard_suite(dev) -> Dict[str, int]:
-    """The reference bench's suite-scale sweep and its census-vs-SAD
-    comparison on the card; returns the launches by kernel form, as
-    counted."""
+#: The bench's quality record (the reference's bench.py:172-181): one pair
+#: of each scenario at the KITTI size for both presets, with the KITTI
+#: slices' forms per pair.
+_FULL_RES_FORMS = {
+    "kitti_sgm8_128": {"census_transform": 2, "census_cost": 1,
+                       "sgm_paths": 8, "sgm_select": 1, "median3x3": 1},
+    "kitti_sgm8_128_quality": {"census_transform": 2, "census_cost": 1,
+                               "sgm_paths/adaptive": 8, "sgm_select": 1,
+                               "median3x3": 1},
+}
+
+
+def full_res_sweep(dev, preset: str, smi: str) -> Dict[str, int]:
+    """run_hard_suite for ``preset`` at 375x1242, seed 0, on the card: rows
+    and full_res_bad3_worst equal to the reference's fixture; returns the
+    launches by kernel form, as counted."""
+    fx = json.loads(
+        (TESTDATA / f"hard_suite_{preset}_full_res.json").read_text())
+    n_pairs = len(SCENARIOS) * len(fx["seeds"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = run_hard_suite(PRESETS[preset], shape=tuple(fx["shape"]),
+                          seeds=tuple(fx["seeds"]), device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = counted_launches(f"{preset} full res")
+    if launches != expected_launches(_FULL_RES_FORMS[preset], n_pairs):
+        raise AssertionError(f"{preset} full res: launch counts {launches}")
+    for row in rows:
+        print(f"hard suite full res {preset} row: " + json.dumps(row))
+    if rows != fx["rows"]:
+        raise AssertionError(
+            f"{preset} full-res rows differ from the reference's")
+    worst = max(r["bad3_noc"] for r in rows)
+    if worst != fx["full_res_bad3_worst"]:
+        raise AssertionError(f"{preset}: full_res_bad3_worst {worst}")
+    print(f"full_res_bad3_worst {preset}: {worst} (the reference's); "
+          f"{n_pairs} pairs at {fx['shape']} in {sweep_s:.3f} s wall "
+          f"({sweep_s / n_pairs * 1e3:.3f} ms per pair, making the pair and "
+          f"the host post-filters included) on {smi}; launches {launches}")
+    return launches
+
+
+def phase_hard_suite(dev, smi: str) -> Dict[str, int]:
+    """The reference bench's suite-scale sweep, its census-vs-SAD
+    comparison and its full-res quality record for both presets on the
+    card; returns the launches by kernel form, as counted."""
     fx = json.loads(
         (TESTDATA / "hard_suite_kitti_sgm8_128_quality.json").read_text())
     rb = json.loads(
@@ -1940,8 +1991,10 @@ def phase_hard_suite(dev) -> Dict[str, int]:
           f"wall ({suite_s / n_pairs * 1e3:.3f} ms per pair, making the pair "
           f"included); census vs SAD: {robust_s:.3f} s; all rows equal the "
           f"reference's; launches {launches} and {counts}")
-    for form, n in counts.items():
-        launches[form] = launches.get(form, 0) + n
+    for part in (counts, *(full_res_sweep(dev, preset, smi)
+                           for preset in _FULL_RES_FORMS)):
+        for form, n in part.items():
+            launches[form] = launches.get(form, 0) + n
     return launches
 
 
@@ -2331,10 +2384,21 @@ TILED_FULL = {"_tiles_2x2_legacy": dict(mesh_shape=[2, 2], lr_stitch=False),
               "_tiles_1x2": dict(mesh_shape=[1, 2], lr_stitch=None)}
 
 
+def reference_made(tag: str) -> str:
+    """The source of the full-size config-4 fixture with suffix ``tag``
+    where the reference's ops made it (its file has no ``made_by``), else
+    the empty string."""
+    path = TESTDATA / f"middlebury_full_256_tiled{tag}_seed0.json"
+    fx = json.loads(path.read_text()) if path.exists() else {"made_by": ""}
+    return "" if "made_by" in fx else fx["source"]
+
+
 def write_fixtures(dev, out_dir: Path) -> None:
     """Make the full-size config-4 fixtures on the card: each split of the
     banded runner and each tile grid of the halo-tiled pipeline through the
-    plain torch path and through the kernels, which must agree."""
+    plain torch path and through the kernels, which must agree. A fixture
+    that the reference's ops made is refused: the port may not replace
+    it."""
     out_dir.mkdir(parents=True, exist_ok=True)
     shape = (1988, 2880)
     pair = cfg4_pair(shape)(0)
@@ -2345,6 +2409,12 @@ def write_fixtures(dev, out_dir: Path) -> None:
         cfg, tuple(tiles["mesh_shape"]), tiles["lr_stitch"]))
         for tag, tiles in TILED_FULL.items()]
     for tag, key, split, runner in runs:
+        source = reference_made(tag)
+        if source:
+            print(f"not writing middlebury_full_256_tiled{tag}_seed0.json: "
+                  f"the reference's ops made it ({source}), and the port's "
+                  "plain path may not replace it")
+            continue
         results = {}
         for backend in ("torch", "auto"):
             t0 = time.perf_counter()
@@ -2418,7 +2488,7 @@ def main(argv=None) -> int:
         return [run_slice(dev, sl, frame0, device_ms_of) for sl in SLICES]
 
     for counts in (*timed("slices", slices),
-                   timed("hard suite", phase_hard_suite, dev),
+                   timed("hard suite", phase_hard_suite, dev, smi),
                    timed("stream", phase_stream, dev, smi),
                    timed("masked", phase_masked, dev)):
         for form, n in counts.items():

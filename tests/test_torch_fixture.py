@@ -6,6 +6,11 @@ the reference's golden path (``backend="jnp"`` on the CPU):
 
     python tests/test_torch_fixture.py            # every fixture
     python tests/test_torch_fixture.py NAME ...   # the named ones
+    python tests/test_torch_fixture.py --banded-golden NAME [--bands R C]
+
+The last makes the whole config-4 frame at 1988x2880, too large for the
+golden call, from the reference's golden ops in bands
+(``tests/torch_golden_bands.py``).
 
 A slice fixture holds hashes of ``disp``/``valid`` before and after
 ``host_postprocess``, counts and metrics of one frame; the hard-suite
@@ -43,6 +48,7 @@ from stereo_tpu.models import get_model  # noqa: E402
 from stereo_tpu.parallel import build_halo_pipeline  # noqa: E402
 from stereo_tpu.parallel import make_tile_mesh  # noqa: E402
 from stereo_tpu.parallel.bands import build_banded_pipeline  # noqa: E402
+from stereo_tpu.pipeline.pipeline import StereoResult  # noqa: E402
 from stereo_tpu.pipeline.pipeline import host_postprocess  # noqa: E402
 from stereo_tpu_torch import PRESETS as TPRESETS  # noqa: E402
 from stereo_tpu_torch import data as tdata  # noqa: E402
@@ -142,6 +148,16 @@ FULL_SIZE = {name.replace("_q", ""): split
              for name, (preset, *_, split) in BANDED.items()
              if preset == _CFG4_Q[0]}
 
+#: The whole config-4 frame at 1988x2880, the reference bench's form
+#: (``bench.py`` runs the banded runner with one band and one column): made
+#: from the reference's golden ops by the banded golden run
+#: (``tests/torch_golden_bands.py``), since the whole golden call needs
+#: about 127 GiB there.
+BANDED_GOLDEN = {"middlebury_full_256_tiled": (
+    _CFG4_Q[0], _shapes_pair((1988, 2880), 200),
+    "make_pair((1988, 2880), max_disp=200, kind='shapes', texture='cloud', "
+    "seed=0)", dict(n_bands=1, n_cols=1))}
+
 #: The halo-tiled pipeline's fixtures: name -> (preset, config overrides,
 #: pair, the pair's description, the grid: ``mesh_shape`` and ``lr_stitch``
 #: (None: stitched where supported)). KITTI on a 2x2 grid (the frame pads
@@ -178,6 +194,13 @@ TILED_FULL_SIZE = {name.replace("_q_", "_"): grid
 SUITE_FIXTURE = TESTDATA / "hard_suite_kitti_sgm8_128_quality.json"
 SUITE = dict(preset="kitti_sgm8_128_quality", shape=[160, 288],
              seeds=[0, 1, 2])
+#: The bench's quality record (``bench.py:172-181``): the suite at the
+#: KITTI size, one seed, for both presets; its ``full_res_bad3_worst`` is
+#: the rows' worst ``bad3_noc``.
+SUITE_FULL_RES = {f"hard_suite_{p}_full_res": dict(preset=p,
+                                                   shape=[375, 1242],
+                                                   seeds=[0])
+                  for p in ("kitti_sgm8_128", "kitti_sgm8_128_quality")}
 ROBUSTNESS_FIXTURE = TESTDATA / "census_vs_sad_kitti_sgm8_128.json"
 ROBUSTNESS = dict(preset="kitti_sgm8_128", shape=[160, 288], seeds=[0])
 
@@ -329,10 +352,17 @@ def test_port_cpu_path_reproduces_banded_fixture(name):
 @pytest.mark.parametrize("name", sorted({**BANDED, **FULL_SIZE}))
 def test_banded_fixture_is_well_formed(name):
     """Every banded fixture names the preset, the pair, the split and all
-    the hashes the GPU run compares; a full-size one says who made it."""
+    the hashes the GPU run compares. The whole frame at full size comes
+    from the banded golden run of the reference's ops and says so in its
+    source; a full-size split says who made it."""
     fx = json.loads((TESTDATA / f"{name}_seed0.json").read_text())
     full = name in FULL_SIZE
-    assert set(fx) == BANDED_KEYS | ({"made_by"} if full else set())
+    made_by = full and name not in BANDED_GOLDEN
+    assert set(fx) == BANDED_KEYS | ({"made_by"} if made_by else set())
+    if name in BANDED_GOLDEN:
+        assert fx["source"].startswith(
+            "tests/torch_golden_bands.py golden_banded(cfg(backend='jnp')")
+        assert fx["pair"] == BANDED_GOLDEN[name][2]
     if full:
         preset, split, shape = _CFG4_Q[0], FULL_SIZE[name], [1988, 2880]
     else:
@@ -389,6 +419,21 @@ def test_tiled_sad_fixture_both_packages():
                    t_evaluate) == want
 
 
+def test_write_fixtures_refuses_reference_made():
+    """``chip_smoke.py --write-fixtures`` writes the four full-size splits
+    that the port made and refuses the whole frame, which the reference's
+    ops made."""
+    import chip_smoke
+
+    tags = [*chip_smoke.CFG4_SPLITS, *chip_smoke.TILED_FULL]
+    writes = {f"middlebury_full_256_tiled{tag}" for tag in tags
+              if not chip_smoke.reference_made(tag)}
+    assert writes == {*FULL_SIZE, *TILED_FULL_SIZE} - set(BANDED_GOLDEN)
+    whole = json.loads(
+        (TESTDATA / "middlebury_full_256_tiled_seed0.json").read_text())
+    assert chip_smoke.reference_made("") == whole["source"]
+
+
 def test_hard_suite_fixture_is_well_formed():
     """Ten scenario rows of three pairs each, with both score sets."""
     fx = json.loads(SUITE_FIXTURE.read_text())
@@ -401,6 +446,23 @@ def test_hard_suite_fixture_is_well_formed():
     assert {k: rb[k] for k in ROBUSTNESS} == ROBUSTNESS
     assert set(rb["rows"]) == {"census", "sad"}
     assert rb["rows"]["census"]["bad3_noc"] < rb["rows"]["sad"]["bad3_noc"]
+
+
+@pytest.mark.parametrize("name", sorted(SUITE_FULL_RES))
+def test_full_res_suite_fixture_is_well_formed(name):
+    """The bench's quality record at 375x1242, one seed, for each preset:
+    ten scenario rows of one pair each with both score sets, and the
+    worst bad3_noc of the rows as its full_res_bad3_worst."""
+    fx = json.loads((TESTDATA / f"{name}.json").read_text())
+    suite = SUITE_FULL_RES[name]
+    assert {k: fx[k] for k in suite} == suite and fx["preset"] in TPRESETS
+    assert fx["source"] == "stereo_tpu run_hard_suite(backend='jnp')"
+    assert [r["scenario"] for r in fx["rows"]] == list(tsuite.SCENARIOS)
+    for row in fx["rows"]:
+        assert row["n_pairs"] == 1
+        assert {"bad3_noc", "density_noc", "bad3_all", "density_all"} <= set(row)
+    assert fx["full_res_bad3_worst"] == max(r["bad3_noc"] for r in fx["rows"])
+    assert 0.0 < fx["full_res_bad3_worst"] < 0.1
 
 
 def test_reference_reproduces_suite_fixtures():
@@ -493,8 +555,18 @@ def write_fixtures(names) -> None:
     """Make the named fixtures (all when none is named) from the JAX
     golden path and store them under ``stereo_tpu_torch/testdata``."""
     names = list(names) or [*SLICES, *BANDED, *TILED, "hard_suite",
-                            "census_vs_sad"]
+                            *SUITE_FULL_RES, "census_vs_sad"]
     for name in names:
+        if name in SUITE_FULL_RES:
+            suite = SUITE_FULL_RES[name]
+            rows = jsuite.run_hard_suite(
+                PRESETS[suite["preset"]].replace(backend="jnp"),
+                shape=tuple(suite["shape"]), seeds=tuple(suite["seeds"]))
+            _write(TESTDATA / f"{name}.json", dict(
+                source="stereo_tpu run_hard_suite(backend='jnp')", **suite,
+                rows=rows,
+                full_res_bad3_worst=max(r["bad3_noc"] for r in rows)))
+            continue
         if name in TILED:
             preset, overrides, _, pair_text, tiles = TILED[name]
             fx = dict(
@@ -573,8 +645,46 @@ def golden_peak_memory(shape) -> dict:
                     resource.RUSAGE_SELF).ru_maxrss / 2**20)
 
 
+def banded_golden_fixture(name: str, bands=None) -> dict:
+    """Write the fixture ``name`` of ``BANDED_GOLDEN`` from the banded
+    golden run (``bands``: its (row, column) band counts, by default
+    ``default_bands``), the reference's ``host_postprocess`` and
+    ``evaluate_disparity``; returns the run's bands, wall seconds and this
+    process's peak resident memory: ``python tests/test_torch_fixture.py
+    --banded-golden NAME [--bands R C]``."""
+    import resource
+    import time
+
+    from torch_golden_bands import default_bands, golden_banded
+
+    preset, make, pair_text, split = BANDED_GOLDEN[name]
+    cfg = PRESETS[preset].replace(backend="jnp")
+    pair = make(jdata)
+    rb, cb = bands or default_bands(pair.left.shape, cfg.num_disparities)
+    t0 = time.perf_counter()
+    disp, valid = golden_banded(pair.left, pair.right, cfg, rb, cb)
+    seconds = time.perf_counter() - t0
+    record = _record(cfg, pair, StereoResult(disp, valid),
+                     host_postprocess, evaluate_disparity)
+    _write(TESTDATA / f"{name}_seed0.json", dict(
+        source=f"tests/torch_golden_bands.py golden_banded(cfg(backend="
+               f"'jnp'), row_bands={rb}, col_bands={cb}): stereo_tpu "
+               "cost_volume, sgm._horizontal, _vertical, _shear, _unshear, "
+               "wta_with_aux, apply_postprocess, median_3x3 + "
+               "host_postprocess + evaluate_disparity",
+        preset=preset, bands=split, pair=pair_text,
+        hash="sha256(array.tobytes()).hexdigest()[:16]", **record))
+    return dict(name=name, row_bands=rb, col_bands=cb, seconds=seconds,
+                peak_rss_gib=resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss / 2**20)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--golden-peak"]:
         print(json.dumps(golden_peak_memory(map(int, sys.argv[2:4]))))
+    elif sys.argv[1:2] == ["--banded-golden"]:
+        bands = (tuple(map(int, sys.argv[4:6]))
+                 if sys.argv[3:4] == ["--bands"] else None)
+        print(json.dumps(banded_golden_fixture(sys.argv[2], bands)))
     else:
         write_fixtures(sys.argv[1:])
