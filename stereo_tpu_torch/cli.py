@@ -22,6 +22,18 @@ stderr with the device they ran on, results to stdout. For example::
         --ply cloud.ply [--tiles TY,TX | --exact-mesh TY,TX]
     python -m stereo_tpu_torch.cli eval --hard-suite --limit 1
     python -m stereo_tpu_torch.cli bench --iters 20
+    python -m stereo_tpu_torch.cli stream --limit 96 --batch 48 \\
+        --profile prof/
+
+``--profile DIR`` (``run``, ``stream``) writes a ``torch.profiler`` chrome
+trace, ``DIR/trace.json``: for ``run`` one call after a warm-up, for
+``stream`` the whole stream, kernel builds included. The stream's host work
+shows there as spans (``utils/trace.py``): ``stream.collect`` (pulling a
+batch's frames), ``stream.stage`` (stack, pin, copy in), ``stream.enqueue``
+(every launch of a batch), ``stream.wait`` (the wait for a batch's event),
+``stream.deliver`` (the ``on_result`` call) and ``stream.checkpoint`` (the
+pipeline emptied and the manifest written; ``wait`` and ``deliver`` nest
+inside).
 """
 
 from __future__ import annotations
@@ -193,6 +205,25 @@ def _rig_of(args):
     return None
 
 
+def _profiled(out_dir: str, device: torch.device, call):
+    """``call()`` under ``torch.profiler`` (host ops and spans, and the
+    card's kernels and copies on a card), its chrome trace written to
+    ``out_dir/trace.json``; returns what ``call`` returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        out = call()
+        _sync(device)
+    trace = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(trace)
+    print(f"profile trace written to {trace}", file=sys.stderr)
+    return out
+
+
 def cmd_run(args) -> int:
     from .eval.metrics import evaluate_disparity
     from .pipeline import host_postprocess
@@ -218,20 +249,9 @@ def cmd_run(args) -> int:
     right = torch.tensor(pair.right, device=device)
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        os.makedirs(args.profile, exist_ok=True)
         fn(left, right)  # the kernels' build and the allocator outside
         _sync(device)
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            res = fn(left, right)
-            _sync(device)
-        trace = os.path.join(args.profile, "trace.json")
-        prof.export_chrome_trace(trace)
-        print(f"profile trace written to {trace}", file=sys.stderr)
+        res = _profiled(args.profile, device, lambda: fn(left, right))
     else:
         from .utils.timing import chained_seconds_per_call
 
@@ -391,7 +411,10 @@ def cmd_stream(args) -> int:
 
     runner = StreamRunner(cfg, mesh, shape, batch_size=args.batch,
                           manifest_path=args.manifest, device=device)
-    stats = runner.run(frames)
+    if args.profile:
+        stats = _profiled(args.profile, device, lambda: runner.run(frames))
+    else:
+        stats = runner.run(frames)
     print(json.dumps({**stats, "device": _device_name(device)}))
     return 0
 
@@ -513,6 +536,9 @@ def main(argv=None) -> int:
     p.add_argument("--tiles", help="ty,tx tile mesh per frame")
     p.add_argument("--manifest", help="stream resume manifest")
     p.add_argument("--demo-shape", type=int, nargs=2, default=(375, 1242))
+    p.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler trace of the whole stream, "
+                        "its stream.* spans included (trace.json), there")
     p.set_defaults(func=cmd_stream)
 
     p = sub.add_parser("scale", help="scaling report -> JSON line per row")

@@ -14,6 +14,7 @@ host enqueues the next frames while the card computes, and
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -25,6 +26,7 @@ import torch.distributed as dist
 
 from ..config import StereoConfig, TileConfig
 from ..pipeline import compute_disparity
+from ..utils.trace import span
 from .mesh import TileMesh
 from .tiling import make_grid, pad_frames, run_tiles, tile_body
 
@@ -146,7 +148,9 @@ class StreamRunner:
     atomically) records the next frame of the stream and the time spent,
     so an interrupted run restarts where it left off. ``max_in_flight``
     batches stay enqueued before the oldest is drained. Every entry point
-    runs on ``device``, the card unless the caller passes ``"cpu"``.
+    runs on ``device``, the card unless the caller passes ``"cpu"``. Under
+    ``torch.profiler`` each step of the loop is a ``stream.*`` span
+    (``utils/trace.py``).
     """
 
     def __init__(
@@ -205,11 +209,27 @@ class StreamRunner:
         """Wait for the oldest enqueued batch (its completion proof), hand
         its result to ``on_result`` and count its frames done."""
         res, n_real, done = pending.pop(0)
-        if done is not None:
-            done.synchronize()
+        with span("stream.wait"):
+            if done is not None:
+                done.synchronize()
         if on_result is not None:
-            on_result(res)
+            with span("stream.deliver"):
+                on_result(res)
         self.frames_done += n_real
+
+    def _settle(self, pending: list, on_result, t0: Optional[float]
+                ) -> float:
+        """Empty the pipeline, add the time since ``t0`` (if any) to
+        ``elapsed`` and write the manifest; returns the time the next
+        stretch starts from."""
+        with span("stream.checkpoint"):
+            while pending:
+                self._drain_one(pending, on_result)
+            now = time.perf_counter()
+            if t0 is not None:
+                self.elapsed += now - t0
+            self._checkpoint()
+        return now
 
     def _to_device(self, frames: list) -> torch.Tensor:
         """Stack one batch of frames on ``device``: tensors with
@@ -270,23 +290,16 @@ class StreamRunner:
                     "run_batches() with the same batch size it was "
                     "checkpointed with"
                 )
-            pending.append((self.pipeline(left, right), left.shape[0],
-                            self._done_marker()))
+            with span("stream.enqueue"):
+                pending.append((self.pipeline(left, right), left.shape[0],
+                                self._done_marker()))
             n_this_run += left.shape[0]
             while len(pending) > self.max_in_flight:
                 self._drain_one(pending, on_result)
             if checkpoint_every and n_this_run - last_ckpt >= checkpoint_every:
                 last_ckpt = n_this_run
-                while pending:
-                    self._drain_one(pending, on_result)
-                self.elapsed += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                self._checkpoint()
-        while pending:
-            self._drain_one(pending, on_result)
-        if t0 is not None:
-            self.elapsed += time.perf_counter() - t0
-        self._checkpoint()
+                t0 = self._settle(pending, on_result, t0)
+        self._settle(pending, on_result, t0)
         return self._stats()
 
     def run(
@@ -312,47 +325,37 @@ class StreamRunner:
             next(it)
             skipped += 1
 
-        batch_l, batch_r = [], []
         pending = []
-
-        def flush(n_real):
-            pad = self.batch - n_real
-            res = self.pipeline(self._to_device(batch_l + batch_l[-1:] * pad),
-                                self._to_device(batch_r + batch_r[-1:] * pad))
-            pending.append((_head(res, n_real), n_real, self._done_marker()))
-            while len(pending) > self.max_in_flight:
-                self._drain_one(pending, on_result)
-
         t0 = time.perf_counter()
         n_this_run = 0
         last_ckpt = 0
-        for left, right in it:
-            batch_l.append(left)
-            batch_r.append(right)
-            if len(batch_l) == self.batch:
-                flush(self.batch)
-                batch_l, batch_r = [], []
-                n_this_run += self.batch
-                if fail_after is not None and n_this_run >= fail_after:
-                    while pending:
-                        self._drain_one(pending, on_result)
-                    self.elapsed += time.perf_counter() - t0
-                    self._checkpoint()
-                    raise RuntimeError(
-                        f"fault injection: failing after {n_this_run} frames"
-                    )
-                if (checkpoint_every
-                        and n_this_run - last_ckpt >= checkpoint_every):
-                    last_ckpt = n_this_run
-                    while pending:
-                        self._drain_one(pending, on_result)
-                    self.elapsed += time.perf_counter() - t0
-                    t0 = time.perf_counter()
-                    self._checkpoint()
-        if batch_l:
-            flush(len(batch_l))
-        while pending:
-            self._drain_one(pending, on_result)
-        self.elapsed += time.perf_counter() - t0
-        self._checkpoint()
+        while True:
+            with span("stream.collect"):
+                pairs = list(itertools.islice(it, self.batch))
+            if not pairs:
+                break
+            n_real = len(pairs)
+            pairs += pairs[-1:] * (self.batch - n_real)
+            with span("stream.stage"):
+                left = self._to_device([p[0] for p in pairs])
+                right = self._to_device([p[1] for p in pairs])
+            with span("stream.enqueue"):
+                res = self.pipeline(left, right)
+                pending.append((_head(res, n_real), n_real,
+                                self._done_marker()))
+            while len(pending) > self.max_in_flight:
+                self._drain_one(pending, on_result)
+            if n_real < self.batch:
+                break
+            n_this_run += n_real
+            if fail_after is not None and n_this_run >= fail_after:
+                self._settle(pending, on_result, t0)
+                raise RuntimeError(
+                    f"fault injection: failing after {n_this_run} frames"
+                )
+            if (checkpoint_every
+                    and n_this_run - last_ckpt >= checkpoint_every):
+                last_ckpt = n_this_run
+                t0 = self._settle(pending, on_result, t0)
+        self._settle(pending, on_result, t0)
         return self._stats()
