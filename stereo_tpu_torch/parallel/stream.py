@@ -179,6 +179,9 @@ class StreamRunner:
             device=self.device)
         self.frames_done = 0
         self.elapsed = 0.0
+        #: Batches ``run`` staged before a checkpoint's drain (not in the
+        #: manifest or the stats).
+        self.staged_ahead = 0
         if manifest_path and os.path.exists(manifest_path):
             with open(manifest_path) as f:
                 m = json.load(f)
@@ -241,6 +244,22 @@ class StreamRunner:
         if self.device.type != "cuda":
             return batch
         return batch.pin_memory().to(self.device, non_blocking=True)
+
+    def _next_batch(self, it) -> Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                 int]]:
+        """Pull the next batch from ``it`` and stage it on ``device``:
+        ``(left, right, n_real)``, a partial batch padded with its last
+        frame, or None once ``it`` is exhausted."""
+        with span("stream.collect"):
+            pairs = list(itertools.islice(it, self.batch))
+        if not pairs:
+            return None
+        n_real = len(pairs)
+        pairs += pairs[-1:] * (self.batch - n_real)
+        with span("stream.stage"):
+            left = self._to_device([p[0] for p in pairs])
+            right = self._to_device([p[1] for p in pairs])
+        return left, right, n_real
 
     def _stats(self) -> dict:
         fps = self.frames_done / self.elapsed if self.elapsed else 0.0
@@ -318,6 +337,13 @@ class StreamRunner:
         padding's results dropped. ``fail_after`` raises after that many
         frames of this run, once they are delivered and checkpointed
         (fault injection for the restart tests).
+
+        When a checkpoint is due after a full batch, the next batch is
+        pulled and staged (its copy in enqueued) before the pipeline is
+        emptied, so the host's staging runs while the card still computes
+        the batches in flight; ``staged_ahead`` counts such batches. The
+        staged batch is enqueued after the checkpoint, which counts only
+        the frames delivered before it.
         """
         it = iter(frames)
         skipped = 0
@@ -329,16 +355,9 @@ class StreamRunner:
         t0 = time.perf_counter()
         n_this_run = 0
         last_ckpt = 0
-        while True:
-            with span("stream.collect"):
-                pairs = list(itertools.islice(it, self.batch))
-            if not pairs:
-                break
-            n_real = len(pairs)
-            pairs += pairs[-1:] * (self.batch - n_real)
-            with span("stream.stage"):
-                left = self._to_device([p[0] for p in pairs])
-                right = self._to_device([p[1] for p in pairs])
+        staged = self._next_batch(it)
+        while staged is not None:
+            left, right, n_real = staged
             with span("stream.enqueue"):
                 res = self.pipeline(left, right)
                 pending.append((_head(res, n_real), n_real,
@@ -353,9 +372,18 @@ class StreamRunner:
                 raise RuntimeError(
                     f"fault injection: failing after {n_this_run} frames"
                 )
-            if (checkpoint_every
+            if not (checkpoint_every
                     and n_this_run - last_ckpt >= checkpoint_every):
-                last_ckpt = n_this_run
+                staged = self._next_batch(it)
+                continue
+            last_ckpt = n_this_run
+            # Stage ahead, then drain; a pull that raises still finds the
+            # batches before it delivered and checkpointed.
+            try:
+                staged = self._next_batch(it)
+                if staged is not None:
+                    self.staged_ahead += 1
+            finally:
                 t0 = self._settle(pending, on_result, t0)
         self._settle(pending, on_result, t0)
         return self._stats()

@@ -151,7 +151,8 @@ def test_runner_spans(entry, every, checkpoints, nested):
     ``stream.deliver`` a drained batch, one ``stream.checkpoint`` for each
     manifest write (each batch, every second batch, or only the end), the
     drains a checkpoint forces nested inside it and the top-level spans
-    disjoint; the results and frame count are those of an untraced run."""
+    disjoint, and in ``run`` the batch after a checkpoint staged before
+    it; the results and frame count are those of an untraced run."""
     want_stats, want, _ = _drive(entry, every)
     with _cpu_profile() as prof:
         stats, got, ckpts = _drive(entry, every)
@@ -174,6 +175,14 @@ def test_runner_spans(entry, every, checkpoints, nested):
     top = [sp for sp in spans if sp[0] in TOP_LEVEL
            or not _inside(sp, spans, "stream.checkpoint")]
     assert all(a[2] <= b[1] for a, b in zip(top, top[1:]))
+    # run stages the batch after a checkpoint before that checkpoint's drain.
+    for c in (sp for sp in spans if sp[0] == "stream.checkpoint"):
+        after = [sp[1] for sp in spans
+                 if sp[0] == "stream.enqueue" and sp[1] >= c[2]]
+        if entry == "run" and after:
+            stage = [sp for sp in spans
+                     if sp[0] == "stream.stage" and sp[2] <= after[0]][-1]
+            assert stage[2] <= c[1]
 
 
 def test_fault_injection_checkpoints_in_a_span(tmp_path):
