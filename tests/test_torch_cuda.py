@@ -1099,6 +1099,50 @@ def test_stream_runs_the_kernels(dev, grid, replicas):
         assert torch.equal(outs[0].valid[i], want.valid)
 
 
+def test_stream_quality_preset_runs_adaptive_k2(dev):
+    """StreamRunner.run on host frames at KITTI size on the quality preset,
+    as the benchmark's quality cell runs it: frame 0, the seed-0 pair of
+    the reference's golden fixture, has the fixture's hashes; every frame
+    equals build_pipeline's; and K2 runs only its adaptive whole form, 8
+    launches a frame, from images cut out of the stacked batch."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from stereo_tpu_torch.parallel import StreamRunner
+
+    def sha16(t):
+        return hashlib.sha256(
+            np.ascontiguousarray(t.numpy()).tobytes()).hexdigest()[:16]
+
+    cfg = KITTI_SGM8_128_QUALITY
+    shape = (375, 1242)
+    fx = json.loads((Path(__file__).resolve().parents[1] / "stereo_tpu_torch"
+                     / "testdata" / "kitti_sgm8_128_quality_seed0.json")
+                    .read_text())
+    pairs = [make_pair(shape, max_disp=96, texture="cloud", seed=s)
+             for s in (0, 71, 72, 73, 74, 75)]
+    runner = StreamRunner(cfg, make_tile_mesh([dev], (1, 1)), shape,
+                          batch_size=4, device=dev)
+    outs = []
+    reset_launch_counts()
+    stats = runner.run([(p.left, p.right) for p in pairs],
+                       on_result=lambda r: outs.append(
+                           (r.disp.cpu(), r.valid.cpu())))
+    forms = {k: v for k, v in launch_forms().items() if k[0] == "sgm_paths"}
+    assert stats["frames"] == 6
+    assert forms == {("sgm_paths", *shape, 128, "torch.int8",
+                      PATH_STEPS[:8], True, "whole"): 8 * 8}
+    disp = torch.cat([d for d, _ in outs])
+    valid = torch.cat([v for _, v in outs])
+    assert (sha16(disp[0]), sha16(valid[0])) == (fx["disp"], fx["valid"])
+    frame = build_pipeline(cfg, dev)
+    for i, p in enumerate(pairs):
+        want = frame(p.left, p.right)
+        assert torch.equal(disp[i], want.disp.cpu())
+        assert torch.equal(valid[i], want.valid.cpu())
+
+
 def test_run_batches_refuses_host_batches(dev):
     """run_batches on the card takes batches already there, of the
     runner's batch extent and frame shape."""

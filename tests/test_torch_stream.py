@@ -47,6 +47,8 @@ PLAIN = dict(cost_fn="census", num_disparities=8, num_paths=0,
              subpixel=False, median_filter=False)
 SGM = dict(cost_fn="census", num_disparities=16, num_paths=8, subpixel=True,
            lr_check=True)
+#: The quality preset's penalty (config 3q): adaptive P2 with a noise floor.
+ADAPTIVE = dict(SGM, adaptive_p2=True, p2_min=30, adaptive_grad_floor=12)
 SHAPE = (32, 48)
 
 
@@ -66,18 +68,39 @@ def _stack(pairs):
 
 @pytest.mark.parametrize(
     "kw, shape, max_disp",
-    [(PLAIN, (32, 48), 6), (SGM, (48, 64), 12)],
-    ids=["wta_32x48_d8", "sgm8_lr_48x64_d16"])
+    [(PLAIN, (32, 48), 6), (SGM, (48, 64), 12), (ADAPTIVE, (48, 64), 12)],
+    ids=["wta_32x48_d8", "sgm8_lr_48x64_d16", "sgm8_adaptive_48x64_d16"])
 def test_stream_matches_reference(kw, shape, max_disp):
     """Four frames over two replicas of a 2 x 2 grid, every frame equal to
-    the reference's stream: the plain WTA case tiles legacy, the SGM one
-    stitched."""
+    the reference's stream: the plain WTA case tiles legacy, the SGM ones
+    stitched, with fixed and with adaptive P2."""
     pairs = [make_pair(shape, max_disp=max_disp, kind="shapes", seed=i)
              for i in range(4)]
     left, right = _stack(pairs)
     want = j_stream(JCfg(**kw), _j_mesh_b2(), shape)(left, right)
     got = t_stream(TCfg(**kw), _t_mesh_b2(), shape, device="cpu")(left, right)
     assert got.frames == range(4)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(got.disp.numpy(), np.asarray(want.disp))
+
+
+@pytest.mark.parametrize("kw", [SGM, ADAPTIVE], ids=["fixed", "adaptive"])
+def test_stream_kernel_route_matches_reference(monkeypatch, kw):
+    """The whole-frame stream on the kernels' route (forced on the CPU,
+    where each wrapper runs its plain twin: K2 takes the reference image
+    under adaptive P2), two frames a batch, equal to the reference's
+    stream on a trivial grid."""
+    from stereo_tpu_torch import pipeline
+
+    shape = (48, 64)
+    pairs = [make_pair(shape, max_disp=12, kind="shapes", seed=60 + i)
+             for i in range(2)]
+    left, right = _stack(pairs)
+    want = j_stream(JCfg(**kw), j_mesh(jax.devices()[:2], mesh_shape=(1, 1),
+                                       batch=2), shape)(left, right)
+    monkeypatch.setattr(pipeline, "use_kernels", lambda cfg, device: True)
+    got = t_stream(TCfg(**kw), t_mesh(["cpu"] * 2, (1, 1), batch=2), shape,
+                   device="cpu")(left, right)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     np.testing.assert_array_equal(got.disp.numpy(), np.asarray(want.disp))
 
