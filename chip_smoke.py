@@ -10,8 +10,8 @@ result line):
   2. build: compiles the six CUDA kernels (nvcc, sm_90a, one compiler per
      source, all at once) and the host speckle and fill library (g++) from
      the sources in this checkout; prints ptxas's registers and spills of
-     every K2 instance (whole, rectangle, sheared and mask forms) with its
-     ring
+     every K2 instance (whole, rectangle, sheared and mask forms, and the
+     whole form's horizontal pair) with its ring
      (pixels staged per warp, shared memory per block), of every K1 (transform and cost stage) and K3 instance,
      and of every K5 (by sum type, window half-width and disparity chunk)
      and K4 instance with its shared memory per block (K5's at the paths'
@@ -95,20 +95,21 @@ result line):
      to 0 just before and read just after, by form; a launch of a form
      that phase 3 did not hold against its plain version fails (per frame,
      K1/K5 K2 K3 K4; K1 stands for its cost stage, and its transform stage
-     adds one launch per image, two per K1):
-     kitti_sgm8_128 (1 8 1 1), kitti_sgm8_128_quality (1 8 1 1),
-     kitti_sgm8_128 with lr_exact (2 16 2 1), tsukuba_sad16 through the
+     adds one launch per image, two per K1; K2's whole form launches its
+     horizontal pair and the other directions, 7 launches for 8 paths):
+     kitti_sgm8_128 (1 7 1 1), kitti_sgm8_128_quality (1 7 1 1),
+     kitti_sgm8_128 with lr_exact (2 14 2 1), tsukuba_sad16 through the
      block_matching model (1 0 1 1) and through build_banded_pipeline in two
      column patches (2 0 2 2, K5 with x_offset != 0),
-     middlebury_census_sgm4_64 (1 4 1 1),
+     middlebury_census_sgm4_64 (1 3 1 1),
      kitti_sgm8_128 and kitti_sgm8_128_quality through the pyramid model
-     with a 5x5 census (1 16 2 2 each; the quality preset gives the
+     with a 5x5 census (1 14 2 2 each; the quality preset gives the
      residual pass its adaptive P2) and kitti_sgm8_128 with cost_fn="rank"
-     (1 8 1 1); then config 4 through build_banded_pipeline at 497x720
+     (1 7 1 1); then config 4 through build_banded_pipeline at 497x720
      and at 1988x2880 (make_pair(shape, max_disp=200, kind="shapes",
-     texture="cloud")): the whole frame (n_bands=1, n_cols=1; 1 8 1 1),
-     two column patches stitched (2 16 2 2, K3 in its emit_qr form) and
-     2x2 patches in the legacy overlap (4 32 4 4, x_offset != 0); the
+     texture="cloud")): the whole frame (n_bands=1, n_cols=1; 1 7 1 1),
+     two column patches stitched (2 14 2 2, K3 in its emit_qr form) and
+     2x2 patches in the legacy overlap (4 28 4 4, x_offset != 0); the
      splits are not expected to equal the whole frame (SGM warm-up at
      patch edges), and the share of pixels that differ is printed; then
      the halo-tiled pipeline on the local grid (build_halo_pipeline over
@@ -155,7 +156,7 @@ result line):
      after 4 frames and a restart from the manifest, every frame delivered
      once and equal to the per-frame path; a tiled stream, 4 frames on a
      local 2x2 grid (stitched), each equal to build_halo_pipeline; and
-     scaling_report's row for the one card. Launches: 13 a frame (the
+     scaling_report's row for the one card. Launches: 12 a frame (the
      kitti_sgm8_128 forms) for the 96 + 12 + 31 frames of the whole-frame
      runs, the 2x2 tiles' forms for the tiled one;
   7. masked: compute_disparity at KITTI size under backend="auto" with
@@ -459,7 +460,7 @@ def _cfg4_forms(images: Dict[str, int], k1: Dict[str, int],
     forms.update({f"census_cost/cfg4/{suffix}": n
                   for suffix, n in k1.items()})
     for shape, n in shapes.items():
-        forms[f"sgm_paths/cfg4/{shape}"] = 8 * n
+        forms[f"sgm_paths/cfg4/{shape}"] = 7 * n  # the pair and 6 more
         forms[f"sgm_select/cfg4/{shape}{k3}"] = n
         forms[f"median3x3/cfg4/{shape}"] = n
     return forms
@@ -628,24 +629,26 @@ class ExactRunner(NamedTuple):
                                     device=device)
 
 
-#: A pyramid frame: the coarse pass at half size and D/2 (K1, K2 x 8, K3
-#: without LR, K4), then K2 x 8 and K3 on the residual volume, and K4.
+#: A pyramid frame: the coarse pass at half size and D/2 (K1, K2, K3
+#: without LR, K4), then K2 and K3 on the residual volume, and K4. K2 is 7
+#: launches a call wherever its whole form runs 8 paths: the horizontal
+#: pair and the 6 other directions; 3 for 4 paths.
 _PYRAMID_FORMS = {
     "census_transform/w1_d64": 2, "census_transform/5x5": 2,
-    "census_cost/w1_d64": 1, "sgm_paths/d64": 8, "sgm_select/coarse": 1,
-    "median3x3/coarse": 1, "sgm_paths/d16": 8, "sgm_select/md-8": 1,
+    "census_cost/w1_d64": 1, "sgm_paths/d64": 7, "sgm_select/coarse": 1,
+    "median3x3/coarse": 1, "sgm_paths/d16": 7, "sgm_select/md-8": 1,
     "median3x3": 1,
 }
 
 SLICES = (
     Slice("kitti_sgm8_128", kitti_like_pair, (0, 1, 0, 1),
-          {"census_transform": 2, "census_cost": 1, "sgm_paths": 8,
+          {"census_transform": 2, "census_cost": 1, "sgm_paths": 7,
            "sgm_select": 1, "median3x3": 1}),
     Slice("kitti_sgm8_128_quality", kitti_like_pair, (0, 1, 0),
-          {"census_transform": 2, "census_cost": 1, "sgm_paths/adaptive": 8,
+          {"census_transform": 2, "census_cost": 1, "sgm_paths/adaptive": 7,
            "sgm_select": 1, "median3x3": 1}),
     Slice("kitti_sgm8_128_lr_exact", kitti_like_pair, (0, 1, 0),
-          {"census_transform": 4, "census_cost": 2, "sgm_paths": 16,
+          {"census_transform": 4, "census_cost": 2, "sgm_paths": 14,
            "sgm_select/d0": 1,
            "sgm_select/int": 1, "median3x3": 1}),
     Slice("tsukuba_sad16", tsukuba_pair, (0, 1, 2, 3, 0, 1, 2, 3),
@@ -655,17 +658,17 @@ SLICES = (
           differs_from="tsukuba_sad16"),
     Slice("middlebury_census_sgm4_64", middlebury_pair, (0, 1, 0, 1),
           {"census_transform/555x900": 2, "census_cost/d64": 1,
-           "sgm_paths/4": 4, "sgm_select/d64": 1, "median3x3/555x900": 1}),
+           "sgm_paths/4": 3, "sgm_select/d64": 1, "median3x3/555x900": 1}),
     Slice("kitti_sgm8_128_pyramid55", kitti_like_pair, (0, 1, 0, 1),
           _PYRAMID_FORMS),
     Slice("kitti_sgm8_128_quality_pyramid55", kitti_like_pair, (0, 1, 0),
           {"census_transform/w1_d64": 2, "census_transform/5x5": 2,
-           "census_cost/w1_d64": 1, "sgm_paths/d64/adaptive": 8,
+           "census_cost/w1_d64": 1, "sgm_paths/d64/adaptive": 7,
            "sgm_select/coarse": 1, "median3x3/coarse": 1,
-           "sgm_paths/d16/adaptive": 8, "sgm_select/md-8": 1,
+           "sgm_paths/d16/adaptive": 7, "sgm_select/md-8": 1,
            "median3x3": 1}),
     Slice("kitti_sgm8_128_rank", kitti_like_pair, (0, 1, 0),
-          {"census_transform/rank": 2, "census_cost/rank": 1, "sgm_paths": 8,
+          {"census_transform/rank": 2, "census_cost/rank": 1, "sgm_paths": 7,
            "sgm_select": 1, "median3x3": 1}),
     # config 4 through the banded runner, at a quarter of the resolution
     # (fixtures from the reference package) and at the bench's size
@@ -728,20 +731,25 @@ _TALLY = None
 
 def held(name: str, fn):
     """``fn()`` must launch row ``name``'s kernel form and nothing else (K2
-    once per direction): notes the counted form under the row, waits for
-    the card so a fault shows where it ran, and returns what ``fn`` did,
-    which the caller compares with the plain version."""
+    once per direction, or in the whole form its horizontal pair, the form
+    ``"hpair"``, and the other directions once each: two forms, one row):
+    notes the counted forms under the row, waits for the card so a fault
+    shows where it ran, and returns what ``fn`` did, which the caller
+    compares with the plain version."""
     reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    forms = list(launch_forms())
-    if len(forms) != 1 or forms[0][0] != KERNEL_INFO[name][0]:
-        raise AssertionError(f"{name}: launched {forms}")
-    form = forms[0]
-    if HELD.setdefault(form, name) != name:
-        raise AssertionError(f"{name} and {HELD[form]} are one form: {form}")
-    if _TALLY is not None:
-        _TALLY[name] = _TALLY.get(name, 0) + launch_forms()[form]
+    launched = launch_forms()
+    kernel = KERNEL_INFO[name][0]
+    if not launched or any(f[0] != kernel for f in launched) or (
+            len(launched) > 1 and kernel != "sgm_paths"):
+        raise AssertionError(f"{name}: launched {list(launched)}")
+    for form, n in launched.items():
+        if HELD.setdefault(form, name) != name:
+            raise AssertionError(f"{name} and {HELD[form]} are one form: "
+                                 f"{form}")
+        if _TALLY is not None:
+            _TALLY[name] = _TALLY.get(name, 0) + n
     return out
 
 
@@ -908,8 +916,9 @@ def kernel_instances(kernel: str, log: str = "") -> Dict[str, dict]:
 def k2_instances() -> Dict[str, dict]:
     """Each K2 instance's registers and spills (``kernel_instances``; its
     template arguments are DPL, PARTIAL, ADAPTIVE, RUN (0 whole, 1 the
-    rectangle form, 2 the sheared form, 3 the mask form) and the cost type)
-    and its ring from the C queries."""
+    rectangle form, 2 the sheared form, 3 the mask form, 4 the horizontal
+    pair, whose block holds two warps' rings) and the cost type) and its
+    ring from the C queries."""
     lib = load_kernels()
     found: Dict[str, dict] = {}
     for args, row in kernel_instances("sgm_path_kernel").items():
@@ -917,12 +926,14 @@ def k2_instances() -> Dict[str, dict]:
         cost_bytes = 1 if t == "a" else 2
         name = (f"dpl{dpl}{'/partial' * (partial == '1')}"
                 f"{'/adaptive' * (adaptive == '1')}"
-                f"{['', '/rect', '/shear', '/mask'][int(run_form)]}"
+                f"{['', '/rect', '/shear', '/mask', '/hpair'][int(run_form)]}"
                 f"/int{8 * cost_bytes}")
         d = 32 * int(dpl)
+        warps = 2 if run_form == "4" else 1
         found[name] = dict(stages=lib.stpu_sgm_path_stages(d),
-                           smem=lib.stpu_sgm_path_smem(d, cost_bytes), **row)
-    if len(found) != 256:
+                           smem=warps * lib.stpu_sgm_path_smem(d, cost_bytes),
+                           **row)
+    if len(found) != 320:
         raise AssertionError(f"ptxas report: {len(found)} K2 instances")
     return dict(sorted(found.items()))
 
@@ -931,17 +942,19 @@ def per_direction_ms(dev, cost, scratch, image_ptr, cfg, rect=None
                      ) -> Dict[str, float]:
     """One K2 direction at a time, straight through the C entry point
     (these launches bypass the wrapper's counter), into a scratch sum; in
-    the rectangle form where ``rect`` is given."""
+    the rectangle form where ``rect`` is given, else first the horizontal
+    pair (step 0, 0: both horizontals in one launch, "hpair")."""
     h, w, d = cost.shape
     box = (0, h, 0, w) if rect is None else rect
+    steps = [(0, 0)] * (rect is None) + list(PATH_STEPS[: cfg.num_paths])
     return {
-        f"{dy:+d},{dx:+d}": cuda_ms(
+        "hpair" if (dy, dx) == (0, 0) else f"{dy:+d},{dx:+d}": cuda_ms(
             lambda: run("stpu_sgm_path", dev, cost.data_ptr(),
                         cost.element_size(), image_ptr, scratch.data_ptr(), h,
                         w, d, dy, dx, cfg.p1, cfg.p2, cfg.p2_min,
                         cfg.adaptive_grad_floor, 1, int(rect is not None),
                         *box, 0, 0, 0, None), reps=10)
-        for dy, dx in PATH_STEPS[: cfg.num_paths]
+        for dy, dx in steps
     }
 
 
@@ -1899,11 +1912,11 @@ def run_slice(dev, sl: Slice, frame0: Dict[str, tuple],
 #: Kernel forms of one pair of the hard suite's two sweeps (the second
 #: runs a census and a SAD pipeline on each pair).
 _SUITE_FORMS = {"census_transform/160x288": 2, "census_cost/160x288": 1,
-                "sgm_paths/adaptive/160x288": 8, "sgm_select/160x288": 1,
+                "sgm_paths/adaptive/160x288": 7, "sgm_select/160x288": 1,
                 "median3x3/160x288": 1}
 _ROBUST_FORMS = {"census_transform/160x288": 2, "census_cost/160x288": 1,
                  "sad_cost/d128": 1,
-                 "sgm_paths/160x288": 8, "sgm_paths/int16": 8,
+                 "sgm_paths/160x288": 7, "sgm_paths/int16": 7,
                  "sgm_select/160x288": 2, "median3x3/160x288": 2}
 
 
@@ -1912,9 +1925,9 @@ _ROBUST_FORMS = {"census_transform/160x288": 2, "census_cost/160x288": 1,
 #: slices' forms per pair.
 _FULL_RES_FORMS = {
     "kitti_sgm8_128": {"census_transform": 2, "census_cost": 1,
-                       "sgm_paths": 8, "sgm_select": 1, "median3x3": 1},
+                       "sgm_paths": 7, "sgm_select": 1, "median3x3": 1},
     "kitti_sgm8_128_quality": {"census_transform": 2, "census_cost": 1,
-                               "sgm_paths/adaptive": 8, "sgm_select": 1,
+                               "sgm_paths/adaptive": 7, "sgm_select": 1,
                                "median3x3": 1},
 }
 

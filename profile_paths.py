@@ -30,12 +30,15 @@ device time the call spends (plain torch launches around the kernel;
 
 ``--k2`` profiles K2 alone the same way, eight directions per call on
 random costs: its whole-frame form at KITTI size (fixed and adaptive P2,
-375x1242x128) and at config 4's (1988x2880x256), and, where the checkout's
-``sgm_paths`` takes a rectangle, its rectangle form at the same shapes
+375x1242x128) and at config 4's (1988x2880x256), the two horizontals
+alone (``steps``; one launch where the checkout pairs them) and each
+horizontal alone, and, where the checkout's ``sgm_paths`` takes a
+rectangle, its rectangle form at the same shapes
 (a tile's in-frame rectangle, 20 rows and 276 columns in from each edge),
 and where it takes a shear, the down-right diagonals two ways: the whole
 form's two directions and the sheared form's two verticals of the whole
-sheared volume.
+sheared volume. Each row gives the device ms per call and the launches
+per call.
 It also runs against an older checkout (copy it there), whose K2 has the
 whole-frame form only: the two checkouts' whole forms compare in one call.
 """
@@ -79,7 +82,9 @@ from stereo_tpu_torch.models.pyramid import (
 )
 from stereo_tpu_torch.ops import census_transform
 from stereo_tpu_torch.ops.cuda import (
+    launch_counts,
     median3x3,
+    reset_launch_counts,
     sad_cost,
     sgm_paths,
     sgm_select,
@@ -243,15 +248,29 @@ def kernel_forms(dev: torch.device, reps: int = 50) -> list:
 
 
 def k2_forms(dev: torch.device, reps: int = 10) -> list:
-    """K2's whole-frame form, and its rectangle form where this checkout
-    has one, at KITTI and config-4 sizes: device ms per call of eight
-    directions (``profiled_ms``, per launch times 8). Where the checkout
-    has the sheared form, also the two down-right diagonals of the whole
-    form and the sheared form's two verticals of the whole sheared volume
-    [H, W + H - 1, D] (the same scans), per call of those two."""
+    """K2's whole-frame form, its horizontals (both, and each alone), and
+    its rectangle form where this checkout has one, at KITTI and config-4
+    sizes: device ms per call (``profiled_ms``, per launch times the
+    launches of a call). Where the checkout has the sheared form, also the
+    two down-right diagonals of the whole form and the sheared form's two
+    verticals of the whole sheared volume [H, W + H - 1, D] (the same
+    scans)."""
+
+    def row(form, call):
+        reset_launch_counts()
+        call()
+        launches = launch_counts()["sgm_paths"]
+        got = profiled_ms(call, "sgm_path_kernel", reps=reps)
+        if got is None:
+            raise RuntimeError(f"{form}: the profiler recorded no K2 launch")
+        return {"form": form, "calls": reps, "launches_per_call": launches,
+                "kernel_device_ms_per_call": got[0] * launches,
+                "other_device_ms": got[1]}
+
     gen = torch.Generator(device=dev).manual_seed(0)
     params = inspect.signature(sgm_paths).parameters
-    rect, shear = "rect" in params, "shear" in params
+    rect, shear, subset = ("rect" in params, "shear" in params,
+                           "steps" in params)
     rows = []
     for name, cfg, shape in (
             ("kitti 375x1242x128", KITTI_SGM8_128, (375, 1242, 128)),
@@ -265,17 +284,15 @@ def k2_forms(dev: torch.device, reps: int = 10) -> list:
         image = torch.randint(0, 256, (h, w), generator=gen, device=dev,
                               dtype=torch.int32).to(torch.uint8)
         forms = {"whole": {}}
+        if subset:
+            forms.update({"horizontals": {"steps": ((0, 1), (0, -1))},
+                          "horizontal (0,+1)": {"steps": ((0, 1),)},
+                          "horizontal (0,-1)": {"steps": ((0, -1),)}})
         if rect:
             forms["rect"] = {"rect": (20, h - 20, 276, w - 276)}
         for form, kw in forms.items():
-            got = profiled_ms(lambda: sgm_paths(cost, cfg, image=image, **kw),
-                              "sgm_path_kernel", reps=reps)
-            if got is None:
-                raise RuntimeError(f"{name}: the profiler recorded no K2 "
-                                   f"launch")
-            rows.append({"form": f"sgm_paths {form} {name}", "calls": reps,
-                         "kernel_device_ms_per_call": got[0] * 8,
-                         "other_device_ms": got[1]})
+            rows.append(row(f"sgm_paths {form} {name}",
+                            lambda: sgm_paths(cost, cfg, image=image, **kw)))
         if shear:
             from stereo_tpu_torch.ops.sgm import (
                 PATH_STEPS,
@@ -291,14 +308,7 @@ def k2_forms(dev: torch.device, reps: int = 10) -> list:
                     ("shear+1", lambda: sgm_paths(
                         sheared, cfg, image=image_sh, steps=V_STEPS,
                         shear=(1, 0, w)))):
-                got = profiled_ms(call, "sgm_path_kernel", reps=reps)
-                if got is None:
-                    raise RuntimeError(f"{name}: the profiler recorded no "
-                                       f"K2 launch")
-                rows.append({"form": f"sgm_paths {form} {name}",
-                             "calls": reps,
-                             "kernel_device_ms_per_call": got[0] * 2,
-                             "other_device_ms": got[1]})
+                rows.append(row(f"sgm_paths {form} {name}", call))
             del sheared, image_sh
         del cost, image
     return rows

@@ -1,4 +1,5 @@
-// K2 sgm_paths: one SGM path direction, added into the int16 sum S.
+// K2 sgm_paths: one SGM path direction (or the horizontal pair, both
+// horizontals at once), added into the int16 sum S.
 //
 // Replaces stereo_tpu/ops/pallas/sgm_kernel.py:_h_kernel (the two
 // horizontal paths), _v_kernel (the three down paths) and the path half of
@@ -57,9 +58,34 @@
 // with max(p2_min, P2 / g) where g = |I(p) - I(p-r)| - grad_floor > 0 (P2
 // where g <= 0). The TPU precomputes eight [H, W] maps in XLA because it
 // has no integer divide; here the warp stages I(p) with the pixel's C and
-// divides in registers, so no map touches device memory. The diagonals'
+// divides in registers, so no map touches device memory: lane g divides
+// for step g of a round, so the warp issues one divide a round, and each
+// step takes its P2 by a shuffle. The diagonals'
 // predecessor is the diagonal neighbour for the image as for the carry; a
 // scanline's first pixel has none and reads no gradient.
+//
+// Horizontal pair (RUN = kPair; the whole form's two horizontals in
+// one launch): both horizontals of a row chain 1242 dependent steps at
+// KITTI size with only 375 rows to spread over 132 SMs, so one direction
+// takes as long as its chain, however few rows; run one after the other
+// they cost two chains. The pair runs them at once, one block of two warps
+// per row: warp 0 scans left to right, warp 1 right to left, each with its
+// own ring and the lone direction's body. Both start together and step at
+// the same pace, so warp 0 reaches the left half [0, ceil(W/2)) first and
+// warp 1 the right half. Phase 0: each warp scans its first half and
+// stores S as a lone direction does (L, or S_old + L when the pair is not
+// the call's first launch). Then each warp drains its ring, fences, and
+// the block meets at one __syncthreads. Phase 1: each warp carries its L
+// on into the other half, where it reads the S the other warp stored in
+// phase 0 and adds its L. The ring must not cross the midpoint: a copy of
+// second-half S staged before the barrier would read S before the other
+// warp stored it, so each phase stages only its own steps and phase 1
+// refills the ring from the midpoint (three rounds, once per row). The
+// carry, the adaptive predecessor I(p - r) and each step are a lone
+// direction's, and integer adds in either order give the same int16 sum,
+// so S is bit for bit what the two launches give: the partial sum S_old +
+// L_first lies below the full one, which the wrapper's bound keeps in
+// int16. No atomics, and the same bytes move as in two launches.
 //
 // Any D in [1, 256] and int8 or int16 costs: lanes hold DPL = ceil(D / 32)
 // consecutive disparities, and the registers past D (half the warp at D =
@@ -81,8 +107,9 @@
 // dependent steps, so a direction is bound by the length of one step times
 // the longest scanline where scanlines are few (the horizontals at KITTI
 // size: 375 warps for 132 SMs, 1242 steps) and by the bytes in flight where
-// they are many. Design (the GPU SGM of arXiv 1610.04121, deep-staged): one
-// warp per scanline, each lane holding D/32 consecutive disparities of the
+// they are many (the horizontal pair runs the horizontals' two chains at
+// once). Design (the GPU SGM of arXiv 1610.04121, deep-staged): one warp
+// per scanline, each lane holding D/32 consecutive disparities of the
 // carry in registers, one warp per block so that few scanlines still reach
 // every SM. Each warp owns a ring of kStages slots in shared memory and
 // keeps the C, S (when accumulating) and I(p) (adaptive) of its scanline's
@@ -93,9 +120,10 @@
 // back to back: min_k L in one __reduce_min_sync, the d+-1 neighbours at
 // lane edges from shfl_up/down, the adaptive divide off the chain, S stored
 // from registers. A missing neighbour at d=0 or d=D-1 is skipped (the
-// golden edge replicate adds P1 to L itself, which never wins). Directions
+// golden edge replicate adds P1 to L itself, which never wins). Launches
 // run in sequence on one stream and one warp owns each pixel per
-// direction, so the S update needs no atomics; 8 * (max_unary_cost +
+// direction (the pair's two warps each own one half of the row at a
+// time), so the S update needs no atomics; 8 * (max_unary_cost +
 // max(P2, p2_min)) < 2^15 keeps int16 exact (checked by the wrapper).
 
 #include <cuda_runtime.h>
@@ -154,7 +182,7 @@ __host__ __device__ constexpr int slot_s(int dpl) { return 64 * dpl + 16; }
 __host__ __device__ constexpr int slot_bytes(int dpl, int cost_bytes) {
   return slot_c(dpl, cost_bytes) + slot_s(dpl) + 16;
 }
-__host__ __device__ constexpr int block_smem(int dpl, int cost_bytes) {
+__host__ __device__ constexpr int ring_smem(int dpl, int cost_bytes) {
   return ring_stages(dpl) * slot_bytes(dpl, cost_bytes);
 }
 
@@ -297,15 +325,21 @@ __device__ __forceinline__ void axis_run(int p, int step, int lo, int hi,
 // Where a scanline keeps its carry: on every step (kWhole), over its run
 // inside a rectangle (kRect), over the run of rows of a sheared column
 // whose source column lies in the frame (kShear), or after each pixel
-// whose mask byte is set (kMask).
-enum Run { kWhole = 0, kRect = 1, kShear = 2, kMask = 3 };
+// whose mask byte is set (kMask). kPair is the whole form's two
+// horizontals in one launch (see the header).
+enum Run { kWhole = 0, kRect = 1, kShear = 2, kMask = 3, kPair = 4 };
+
+// Warps per block: one per scanline, two (one per direction) for kPair.
+__host__ __device__ constexpr int block_warps(int run) {
+  return run == kPair ? 2 : 1;
+}
 
 // DPL = disparities per lane, ceil(D / 32); PARTIAL: D = d < 32 * DPL
 // (registers past D are dead); ADAPTIVE: P2 from the image; RUN: where
 // paths start fresh (enum Run); CostT: int8 (census, rank) or int16 (SAD)
 // costs.
 template <int DPL, bool PARTIAL, bool ADAPTIVE, int RUN, typename CostT>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32 * block_warps(RUN))
     sgm_path_kernel(const CostT* __restrict__ cost,
                     const int* __restrict__ image,
                     const uint8_t* __restrict__ mask,
@@ -319,10 +353,17 @@ __global__ void __launch_bounds__(32)
   constexpr int kSlot = slot_bytes(DPL, kCB);
   constexpr int kC = slot_c(DPL, kCB);
   constexpr int kS = slot_s(DPL);
-  extern __shared__ __align__(16) char ring[];  // kStages slots
+  extern __shared__ __align__(16) char smem[];  // kStages slots a warp
   const int D = PARTIAL ? d : 32 * DPL;
-  const int lane = threadIdx.x;
-  const int line = blockIdx.x;  // one block, one warp, per scanline
+  const int lane = threadIdx.x & 31;
+  const int line = blockIdx.x;  // one block per scanline
+  // kPair: warp 0 scans the row left to right, warp 1 right to left.
+  const int warp = RUN == kPair ? (int)(threadIdx.x >> 5) : 0;
+  char* const ring = smem + warp * (kStages * kSlot);
+  if (RUN == kPair) {
+    step_y = 0;
+    step_x = warp == 0 ? 1 : -1;
+  }
 
   // First pixel of this scanline: the pixels whose predecessor p - r is
   // out of frame. Diagonals start on the entry row (W lines), then on the
@@ -369,13 +410,19 @@ __global__ void __launch_bounds__(32)
     t_out = min(b, n);
   }
 
+  // The steps [t_lo, t_hi) that the current phase runs: the whole
+  // scanline, or for kPair the warp's first half (phase 0: the pixels it
+  // reaches before the other warp) and then the rest (phase 1, which adds
+  // into the S the other warp stored in its phase 0).
+  int t_lo = 0, t_hi = n;
+  int acc = accumulate;  // S is read and added to
   // Start pixel t's copies (pixel pix, its voxels at off) into its slot,
-  // as one commit group (an empty one past the scanline's end).
+  // as one commit group (an empty one past the phase's end).
   auto stage = [&](int t, ptrdiff_t pix, ptrdiff_t off) {
-    if (t < n) {
+    if (t < t_hi) {
       char* slot = ring + (t & (kStages - 1)) * kSlot;
       stage_bytes(slot, cost + off, D * kCB, lane);
-      if (accumulate) stage_bytes(slot + kC, sum + off, 2 * D, lane);
+      if (acc) stage_bytes(slot + kC, sum + off, 2 * D, lane);
       if (ADAPTIVE && lane == 0) cp_async4(slot + kC + kS, image + pix);
       if (RUN == kMask && lane == 1) {  // the word holding pix's byte
         cp_async4(slot + kC + kS + 4, mask + (pix & ~ptrdiff_t(3)));
@@ -392,7 +439,7 @@ __global__ void __launch_bounds__(32)
     read_lane<DPL, PARTIAL>(
         reinterpret_cast<const CostT*>(slot + c_shift) + lane * DPL, c, live,
         kDeadCost);
-    if (accumulate) {
+    if (acc) {
       const int s_shift =
           PARTIAL ? (int)(reinterpret_cast<uintptr_t>(sum + off) & 3) : 0;
       read_lane<DPL, PARTIAL>(
@@ -409,19 +456,6 @@ __global__ void __launch_bounds__(32)
     }
   };
 
-  // A round handles kRound pixels: it refills the kRound slots of the
-  // round before, waits once for its own pixels (the kStages - kRound
-  // newest groups may stay in flight), reads their C, S and I(p) into
-  // registers, and then runs their kRound steps back to back, so waits and
-  // shared-memory latency stay off the chain of dependent steps.
-  ptrdiff_t ahead_pix = pix0, ahead = off0;  // the pixel staged next
-#pragma unroll 1
-  for (int t = 0; t < kStages - kRound; ++t) {
-    stage(t, ahead_pix, ahead);
-    ahead_pix += pix_step;
-    ahead += voxel_step;
-  }
-
   // L = 0 before the first pixel: the recurrence then gives L = C there
   // (P1, P2 >= 0, so every candidate is >= 0 and min_k L = 0).
   int L[DPL];
@@ -429,77 +463,124 @@ __global__ void __launch_bounds__(32)
   for (int j = 0; j < DPL; ++j) L[j] = 0;
   int img_prev = 0;  // I(p - r)
   unsigned on_prev = 0;  // the mask byte of p - r (none before t = 0)
-  ptrdiff_t off = off0;
 #pragma unroll 1
-  for (int t0 = 0; t0 < n; t0 += kRound) {
-    __syncwarp();  // every lane has read the slots refilled below
-#pragma unroll
-    for (int g = 0; g < kRound; ++g) {
-      stage(t0 + kStages - kRound + g, ahead_pix, ahead);
+  for (int phase = 0; phase < block_warps(RUN); ++phase) {
+    if (RUN == kPair) {
+      const int half = warp == 0 ? (w + 1) / 2 : w / 2;
+      if (phase == 0) {
+        t_hi = half;
+      } else {
+        // Phase 0 staged nothing past the midpoint (stage stops at t_hi),
+        // so no copy of the other half's S was made before its store.
+        cp_async_wait<0>();
+        __threadfence_block();
+        __syncthreads();  // both halves' S stored and visible
+        t_lo = half;
+        t_hi = n;
+        acc = 1;
+      }
+    }
+    // A round handles kRound pixels: it refills the kRound slots of the
+    // round before, waits once for its own pixels (the kStages - kRound
+    // newest groups may stay in flight), reads their C, S and I(p) into
+    // registers, and then runs their kRound steps back to back, so waits
+    // and shared-memory latency stay off the chain of dependent steps.
+    ptrdiff_t ahead_pix = pix0 + (ptrdiff_t)t_lo * pix_step;  // staged next
+    ptrdiff_t ahead = ahead_pix * D;
+#pragma unroll 1
+    for (int t = t_lo; t < t_lo + kStages - kRound; ++t) {
+      stage(t, ahead_pix, ahead);
       ahead_pix += pix_step;
       ahead += voxel_step;
     }
-    cp_async_wait<kStages - kRound>();
-    __syncwarp();
-    int c[kRound][DPL], s_old[kRound][DPL], img[kRound] = {};
-    // MASK: bit g is the mask byte of step g's predecessor.
-    unsigned pred_on = on_prev;
+    ptrdiff_t off = off0 + (ptrdiff_t)t_lo * voxel_step;
+#pragma unroll 1
+    for (int t0 = t_lo; t0 < t_hi; t0 += kRound) {
+      __syncwarp();  // every lane has read the slots refilled below
 #pragma unroll
-    for (int g = 0; g < kRound; ++g) {
-      if (t0 + g < n) {
-        unsigned on = 0;
-        read(t0 + g, off + g * voxel_step, c[g], s_old[g], img[g], on);
-        pred_on |= on << (g + 1);
+      for (int g = 0; g < kRound; ++g) {
+        stage(t0 + kStages - kRound + g, ahead_pix, ahead);
+        ahead_pix += pix_step;
+        ahead += voxel_step;
       }
-    }
+      cp_async_wait<kStages - kRound>();
+      __syncwarp();
+      int c[kRound][DPL], s_old[kRound][DPL], img[kRound] = {};
+      // MASK: bit g is the mask byte of step g's predecessor.
+      unsigned pred_on = on_prev;
+#pragma unroll
+      for (int g = 0; g < kRound; ++g) {
+        if (t0 + g < t_hi) {
+          unsigned on = 0;
+          read(t0 + g, off + g * voxel_step, c[g], s_old[g], img[g], on);
+          pred_on |= on << (g + 1);
+        }
+      }
+      // ADAPTIVE: lane g < kRound divides for step g, so the warp issues
+      // one divide a round, not one a step; step g takes its P2 by a
+      // shuffle, off the chain. (Lanes past the round's last step divide
+      // for nothing.)
+      int p2_lane = p2;
+      if (ADAPTIVE) {
+        int cur = img[0], pred = img_prev;
+#pragma unroll
+        for (int g = 1; g < kRound; ++g) {
+          if (lane == g) {
+            cur = img[g];
+            pred = img[g - 1];
+          }
+        }
+        const int grad = abs(cur - pred) - grad_floor;
+        if (grad > 0) p2_lane = max(p2_min, p2 / grad);  // floor: both >= 0
+      }
 
 #pragma unroll
-    for (int g = 0; g < kRound; ++g) {
-      if (t0 + g >= n) break;  // uniform over the warp
-      if (RUN == kMask ? !((pred_on >> g) & 1u)
-                       : RUN != kWhole && !(t0 + g > t_in && t0 + g <= t_out)) {
+      for (int g = 0; g < kRound; ++g) {
+        if (t0 + g >= t_hi) break;  // uniform over the warp
+        if (RUN == kMask ? !((pred_on >> g) & 1u)
+                         : (RUN == kRect || RUN == kShear) &&
+                               !(t0 + g > t_in && t0 + g <= t_out)) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) L[j] = 0;  // a fresh start: L = C
-      }
-      int p2e = p2;
-      if (ADAPTIVE) {
-        const int grad = abs(img[g] - (g > 0 ? img[g - 1] : img_prev)) -
-                         grad_floor;
-        if (grad > 0) p2e = max(p2_min, p2 / grad);  // floor: both >= 0
-      }
-      int m = L[0];
-#pragma unroll
-      for (int j = 1; j < DPL; ++j) m = min(m, L[j]);
-      m = __reduce_min_sync(kFull, m);
-      const int below = __shfl_up_sync(kFull, L[DPL - 1], 1);  // d - 1
-      const int above = __shfl_down_sync(kFull, L[0], 1);      // d + 1
-      int out[DPL];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        int cand = min(L[j], m + p2e);
-        if (j > 0) {
-          cand = min(cand, L[j - 1] + p1);
-        } else if (lane > 0) {
-          cand = min(cand, below + p1);
+          for (int j = 0; j < DPL; ++j) L[j] = 0;  // a fresh start: L = C
         }
-        if (j < DPL - 1) {
-          cand = min(cand, L[j + 1] + p1);
-        } else if (lane < 31) {
-          cand = min(cand, above + p1);
+        int p2e = p2;
+        if (ADAPTIVE) {
+          p2e = __shfl_sync(kFull, p2_lane, g);
+          img_prev = img[g];  // the last step run, also across a phase
         }
-        out[j] = c[g][j] + cand - m;
-      }
+        int m = L[0];
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        L[j] = out[j];
-        out[j] += s_old[g][j];
+        for (int j = 1; j < DPL; ++j) m = min(m, L[j]);
+        m = __reduce_min_sync(kFull, m);
+        const int below = __shfl_up_sync(kFull, L[DPL - 1], 1);  // d - 1
+        const int above = __shfl_down_sync(kFull, L[0], 1);      // d + 1
+        int out[DPL];
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          int cand = min(L[j], m + p2e);
+          if (j > 0) {
+            cand = min(cand, L[j - 1] + p1);
+          } else if (lane > 0) {
+            cand = min(cand, below + p1);
+          }
+          if (j < DPL - 1) {
+            cand = min(cand, L[j + 1] + p1);
+          } else if (lane < 31) {
+            cand = min(cand, above + p1);
+          }
+          out[j] = c[g][j] + cand - m;
+        }
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          L[j] = out[j];
+          out[j] += s_old[g][j];
+        }
+        store_sum<DPL, PARTIAL>(sum + off + g * voxel_step + lane * DPL, out,
+                                live);
       }
-      store_sum<DPL, PARTIAL>(sum + off + g * voxel_step + lane * DPL, out,
-                              live);
+      on_prev = (pred_on >> kRound) & 1u;
+      off += kRound * voxel_step;
     }
-    img_prev = img[kRound - 1];
-    on_prev = (pred_on >> kRound) & 1u;
-    off += kRound * voxel_step;
   }
   cp_async_wait<0>();
 }
@@ -510,7 +591,7 @@ cudaError_t launch(const void* cost, const int* image, const uint8_t* mask,
                    int p1, int p2, int p2_min, int grad_floor, int accumulate,
                    int run, const Rect& r, cudaStream_t s) {
   int n_lines;
-  if (step_y == 0) {
+  if (step_y == 0) {  // the horizontals and kPair (step 0, 0): the rows
     n_lines = h;
   } else if (step_x == 0) {
     n_lines = w;
@@ -518,27 +599,30 @@ cudaError_t launch(const void* cost, const int* image, const uint8_t* mask,
     n_lines = w + h - 1;
   }
   const auto* c = static_cast<const CostT*>(cost);
-  constexpr int smem = block_smem(DPL, (int)sizeof(CostT));
+  const int warps = block_warps(run);
+  const int smem = warps * ring_smem(DPL, (int)sizeof(CostT));
   using Kernel = decltype(&sgm_path_kernel<DPL, PARTIAL, true, kWhole, CostT>);
-  const Kernel adaptive[4] = {
+  const Kernel adaptive[5] = {
       sgm_path_kernel<DPL, PARTIAL, true, kWhole, CostT>,
       sgm_path_kernel<DPL, PARTIAL, true, kRect, CostT>,
       sgm_path_kernel<DPL, PARTIAL, true, kShear, CostT>,
-      sgm_path_kernel<DPL, PARTIAL, true, kMask, CostT>};
-  const Kernel fixed[4] = {
+      sgm_path_kernel<DPL, PARTIAL, true, kMask, CostT>,
+      sgm_path_kernel<DPL, PARTIAL, true, kPair, CostT>};
+  const Kernel fixed[5] = {
       sgm_path_kernel<DPL, PARTIAL, false, kWhole, CostT>,
       sgm_path_kernel<DPL, PARTIAL, false, kRect, CostT>,
       sgm_path_kernel<DPL, PARTIAL, false, kShear, CostT>,
-      sgm_path_kernel<DPL, PARTIAL, false, kMask, CostT>};
+      sgm_path_kernel<DPL, PARTIAL, false, kMask, CostT>,
+      sgm_path_kernel<DPL, PARTIAL, false, kPair, CostT>};
   const Kernel kernel = image != nullptr ? adaptive[run] : fixed[run];
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<n_lines, 32, smem, s>>>(c, image, mask, sum, h, w, d, step_y,
-                                  step_x, p1, p2, p2_min, grad_floor,
-                                  accumulate, r);
+  kernel<<<n_lines, 32 * warps, smem, s>>>(c, image, mask, sum, h, w, d,
+                                          step_y, step_x, p1, p2, p2_min,
+                                          grad_floor, accumulate, r);
   return cudaGetLastError();
 }
 
@@ -590,13 +674,14 @@ int stpu_k2::launch_int16(const void* cost, const int* image,
 #else
 
 // The ring of the K2 form for d disparities: pixels staged per warp, and
-// (for cost_bytes-byte costs) dynamic shared memory per block.
+// (for cost_bytes-byte costs) its dynamic shared memory, per warp: a block
+// of the horizontal pair holds two rings.
 extern "C" int stpu_sgm_path_stages(int d) {
   return ring_stages((d + 31) / 32);
 }
 
 extern "C" int stpu_sgm_path_smem(int d, int cost_bytes) {
-  return block_smem((d + 31) / 32, cost_bytes);
+  return ring_smem((d + 31) / 32, cost_bytes);
 }
 
 // cost: [H, W, D] int8 (cost_bytes 1) or int16 (cost_bytes 2); image: [H, W]
@@ -607,7 +692,9 @@ extern "C" int stpu_sgm_path_smem(int d, int cost_bytes) {
 // form (a vertical step, no rectangle): the block is the sheared columns
 // [x0, x0 + w) of an h x frame_w frame, 0 <= x0, x0 + w <= frame_w + h - 1.
 // mask != NULL selects the mask form: [h, w] bytes (0 or 1), contiguous,
-// 4-byte aligned; it takes neither a rectangle nor a shear.
+// 4-byte aligned; it takes neither a rectangle nor a shear. step_y = step_x
+// = 0 selects the horizontal pair: both horizontals, (0, 1) and (0, -1),
+// in one launch of the whole form (no rectangle, shear or mask).
 extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
                              const void* image, void* sum, int h, int w,
                              int d, int step_y, int step_x, int p1, int p2,
@@ -615,8 +702,10 @@ extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
                              int rect, int y_lo, int y_hi, int x_lo, int x_hi,
                              int shear, int x0, int frame_w, const void* mask,
                              void* stream) {
+  const bool pair = step_y == 0 && step_x == 0;
   if (h <= 0 || w <= 0 || d <= 0 || d > 256 || step_y < -1 || step_y > 1 ||
-      step_x < -1 || step_x > 1 || (step_y == 0 && step_x == 0) ||
+      step_x < -1 || step_x > 1 ||
+      (pair && (rect != 0 || shear != 0 || mask != nullptr)) ||
       (cost_bytes != 1 && cost_bytes != 2) || p1 < 0 || p2 < 0 ||
       p2_min < 0 || y_lo < 0 || y_lo > y_hi || y_hi > h || x_lo < 0 ||
       x_lo > x_hi || x_hi > w || shear < -1 || shear > 1 ||
@@ -629,6 +718,7 @@ extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
   const int run = mask != nullptr ? kMask
                   : shear != 0    ? kShear
                   : rect != 0     ? kRect
+                  : pair          ? kPair
                                   : kWhole;
   if (((reinterpret_cast<uintptr_t>(cost) | reinterpret_cast<uintptr_t>(sum)) &
        15) != 0 ||

@@ -41,7 +41,7 @@ KERNEL_SIGNATURES = {
     # w, sp -> 1 if K3's row fits a block's shared memory
     "stpu_sgm_select_fits": [_ci, _ci],
     # d -> K2's pixels staged per warp; d, cost_bytes -> its shared memory
-    # per block (bytes)
+    # per warp (bytes; a block holds one warp, two in the horizontal pair)
     "stpu_sgm_path_stages": [_ci],
     "stpu_sgm_path_smem": [_ci, _ci],
     # img, out, h, w, wy, wx, image type, rank, stream
@@ -56,7 +56,7 @@ KERNEL_SIGNATURES = {
     "stpu_sad_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                       _ci, _ci, _cu, _ci, _cf, _cf, _vp],
     # cost, cost_bytes, image (NULL: fixed P2), sum, h, w, d, step_y,
-    # step_x, p1, p2, p2_min, grad_floor, accumulate, rect (0: the
+    # step_x (0, 0: both horizontals, the horizontal pair), p1, p2, p2_min, grad_floor, accumulate, rect (0: the
     # whole-frame form), y_lo, y_hi, x_lo, x_hi, shear (0, or the sheared
     # form's sign), x0 (its sheared column origin), frame_w, mask (NULL, or
     # the mask form's [h, w] bytes), stream

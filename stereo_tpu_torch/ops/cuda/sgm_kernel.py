@@ -20,19 +20,20 @@ of the sheared volume, in which the reference scans its diagonals
 reference's golden path under an arbitrary ``valid`` mask
 (``stereo_tpu/ops/sgm.py:83``): a path restarts after every pixel whose
 mask is False; ``pipeline.kernel_sum`` runs each family of the constrained
-composition in it.
+composition in it. The whole form's two horizontals run as one launch,
+the horizontal pair (``launch_plan``).
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ...config import StereoConfig
 from ..postprocess import select_disparity, spill_width
-from ..sgm import PATH_STEPS, V_STEPS, shear_valid, sum_paths
+from ..sgm import H_STEPS, PATH_STEPS, V_STEPS, shear_valid, sum_paths
 from .build import load_kernels
 from .launch import count_launch, on_cpu, require, require_disparities, run
 
@@ -98,6 +99,32 @@ def _form_args(cost: torch.Tensor, cfg: StereoConfig, image, rect, steps,
     return img, box, steps
 
 
+class Launch(NamedTuple):
+    """One K2 launch of a call: its form (``"whole"``, ``"rect"``,
+    ``"shear+1"``, ``"shear-1"``, ``"mask"``, or ``"hpair"``, the two
+    horizontals at once), the directions it runs, and whether it adds into
+    the S of the launches before it."""
+    form: str
+    steps: Tuple[Tuple[int, int], ...]
+    accumulate: bool
+
+
+def launch_plan(steps: Sequence[Tuple[int, int]], form: str
+                ) -> Tuple[Launch, ...]:
+    """K2's launches for a call of ``steps`` in ``form``, in order: one per
+    direction, except that in the whole form both horizontals, where
+    ``steps`` holds them, run as one paired launch (``"hpair"``) where the
+    first of them stands. Every launch but the first accumulates."""
+    pair = form == "whole" and set(H_STEPS) <= set(steps)
+    plan = []
+    for step in steps:
+        if not pair or step not in H_STEPS:
+            plan.append(Launch(form, (step,), bool(plan)))
+        elif not any(p.form == "hpair" for p in plan):
+            plan.append(Launch("hpair", H_STEPS, bool(plan)))
+    return tuple(plan)
+
+
 def sgm_paths_plain(cost: torch.Tensor, cfg: StereoConfig,
                     image: Optional[torch.Tensor] = None,
                     rect: Optional[Tuple[int, int, int, int]] = None,
@@ -128,7 +155,7 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[H, W, D] int16 S = sum of the cfg.num_paths (4 or 8) path costs of
     an int8 (census, rank) or int16 (SAD) cost volume, any D in [1, 256]:
-    one kernel launch per direction. With ``cfg.adaptive_p2``, ``image``
+    one kernel launch per direction (both horizontals in one, below). With ``cfg.adaptive_p2``, ``image``
     ([H, W], the reference view) is required and each step's P2 comes from
     it. ``rect`` = (y_lo, y_hi, x_lo, x_hi), a tile's in-frame rectangle:
     L = C wherever a pixel's predecessor lies outside it (the rectangle
@@ -143,7 +170,17 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
     (the sheared form). ``mask`` ([H, W] bool, no rectangle, no shear):
     L = C wherever a pixel's predecessor is False, whatever the pixel's own
     value (the mask form). CPU tensors take the plain version
-    (``sgm_paths_plain``)."""
+    (``sgm_paths_plain``).
+
+    A call whose ``steps`` hold both horizontals, (0, 1) and (0, -1), and
+    that takes no rectangle, shear or mask (every whole frame and patch, a
+    row band's ``steps=H_STEPS``) runs them as one launch, the horizontal
+    pair: two warps per row walk toward each other and meet mid-row, so the
+    row's two chains of dependent steps run at once. Its result is bit for
+    bit the two launches'. ``sgm_paths.forms`` counts it once under the
+    form ``"hpair"``: an 8-path whole frame is 1 ``"hpair"`` and 6
+    ``"whole"`` launches, a 4-path one 1 and 2. The rectangle, mask and
+    sheared forms launch once per direction."""
     if on_cpu(*(t for t in (cost, image, mask) if t is not None)):
         return sgm_paths_plain(cost, cfg, image, rect, steps, shear, mask)
     img, box, steps = _form_args(cost, cfg, image, rect, steps, shear, mask)
@@ -172,14 +209,16 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
     # mask.
     form = ("mask" if mask is not None else f"shear{sign:+d}" if sign
             else "rect" if box is not None else "whole")
-    for i, (step_y, step_x) in enumerate(steps):
+    for launch in launch_plan(steps, form):
+        # the C entry's step (0, 0) is the horizontal pair
+        step_y, step_x = (0, 0) if launch.form == "hpair" else launch.steps[0]
         run("stpu_sgm_path", cost.device, cost.data_ptr(),
             cost.element_size(), img_ptr, s.data_ptr(), h, w, d, step_y,
             step_x, cfg.p1, cfg.p2, cfg.p2_min, cfg.adaptive_grad_floor,
-            int(i > 0), int(box is not None), y_lo, y_hi, x_lo, x_hi, sign,
-            x0, frame_w, mask_ptr)
+            int(launch.accumulate), int(box is not None), y_lo, y_hi, x_lo,
+            x_hi, sign, x0, frame_w, mask_ptr)
         count_launch(sgm_paths, h, w, d, str(cost.dtype), steps,
-                     cfg.adaptive_p2, form)
+                     cfg.adaptive_p2, launch.form)
     return s
 
 

@@ -292,15 +292,18 @@ def test_pipeline_runs_the_kernels(dev):
     got = build_pipeline(cfg, dev)(pair.left, pair.right)
     torch.cuda.synchronize()
     assert launch_counts() == {"transform_words": 2, "census_cost": 1,
-                               "rank_cost": 0, "sad_cost": 0, "sgm_paths": 8,
+                               "rank_cost": 0, "sad_cost": 0, "sgm_paths": 7,
                                "sgm_select": 1, "median3x3": 1,
                                "alu_peak": 0}
     # by form: the shape and what picks the kernel's instantiation or path
+    # (K2: the horizontal pair, then the six other directions)
     assert launch_forms() == {
         ("transform_words", 48, 160, 9, 7, False, "torch.uint8"): 2,
         ("census_cost", 48, 160, 32, 2, False): 1,
         ("sgm_paths", 48, 160, 32, "torch.int8", PATH_STEPS, False,
-         "whole"): 8,
+         "hpair"): 1,
+        ("sgm_paths", 48, 160, 32, "torch.int8", PATH_STEPS, False,
+         "whole"): 6,
         ("sgm_select", 48, 160, 32, 0, True, True, True, False, False,
          False): 1,
         ("median3x3", 48, 160): 1,
@@ -486,32 +489,34 @@ def test_sad_cost_kernel_rejects(dev):
         sad_cost(nan, right.to(torch.float32), TSUKUBA_SAD16)
 
 
+#: K2 launches its whole form's horizontal pair and then each other
+#: direction: 7 launches for 8 paths, 3 for 4.
 @pytest.mark.parametrize(
     "cfg, counts",
     [
         (KITTI_SGM8_128.replace(num_disparities=32, num_paths=0),
          dict(transform_words=2, census_cost=1, sgm_select=1, median3x3=1)),
         (KITTI_SGM8_128_QUALITY.replace(num_disparities=32),
-         dict(transform_words=2, census_cost=1, sgm_paths=8, sgm_select=1,
+         dict(transform_words=2, census_cost=1, sgm_paths=7, sgm_select=1,
               median3x3=1)),
         (KITTI_SGM8_128.replace(num_disparities=32, lr_exact=True),
-         dict(transform_words=4, census_cost=2, sgm_paths=16, sgm_select=2,
+         dict(transform_words=4, census_cost=2, sgm_paths=14, sgm_select=2,
               median3x3=1)),
         (KITTI_SGM8_128_QUALITY.replace(num_disparities=32, lr_exact=True),
-         dict(transform_words=4, census_cost=2, sgm_paths=16, sgm_select=2,
+         dict(transform_words=4, census_cost=2, sgm_paths=14, sgm_select=2,
               median3x3=1)),
         (TSUKUBA_SAD16, dict(sad_cost=1, sgm_select=1, median3x3=1)),
         (MIDDLEBURY_CENSUS_SGM4_64,
-         dict(transform_words=2, census_cost=1, sgm_paths=4, sgm_select=1,
+         dict(transform_words=2, census_cost=1, sgm_paths=3, sgm_select=1,
               median3x3=1)),
         (KITTI_SGM8_128.replace(num_disparities=48, cost_fn="rank"),
-         dict(transform_words=2, rank_cost=1, sgm_paths=8, sgm_select=1,
+         dict(transform_words=2, rank_cost=1, sgm_paths=7, sgm_select=1,
               median3x3=1)),
         (KITTI_SGM8_128.replace(num_disparities=16),
-         dict(transform_words=2, census_cost=1, sgm_paths=8, sgm_select=1,
+         dict(transform_words=2, census_cost=1, sgm_paths=7, sgm_select=1,
               median3x3=1)),
         (KITTI_SGM8_128.replace(num_disparities=32, cost_fn="sad"),
-         dict(sad_cost=1, sgm_paths=8, sgm_select=1, median3x3=1)),
+         dict(sad_cost=1, sgm_paths=7, sgm_select=1, median3x3=1)),
     ],
     ids=["paths0", "quality", "lr_exact", "quality_lr_exact", "tsukuba",
          "middlebury", "rank_d48", "d16", "sad_sgm"],
@@ -541,15 +546,16 @@ def test_slice_paths_run_the_kernels(dev, cfg, counts):
     ids=["9x7", "5x5", "quality_r8"],
 )
 def test_pyramid_model_runs_the_kernels(dev, shape, cfg, mkw):
-    # Coarse pass K1 (two transforms) K2x8 K3 K4, residual pass: two
-    # transforms, K2x8 (D = R, md = -R/2) K3 K4.
+    # Coarse pass K1 (two transforms) K2 (the horizontal pair and 6 single
+    # directions) K3 K4, residual pass: two transforms, K2 likewise (D = R,
+    # md = -R/2) K3 K4.
     pair = make_pair(shape, max_disp=24, texture="cloud", seed=1)
     reset_launch_counts()
     got = get_model("pyramid", cfg=cfg, **mkw).build(dev)(pair.left,
                                                           pair.right)
     torch.cuda.synchronize()
     want_counts = dict.fromkeys(launch_counts(), 0)
-    want_counts.update(transform_words=4, census_cost=1, sgm_paths=16,
+    want_counts.update(transform_words=4, census_cost=1, sgm_paths=14,
                        sgm_select=2, median3x3=2)
     assert launch_counts() == want_counts
     want = get_model("pyramid", cfg=cfg.replace(backend="torch"),
@@ -838,24 +844,24 @@ def test_alu_peak_kernel(dev, dtype, k, chains):
     "kw, split, counts",
     [
         (dict(), dict(n_bands=2, n_cols=1),
-         dict(transform_words=4, census_cost=2, sgm_paths=16, sgm_select=2,
+         dict(transform_words=4, census_cost=2, sgm_paths=14, sgm_select=2,
               median3x3=2)),
         (dict(), dict(n_bands=1, n_cols=2),
-         dict(transform_words=4, census_cost=2, sgm_paths=16, sgm_select=2,
+         dict(transform_words=4, census_cost=2, sgm_paths=14, sgm_select=2,
               median3x3=2)),
         (dict(min_disparity=2), dict(n_bands=2, n_cols=3),
-         dict(transform_words=12, census_cost=6, sgm_paths=48, sgm_select=6,
+         dict(transform_words=12, census_cost=6, sgm_paths=42, sgm_select=6,
               median3x3=6)),
         (dict(), dict(n_bands=2, n_cols=2, lr_stitch=False),
-         dict(transform_words=8, census_cost=4, sgm_paths=32, sgm_select=4,
+         dict(transform_words=8, census_cost=4, sgm_paths=28, sgm_select=4,
               median3x3=4)),
         (dict(cost_fn="rank"), dict(n_bands=1, n_cols=2),
-         dict(transform_words=4, rank_cost=2, sgm_paths=16, sgm_select=2,
+         dict(transform_words=4, rank_cost=2, sgm_paths=14, sgm_select=2,
               median3x3=2)),
         (dict(cost_fn="sad"), dict(n_bands=1, n_cols=2),
-         dict(sad_cost=2, sgm_paths=16, sgm_select=2, median3x3=2)),
+         dict(sad_cost=2, sgm_paths=14, sgm_select=2, median3x3=2)),
         (dict(lr_exact=True), dict(n_bands=1, n_cols=2),
-         dict(transform_words=8, census_cost=4, sgm_paths=32, sgm_select=4,
+         dict(transform_words=8, census_cost=4, sgm_paths=28, sgm_select=4,
               median3x3=2)),
     ],
     ids=["bands", "stitched", "stitched_2x3_md2", "legacy_2x2", "rank",
@@ -898,7 +904,9 @@ def test_patch_parts_run_the_kernels(dev):
         ("transform_words", 32, 123, *window, False, "torch.uint8"): 1,
         ("census_cost", 32, 108, 16, 1, True): 1,
         ("sgm_paths", 32, 108, 16, "torch.int8", PATH_STEPS, False,
-         "whole"): 8,
+         "hpair"): 1,
+        ("sgm_paths", 32, 108, 16, "torch.int8", PATH_STEPS, False,
+         "whole"): 6,
         ("sgm_select", 32, 108, 16, 0, True, False, True, False, True,
          True): 1,
         ("median3x3", 32, 108): 1,
@@ -944,9 +952,12 @@ def test_sgm_paths_rect_form(dev, rect, d, paths, adaptive, cost_t):
     reset_launch_counts()
     got = sgm_paths(cost, cfg, image=image, rect=box)
     torch.cuda.synchronize()
-    run = "whole" if rect == "all" else "rect"
-    assert launch_forms() == {("sgm_paths", h, w, d, str(cost_t),
-                               PATH_STEPS[:paths], adaptive, run): paths}
+    form = ("sgm_paths", h, w, d, str(cost_t), PATH_STEPS[:paths], adaptive)
+    if rect == "all":  # the whole form: the horizontals pair
+        assert launch_forms() == {(*form, "hpair"): 1,
+                                  (*form, "whole"): paths - 2}
+    else:
+        assert launch_forms() == {(*form, "rect"): paths}
     want = sgm_aggregate(cost, cfg, image=image,
                          valid=rect_mask(box, (h, w), dev))
     assert torch.equal(got, want.to(torch.int16))
@@ -1057,8 +1068,9 @@ def test_local_grid_runs_the_kernels(dev, kw, shape, grid, lr_stitch):
     assert torch.equal(got.disp, want.disp)
 
 
-#: Launches per frame of the whole-frame census path, by wrapper.
-_FRAME_LAUNCHES = {"transform_words": 2, "census_cost": 1, "sgm_paths": 8,
+#: Launches per frame of the whole-frame census path, by wrapper (K2: the
+#: horizontal pair and six single directions).
+_FRAME_LAUNCHES = {"transform_words": 2, "census_cost": 1, "sgm_paths": 7,
                    "sgm_select": 1, "median3x3": 1}
 
 
@@ -1067,7 +1079,7 @@ _FRAME_LAUNCHES = {"transform_words": 2, "census_cost": 1, "sgm_paths": 8,
 def test_stream_runs_the_kernels(dev, grid, replicas):
     """StreamRunner.run_batches on the card: every frame equals the
     per-frame path on the same grid (build_pipeline, or the halo-tiled
-    pipeline), and the whole-frame stream launches 13 kernels a frame."""
+    pipeline), and the whole-frame stream launches 12 kernels a frame."""
     from stereo_tpu_torch.parallel import StreamRunner
 
     cfg = KITTI_SGM8_128.replace(num_disparities=32)
@@ -1103,8 +1115,9 @@ def test_stream_quality_preset_runs_adaptive_k2(dev):
     """StreamRunner.run on host frames at KITTI size on the quality preset,
     as the benchmark's quality cell runs it: frame 0, the seed-0 pair of
     the reference's golden fixture, has the fixture's hashes; every frame
-    equals build_pipeline's; and K2 runs only its adaptive whole form, 8
-    launches a frame, from images cut out of the stacked batch."""
+    equals build_pipeline's; and K2 runs only its adaptive whole form, the
+    horizontal pair and six single directions a frame, from images cut out
+    of the stacked batch."""
     import hashlib
     import json
     from pathlib import Path
@@ -1131,8 +1144,8 @@ def test_stream_quality_preset_runs_adaptive_k2(dev):
                            (r.disp.cpu(), r.valid.cpu())))
     forms = {k: v for k, v in launch_forms().items() if k[0] == "sgm_paths"}
     assert stats["frames"] == 6
-    assert forms == {("sgm_paths", *shape, 128, "torch.int8",
-                      PATH_STEPS[:8], True, "whole"): 8 * 8}
+    form = ("sgm_paths", *shape, 128, "torch.int8", PATH_STEPS[:8], True)
+    assert forms == {(*form, "hpair"): 8, (*form, "whole"): 6 * 8}
     disp = torch.cat([d for d, _ in outs])
     valid = torch.cat([v for _, v in outs])
     assert (sha16(disp[0]), sha16(valid[0])) == (fx["disp"], fx["valid"])
@@ -1203,10 +1216,79 @@ def test_sgm_paths_subset_form(dev, d, steps, adaptive, cost_t):
     reset_launch_counts()
     got = sgm_paths(cost, cfg, image=image, steps=sub)
     torch.cuda.synchronize()
+    # the two horizontals run as one launch, the horizontal pair
+    run, n = ("hpair", 1) if steps == (0, 1) else ("whole", len(sub))
     assert launch_forms() == {("sgm_paths", h, w, d, str(cost_t), sub,
-                               adaptive, "whole"): len(sub)}
+                               adaptive, run): n}
     assert torch.equal(got, sgm_paths_plain(cost, cfg, image=image,
                                             steps=sub))
+
+
+_PAIR_COSTS = [(False, torch.int8), (True, torch.int8), (False, torch.int16),
+               (True, torch.int16)]
+
+
+def _pair_inputs(seed, h, w, d, adaptive, cost_t, dev, paths=8):
+    cfg = StereoConfig(num_disparities=d, num_paths=paths, p1=14, p2=120,
+                       adaptive_p2=adaptive, p2_min=30, adaptive_grad_floor=6)
+    rng = np.random.default_rng(seed)
+    top = 64 if cost_t == torch.int8 else 256
+    cost = torch.from_numpy(rng.integers(0, top, size=(h, w, d))).to(
+        cost_t).to(dev)
+    return cfg, cost, _images(seed, h, w, dev)[0]
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 7, 8, 9, 33, 1242])
+@pytest.mark.parametrize("d", [16, 100, 128, 256])
+@pytest.mark.parametrize("adaptive, cost_t", _PAIR_COSTS)
+def test_sgm_paths_horizontal_pair(dev, w, d, adaptive, cost_t):
+    """K2's horizontal pair (steps=H_STEPS alone, one launch): bit for bit
+    the plain sum of both horizontals and the two single launches' sum, at
+    widths whose midpoint falls inside a round, on a round's edge (rounds
+    of 4 and 8 pixels) and in a one-pixel row."""
+    from stereo_tpu_torch.ops.cuda.sgm_kernel import sgm_paths_plain
+    from stereo_tpu_torch.ops.sgm import H_STEPS
+
+    h = 5
+    cfg, cost, image = _pair_inputs(w + d, h, w, d, adaptive, cost_t, dev)
+    reset_launch_counts()
+    got = sgm_paths(cost, cfg, image=image, steps=H_STEPS)
+    torch.cuda.synchronize()
+    assert launch_forms() == {("sgm_paths", h, w, d, str(cost_t), H_STEPS,
+                               adaptive, "hpair"): 1}
+    assert torch.equal(got, sgm_paths_plain(cost, cfg, image=image,
+                                            steps=H_STEPS))
+    singles = [sgm_paths(cost, cfg, image=image, steps=(st,)).to(torch.int32)
+               for st in H_STEPS]
+    assert torch.equal(got.to(torch.int32), singles[0] + singles[1])
+
+
+@pytest.mark.parametrize("paths", [4, 8])
+@pytest.mark.parametrize("d", [16, 100, 128, 256])
+@pytest.mark.parametrize("adaptive, cost_t", _PAIR_COSTS)
+@pytest.mark.parametrize("order", ["pair_first", "pair_after"])
+def test_sgm_paths_pair_in_a_call(dev, paths, d, adaptive, cost_t, order):
+    """A whole call of 4 or 8 paths runs the pair where its first
+    horizontal stands: as the first launch (it stores S) and after the
+    verticals (it adds into the S they stored); equal to the plain sum."""
+    from stereo_tpu_torch.ops.cuda.sgm_kernel import sgm_paths_plain
+
+    h, w = 9, 37
+    cfg, cost, image = _pair_inputs(d + paths, h, w, d, adaptive, cost_t,
+                                    dev, paths)
+    steps = PATH_STEPS[:paths]
+    if order == "pair_after":
+        steps = steps[2:4] + steps[:2] + steps[4:]
+    reset_launch_counts()
+    got = sgm_paths(cost, cfg, image=image, steps=steps)
+    torch.cuda.synchronize()
+    form = ("sgm_paths", h, w, d, str(cost_t), steps, adaptive)
+    assert launch_forms() == {(*form, "hpair"): 1,
+                              (*form, "whole"): paths - 2}
+    assert torch.equal(got, sgm_paths_plain(cost, cfg, image=image,
+                                            steps=steps))
+    if order == "pair_first":
+        assert torch.equal(got, sgm_paths(cost, cfg, image=image))
 
 
 @pytest.mark.parametrize("sign", [1, -1])
@@ -1281,9 +1363,11 @@ def test_exact_mode_runs_the_kernels(dev, kw, shape, grid, dplane):
     assert launch_counts()["sgm_select"] == n * views
     assert launch_counts()["median3x3"] == 1
     if cfg.num_paths:
+        # per tile and view: the row band's horizontal pair, the column
+        # band's two verticals, and two verticals of each sheared family
         runs = {f[-1] for f in forms if f[0] == "sgm_paths"}
-        assert runs == {"whole", "shear+1", "shear-1"}
-        assert launch_counts()["sgm_paths"] == 8 * n * views
+        assert runs == {"hpair", "whole", "shear+1", "shear-1"}
+        assert launch_counts()["sgm_paths"] == 7 * n * views
     want = build_pipeline(cfg, dev)(pair.left, pair.right)
     assert torch.equal(got.disp, want.disp)
     assert torch.equal(got.valid, want.valid)
