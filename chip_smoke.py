@@ -1,188 +1,77 @@
-"""Drive the PyTorch port's main paths once on one CUDA card and check them.
+"""Check the PyTorch port on one CUDA card, bit for bit, and time nothing.
 
     python3 chip_smoke.py
 
+Every kernel form is held against its plain torch twin, every path against
+the reference's fixtures, and every launch is counted by form. Kernel and
+path times come from ``profile_paths.py`` (default, ``--k2``, ``--forms``)
+and ``python -m stereo_tpu_torch.eval.roofline``; the stream's from the
+benchmark (``benchmark/run.py --trace 1``).
+
 Phases (each failure raises, and the script exits nonzero without a
-result line):
+result line; each prints its wall seconds as it ends):
 
   1. device: a CUDA card is required (there is no CPU path); prints the
-     card's name and power limit as nvidia-smi reports them;
-  2. build: compiles the six CUDA kernels (nvcc, sm_90a, one compiler per
+     card's name and the torch and CUDA versions;
+  2. build: compiles the CUDA kernels (nvcc, sm_90a, one compiler per
      source, all at once) and the host speckle and fill library (g++) from
-     the sources in this checkout; prints ptxas's registers and spills of
-     every K2 instance (whole, rectangle, sheared and mask forms, and the
-     whole form's horizontal pair) with its ring
-     (pixels staged per warp, shared memory per block), of every K1 (transform and cost stage) and K3 instance,
-     and of every K5 (by sum type, window half-width and disparity chunk)
-     and K4 instance with its shared memory per block (K5's at the paths'
-     windows and D);
-  3. kernels: runs each kernel form and its plain torch version on the card
-     at every shape a path below gives it, requires bit-equal results,
-     times both with CUDA events (medians) and computes the form's bound on
-     this card from the same shapes; K5's and K4's rows also carry the
-     kernel's device time per call (device_ms, torch.profiler over a train
-     of calls). A form is what the wrappers count their launches by: the
-     shape and what picks the instantiation.
-       - K1's transform stage (transform_words, each image of the pair)
-         and its cost stage census_cost, K2 sgm_paths (fixed and adaptive
-         P2), K3 sgm_select (base and the exact LR check's two forms:
-         emit_d0, and integer winners without uniqueness) and K4 median3x3
-         on kitti_like_pair(seed=0) at 375x1242, D=128;
-       - K1's rank form (transform and cost stage) at 375x1242x128;
-       - the pyramid model's coarse pass on the 2x2-pooled pair (188x621,
-         D=64): K1 on a 1-word 5x5 census, K2 (fixed and adaptive P2), K3
-         without subpixel and LR, K4;
-       - K1's transform stage on a 5x5 window at 375x1242 (the residual
-         pass's descriptors), K2 at D=16 (fixed and adaptive P2) and K3
-         with min_disparity=-8 on the pyramid model's residual volume
-         (375x1242x16), and the plain-torch gather that builds that
-         volume;
-       - K1 at D=64, K2 with 4 paths, K3 and K4 on the Middlebury pair
-         (555x900);
-       - K1, K2 (fixed and adaptive P2), K3, K4, K5 sad_cost at D=128 and
-         K2 on its int16 costs on the hard suite's radiometric pair
-         (160x288, D=128);
-       - K5, K3 at D=16 and K4 on the tsukuba_sad16 pair (288x384), and
-         K5 with a right context on its right half (sad_cost/ctx, a form
-         that no path below launches yet: 0 launches per frame);
-       - K5 at 375x1242x128 on kitti_like_pair(seed=0) (sad_cost/kitti,
-         kitti_sgm8_128 with cost_fn="sad"; timed, no path launches it);
-       - config 4 (middlebury_full_256_tiled, D=256) through the banded
-         runner: every patch of the three splits below, at 497x720 and at
-         1988x2880, through K1 (with x_offset and right_context where the
-         patch has them), K2, K3 (base, framed, or the emit_qr form with
-         the patch's own range) and K4, each patch at its whole shape
-         against the plain version on the same patch (at 1988x2880 the
-         plain K2 takes seconds, and is timed once);
-       - tsukuba_sad16 in two column patches (288x228 each, the legacy
-         overlap): K5 without and with a column origin, K3 framed, K4;
-       - the halo-tiled pipeline (build_halo_pipeline on the local grid,
-         every tile of each grid of phase 4's tiled paths, at the tile's
-         whole shape): K1's transform stage on each tile image, its cost
-         stage or K5 at the tile's origin (negative on the frame's left
-         edge: rows ".../neg"), K2 in its rectangle form (paths start
-         fresh at the tile's in-frame rectangle: ".../rect"; the exact LR
-         check's flipped pass runs the whole form), K3 at the tile's
-         origin (framed, emit_qr, or the exact LR check's forms) and K4 on
-         the cropped tile with its 1-px halo, each against the plain
-         version on the same tile (the plain K2 takes the rectangle as its
-         valid mask); the launches of one frame are tallied by row as the
-         tiles are held;
-       - the exact reshard mode (build_exact_pipeline on the local grid,
-         frame 0 of each exact path of phase 4): every kernel call of the
-         program, as it makes it, against the plain version on the same
-         inputs (``exact_rows``): K1's transform stage on a row band plus
-         the census window's radius and its cost stage on the band's rows
-         or, with the disparity-plane cost, on the whole frame over a slab
-         of D / n planes (K5 there for SAD), K2's subset forms (the two
-         horizontals of a row band, the two verticals of a column band)
-         and its sheared form (the verticals of a band of the sheared
-         volume, both signs, fixed and adaptive P2: 375x404 and 375x202 at
-         KITTI size, 497x304 at config 4's), K3 on a row band (base, and
-         the exact LR check's two forms) and K4 on the gathered frame
-         (rows "<kernel>/exact/<shape>[/form]"; a form that an earlier row
-         holds keeps that row); one frame's launches tallied by row;
-       - K2's mask form (``sgm_paths/mask*``) on kitti_like_pair(seed=0)'s
-         costs at 375x1242x128 under a seeded mask (about 20% of the
-         pixels off and a disk-shaped hole): all 8 directions, fixed and
-         adaptive P2, the constrained route's horizontals and verticals,
-         and the verticals of its sheared volume at 375x1616x128 (fixed
-         and adaptive; the adaptive one no path launches), against
-         sgm_paths_plain with the same mask;
-       - K6 alu_peak in float32 and int32 at the anchor's two programs;
-  4. slices: each path serves a few requests through get_model(...).build,
-     host_postprocess and evaluate_disparity, with the launch counters set
-     to 0 just before and read just after, by form; a launch of a form
-     that phase 3 did not hold against its plain version fails (per frame,
-     K1/K5 K2 K3 K4; K1 stands for its cost stage, and its transform stage
-     adds one launch per image, two per K1; K2's whole form launches its
-     horizontal pair and the other directions, 7 launches for 8 paths):
-     kitti_sgm8_128 (1 7 1 1), kitti_sgm8_128_quality (1 7 1 1),
-     kitti_sgm8_128 with lr_exact (2 14 2 1), tsukuba_sad16 through the
-     block_matching model (1 0 1 1) and through build_banded_pipeline in two
-     column patches (2 0 2 2, K5 with x_offset != 0),
-     middlebury_census_sgm4_64 (1 3 1 1),
-     kitti_sgm8_128 and kitti_sgm8_128_quality through the pyramid model
-     with a 5x5 census (1 14 2 2 each; the quality preset gives the
-     residual pass its adaptive P2) and kitti_sgm8_128 with cost_fn="rank"
-     (1 7 1 1); then config 4 through build_banded_pipeline at 497x720
-     and at 1988x2880 (make_pair(shape, max_disp=200, kind="shapes",
-     texture="cloud")): the whole frame (n_bands=1, n_cols=1; 1 7 1 1),
-     two column patches stitched (2 14 2 2, K3 in its emit_qr form) and
-     2x2 patches in the legacy overlap (4 28 4 4, x_offset != 0); the
-     splits are not expected to equal the whole frame (SGM warm-up at
-     patch edges), and the share of pixels that differ is printed; then
-     the halo-tiled pipeline on the local grid (build_halo_pipeline over
-     make_tile_mesh(["cuda"] * n, grid)): kitti_sgm8_128 on 2x2 tiles
-     (stitched), kitti_sgm8_128_quality on 2x2 (legacy), kitti_sgm8_128
-     with lr_exact on 1x2 (legacy), tsukuba_sad16 on 1x2 (K5 at a negative
-     origin) and config 4 on 2x2 (legacy) and 1x2 (stitched) at 497x720
-     and at 1988x2880, each with the launches that the kernels phase
-     tallied for its tiles, and its median device ms beside the whole
-     frame's (a JSON line "tiled vs whole"); then the exact reshard mode
-     (build_exact_pipeline over make_tile_mesh(["cuda"] * n, grid)):
-     kitti_sgm8_128 on 2x2 and 4x2, kitti_sgm8_128_quality and
-     kitti_sgm8_128 with lr_exact on 2x2, kitti_sgm8_128 with the
-     disparity-plane cost on 2x2, tsukuba_sad16 (K5, no paths) with the
-     disparity-plane cost on 1x2 and config 4 at 497x720 on 2x2 (one
-     sheared family at 1988x2880 would be 2.48 GB), each with the launches
-     that the kernels phase tallied for it, frame 0 equal to the WHOLE
-     frame's fixture (so the disparity-plane runs equal the exact ones).
-     Frame 0 of each path must reproduce the reference package's hashes
-     (stereo_tpu_torch/testdata/*_seed0.json; the whole config-4 frame at
-     1988x2880 from the banded golden run of the reference's ops,
-     tests/torch_golden_bands.py) and the repeated seeds their first
-     answers;
-  5. hard suite: run_hard_suite(kitti_sgm8_128_quality, (160, 288), seeds
-     0-2) and census_vs_sad_robustness(kitti_sgm8_128, (160, 288), seed 0)
-     on the card, then the bench's quality record at its size:
-     run_hard_suite at (375, 1242), seed 0, for kitti_sgm8_128 and
-     kitti_sgm8_128_quality (one pair of each of the ten scenarios, the
-     KITTI slices' forms); rows equal to the reference's
-     (testdata/hard_suite_*.json, census_vs_sad_*.json), launch counters
-     checked by form; prints the rows, each preset's full_res_bad3_worst
-     and each sweep's wall time beside the card's name and power limit;
-  6. stream: config 5, the batched video stream, through its entry points
-     (each run with the launch counters set to 0 just before and read
-     just after, by form): kitti_sgm8_128 at 375x1242 through
-     StreamRunner.run_batches at batch 48, 96 frames of make_pair(shape,
-     max_disp=96, kind="shapes", texture="cloud", seed=i) staged on the
-     card, after one warm-up batch (bench.py:296-325); prints the record
-     {"metric": "kitti_stream_batch48_fps_per_chip", ...} with the card's
-     name and power limit, holds every frame (disp and valid) equal to
-     build_pipeline on that frame and frame 0 also to the plain torch
-     path; then StreamRunner.run on 10 of those frames as numpy arrays at
-     batch 4 (the last batch partial) with a manifest, a fault injected
-     after 4 frames and a restart from the manifest, every frame delivered
-     once and equal to the per-frame path; a tiled stream, 4 frames on a
-     local 2x2 grid (stitched), each equal to build_halo_pipeline; and
-     scaling_report's row for the one card. Launches: 12 a frame (the
-     kitti_sgm8_128 forms) for the 96 + 12 + 31 frames of the whole-frame
-     runs, the 2x2 tiles' forms for the tiled one;
-  7. masked: compute_disparity at KITTI size under backend="auto" with
-     that mask (kitti_sgm8_128 and its quality preset), with hooks that
-     move the tuple, with the disparity-plane hook too, and with lr_exact
-     and hooks, each with the launch counters set to 0 just before and
-     read just after: every launch a form that phase 3 held, K2's only in
-     its mask form, each result bit-equal to backend="torch" on the card;
-     then a JSON line "masked vs whole" of device ms;
-  8. cli: ``python -m stereo_tpu_torch.cli`` in subprocesses on the
-     card: run on kitti_like_pair(seed=0) written as PNGs with --rig,
-     --depth-out and --ply (the PFM equal to
-     build_pipeline + host_postprocess, the depth to disparity_to_depth on
-     the CPU), run --tiles 2,2 (equal to build_halo_pipeline) and
-     --exact-mesh 2,2 (equal to the whole frame), eval --hard-suite
-     (rows equal to run_hard_suite in this process) and info, all five at
-     once; then bench --iters 20 alone (its fps beside the card's name);
-  9. exact: one JSON line "exact vs whole" per exact path with its median
-     device ms a frame beside the whole frame's, then
-     dryrun_multichip(8) on the card (a local grid of 8 tiles: the stream,
-     the halo pipeline stitched and legacy, the exact mode and its
-     disparity-plane cost, which must agree);
-  10. anchor: measure_alu_peak times K6 over the reference's two programs
-     in float32 and int32 (one JSON line per program, then the best rate
-     per type), with the launch counters set to 0 before and read after;
-     every kernel row gains sol_fraction and sol_fraction_anchor.
+     the sources in this checkout; prints each compile's wall seconds and
+     ptxas's registers and spills of every instance of K1 (transform and
+     cost stage), K2 (with its ring: pixels staged per warp, shared bytes
+     per block), K3, K4 and K5 (with shared bytes per block);
+  3. kernels: each kernel form on the card at every shape a path below
+     gives it, bit-equal to its plain torch version on the same inputs
+     (``held``, ``require_equal``). A form is what the wrappers count
+     their launches by (``launch_forms()``: the shape and what picks the
+     instantiation), and each has a row in ``KERNEL_INFO``. The
+     whole-frame paths' forms are held in ``phase_kernels``, config 4's
+     patches and tsukuba_sad16's column patches in ``banded_rows``, the
+     halo-tiled pipeline's tiles in ``tiled_rows``, the exact mode's calls
+     as it makes them in ``exact_rows``, K2's mask form in ``mask_row``
+     and K6 in ``peak_rows``; ``OFF_PATH`` names the rows no path
+     launches;
+  4. slices: each path of ``SLICES`` serves its seeds through the entry
+     point a user calls (``load_slice``: a model's build, the banded
+     runner, the halo-tiled pipeline or the exact mode on a local grid),
+     host_postprocess and evaluate_disparity. Frame 0 must reproduce the
+     reference package's hashes and metrics
+     (stereo_tpu_torch/testdata/<fixture>_seed0.json; an exact path's is
+     the WHOLE frame's), a repeated seed its first answer, and the
+     launches, counted by form, must be the slice's ``forms`` per frame:
+     written in ``SLICES``, ``CFG4_SPLITS`` and ``SAD_SPLIT_FORMS``, and
+     tallied by the kernels phase for the tiled and exact paths. A launch
+     of a form that phase 3 did not hold fails;
+  5. hard suite: run_hard_suite and census_vs_sad_robustness at 160x288,
+     then run_hard_suite at 375x1242 for both KITTI presets; rows and
+     full_res_bad3_worst equal to the reference's
+     (testdata/hard_suite_*.json, census_vs_sad_*.json), launches per pair
+     as ``_SUITE_FORMS``, ``_ROBUST_FORMS`` and ``_FULL_RES_FORMS`` say;
+  6. stream: StreamRunner.run_batches on 96 KITTI-size frames at batch 48
+     on the card, every frame equal to build_pipeline and frame 0 to the
+     plain torch path; StreamRunner.run on 10 host frames with a fault
+     injected and a restart from the manifest, every frame delivered once
+     and equal to the per-frame path; a tiled stream on a local 2x2 grid,
+     equal to build_halo_pipeline; scaling_report on the one card, its
+     row naming it; launches per frame as the kitti_sgm8_128 slice's and
+     its 2x2 tiles';
+  7. masked: compute_disparity at KITTI size under a valid mask, with
+     constrain hooks and with lr_exact (``MASKED_CALLS``), each bit-equal
+     to backend="torch" on the card, K2 launched only in its mask form;
+  8. cli: ``python -m stereo_tpu_torch.cli`` in subprocesses on the card
+     (run on PNG files with --rig, --depth-out and --ply, run --tiles 2,2,
+     run --exact-mesh 2,2, eval --hard-suite, info), each output equal to
+     the same work in this process; then bench --iters 20, which must
+     exit 0;
+  9. roofline: the entry point of ``python -m stereo_tpu_torch.eval.roofline``
+     in this process, counted: it must return 0 with the ALU anchor (K6)
+     on each of its programs and a row for each kernel of the classic
+     path; its times are not printed;
+ 10. dryrun: dryrun_multichip(8) on the card.
+
+On the lines before the last it prints one JSON object with each kernel
+form's launches on the main paths (as the wrappers counted them) and its
+max abs error against its plain version; the last line is
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --write-fixtures DIR
 
@@ -195,17 +84,6 @@ fixtures, which the reference package makes on the CPU, tie that plain
 path to the reference. A fixture that the reference's ops made (its
 testdata file has no ``made_by``: the whole frame, from the banded golden
 run) is refused, with the reason, and the other splits are written.
-
-K1's two stages are separate rows: ``census_transform*`` rows time the
-transform stage on one image (each image of a pair is one launch), and
-``census_cost*`` rows time the cost stage from the words the transform
-stage wrote; the plain versions are the plain torch transforms and the
-plain cost volume from the images.
-
-Prints, on the lines before the last, the card's name and power limit
-and one JSON object with each kernel form's launches on the main paths
-(as the wrappers counted them), error, times and bound; the last line is
-{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -214,7 +92,6 @@ import argparse
 import hashlib
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -245,27 +122,10 @@ from stereo_tpu_torch.eval.hard_suite import (  # noqa: E402
     census_vs_sad_robustness,
     run_hard_suite,
 )
-from stereo_tpu_torch.eval.roofline import (  # noqa: E402
-    ANCHOR_PROGRAMS,
-    cost_bound,
-    cuda_ms,
-    measure_alu_peak,
-    median_bound,
-    paths_bound,
-    peak_bound,
-    profiled_ms,
-    sad_bound,
-    select_bound,
-    sol_fractions,
-    transform_bound,
-)
+from stereo_tpu_torch.eval.roofline import ANCHOR_PROGRAMS  # noqa: E402
 from stereo_tpu_torch.models import get_model  # noqa: E402
-from stereo_tpu_torch.models.pyramid import (  # noqa: E402
-    _pool2,
-    _residual_cost_volume,
-)
+from stereo_tpu_torch.models.pyramid import _pool2  # noqa: E402
 from stereo_tpu_torch.ops import (  # noqa: E402
-    adaptive_p2_map,
     census_cost_volume,
     median_3x3,
     rank_cost_volume,
@@ -290,15 +150,8 @@ from stereo_tpu_torch.ops.cuda import (  # noqa: E402
     transform_words,
 )
 from stereo_tpu_torch.ops.cuda.build import load_kernels  # noqa: E402
-from stereo_tpu_torch.ops.cuda.launch import run  # noqa: E402
 from stereo_tpu_torch.ops.cuda.peak_kernel import alu_peak_plain  # noqa: E402
-from stereo_tpu_torch.ops.postprocess import spill_width  # noqa: E402
-from stereo_tpu_torch.ops.sgm import (  # noqa: E402
-    H_STEPS,
-    PATH_STEPS,
-    V_STEPS,
-    _shear,
-)
+from stereo_tpu_torch.ops.sgm import H_STEPS, V_STEPS, _shear  # noqa: E402
 from stereo_tpu_torch.eval.scaling import scaling_report  # noqa: E402
 from stereo_tpu_torch.parallel import (  # noqa: E402
     StreamRunner,
@@ -323,10 +176,8 @@ from stereo_tpu_torch.parallel.tiling import (  # noqa: E402
 )
 from stereo_tpu_torch.config import TileConfig  # noqa: E402
 from stereo_tpu_torch.pipeline import (  # noqa: E402
-    _kernel_cost,
     compute_disparity,
     frame_rect,
-    kernel_sum,
     rect_mask,
 )
 from stereo_tpu_torch.utils.depth import (  # noqa: E402
@@ -400,7 +251,7 @@ KERNEL_INFO = {
                         "stereo_tpu/ops/pallas/sgm_kernel.py:399"),
     "sad_cost/ctx": ("sad_cost", _SAD_CU,
                      "stereo_tpu/ops/pallas/cost_kernel.py:584"),
-    # kitti_sgm8_128 with cost_fn="sad": 375x1242x128 (timed only)
+    # kitti_sgm8_128 with cost_fn="sad": 375x1242x128 (no path launches it)
     "sad_cost/kitti": ("sad_cost", _SAD_CU,
                        "stereo_tpu/ops/pallas/cost_kernel.py:584"),
     "sgm_select": ("sgm_select", _SELECT_CU,
@@ -520,14 +371,14 @@ for _name in SAD_SPLIT_FORMS:
         "sgm_select": ("sgm_select", _SELECT_CU, _V_FUSED),
         "median3x3": ("median3x3", _MEDIAN_CU, _MEDIAN),
     }[_name.split("/")[0]]
-#: K6 at the anchor's programs: alu_peak/<type>/k<k>.
-for _rows, _k, _chains in ANCHOR_PROGRAMS:
-    for _type in ("float32", "int32"):
-        KERNEL_INFO[f"alu_peak/{_type}/k{_k}"] = ("alu_peak", _PEAK_CU, _PEAK)
-
 #: Rows held against their plain version that no path launches yet.
 OFF_PATH = {"sad_cost/ctx", "sad_cost/kitti",
             "sgm_paths/mask/sheared/adaptive"}
+#: K6 at the anchor's programs: alu_peak/<type>/k<k>, launched by the
+#: roofline CLI's anchor.
+for _rows, _k, _chains in ANCHOR_PROGRAMS:
+    for _type in ("float32", "int32"):
+        KERNEL_INFO[f"alu_peak/{_type}/k{_k}"] = ("alu_peak", _PEAK_CU, _PEAK)
 
 #: (wrapper, *form) as the wrappers count their launches -> the KERNEL_INFO
 #: row whose comparison in the kernels phase launched that form.
@@ -819,31 +670,11 @@ def synced(fn):
     return out
 
 
-def once_ms(fn):
-    """(``fn()``, its device ms by CUDA events), waited for: a plain SGM
-    version takes seconds, so the run that is compared is also the one
-    timed."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
-def phase_device() -> str:
+def phase_device() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's main path runs on the card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    return smi
 
 
 def phase_build() -> None:
@@ -938,146 +769,73 @@ def k2_instances() -> Dict[str, dict]:
     return dict(sorted(found.items()))
 
 
-def per_direction_ms(dev, cost, scratch, image_ptr, cfg, rect=None
-                     ) -> Dict[str, float]:
-    """One K2 direction at a time, straight through the C entry point
-    (these launches bypass the wrapper's counter), into a scratch sum; in
-    the rectangle form where ``rect`` is given, else first the horizontal
-    pair (step 0, 0: both horizontals in one launch, "hpair")."""
-    h, w, d = cost.shape
-    box = (0, h, 0, w) if rect is None else rect
-    steps = [(0, 0)] * (rect is None) + list(PATH_STEPS[: cfg.num_paths])
-    return {
-        "hpair" if (dy, dx) == (0, 0) else f"{dy:+d},{dx:+d}": cuda_ms(
-            lambda: run("stpu_sgm_path", dev, cost.data_ptr(),
-                        cost.element_size(), image_ptr, scratch.data_ptr(), h,
-                        w, d, dy, dx, cfg.p1, cfg.p2, cfg.p2_min,
-                        cfg.adaptive_grad_floor, 1, int(rect is not None),
-                        *box, 0, 0, 0, None), reps=10)
-        for dy, dx in steps
-    }
-
-
 def to_dev(pair, dev):
     return (torch.from_numpy(pair.left).to(dev),
             torch.from_numpy(pair.right).to(dev))
 
 
-def transform_row(rows, name, img, window, rank=False, reps=20):
+def transform_row(rows, name, img, window, rank=False):
     """K1's transform stage on one image against the plain transform
-    (census words compared as int64 in [0, 2^32)); the first image of a
-    row is timed into ``rows[name]``. Returns the kernel's int32 words."""
+    (census words compared as int64 in [0, 2^32)), its error into
+    ``rows[name]``; returns the kernel's int32 words."""
     plain_fn = rank_transform_plain if rank else census_transform_plain
     got = held(name, lambda: transform_words(img, window, rank=rank))
     want = synced(lambda: plain_fn(img, window))
-    err = require_equal(name, got if rank else got.to(torch.int64)
-                        & 0xFFFFFFFF, want)
-    _first_row(rows, name, lambda: dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: transform_words(img, window, rank=rank),
-                   reps=reps),
-        plain_ms=cuda_ms(lambda: plain_fn(img, window), reps=3),
-        **transform_bound(*img.shape, window, rank, img.element_size())))
+    rows[name] = require_equal(name, got if rank else got.to(torch.int64)
+                               & 0xFFFFFFFF, want)
     return got
 
 
-def census_row(name, tname, rows, left, right, cfg, reps=20):
+def census_row(name, tname, rows, left, right, cfg):
     """One K1 census form: its transform stage on each image (row
     ``tname``, ``transform_row``), then its cost stage from those words
-    against the plain volume from the images; returns (cost row, volume,
-    plain volume)."""
+    against the plain volume from the images; returns (the cost stage's
+    max abs err, volume, plain volume)."""
     plain = cfg.replace(backend="torch")
     cl = transform_row(rows, tname, left, cfg.census_window)
     cr = transform_row(rows, tname, right, cfg.census_window)
     cost = held(name, lambda: census_cost(cl, cr, cfg))
     cost_plain = synced(lambda: census_cost_volume(left, right, plain))
-    row = dict(
-        max_abs_err=require_equal(name, cost.to(torch.int32), cost_plain),
-        ms=cuda_ms(lambda: census_cost(cl, cr, cfg), reps=reps),
-        plain_ms=cuda_ms(lambda: census_cost_volume(left, right, plain),
-                         reps=3),
-        **cost_bound(*left.shape, cfg.num_disparities, cfg.census_words, 5),
-    )
-    return row, cost, cost_plain
+    return (require_equal(name, cost.to(torch.int32), cost_plain), cost,
+            cost_plain)
 
 
-def kernel_device_ms(fn, kernel: str):
-    """``kernel``'s device ms per call of ``fn`` (``profiled_ms``), or None
-    where the profiler recorded none of its launches."""
-    got = profiled_ms(fn, kernel)
-    if got is None:
-        print(f"profiler: no launch of {kernel} recorded; device_ms null")
-        return None
-    return got[0]
-
-
-def sad_row(name, left, right, cfg, reps=20):
-    """One K5 form against the plain volume; returns (row, volume, plain
-    volume)."""
+def sad_row(name, left, right, cfg):
+    """One K5 form against the plain volume; returns (max abs err, volume,
+    plain volume)."""
     plain = cfg.replace(backend="torch")
     cost = held(name, lambda: sad_cost(left, right, cfg))
     cost_plain = synced(lambda: sad_cost_volume(left, right, plain))
-    row = dict(
-        max_abs_err=require_equal(name, cost.to(torch.int32), cost_plain),
-        ms=cuda_ms(lambda: sad_cost(left, right, cfg), reps=reps),
-        device_ms=kernel_device_ms(lambda: sad_cost(left, right, cfg),
-                                   "sad_cost_kernel"),
-        plain_ms=cuda_ms(lambda: sad_cost_volume(left, right, plain), reps=5),
-        **sad_bound(*left.shape, cfg.num_disparities, cfg.sad_window),
-    )
-    return row, cost, cost_plain
+    return (require_equal(name, cost.to(torch.int32), cost_plain), cost,
+            cost_plain)
 
 
-def paths_row(name, dev, cost, cost_plain, cfg, image=None, reps=10):
-    """One K2 form against plain SGM on the same costs; returns (row, S,
-    plain S)."""
+def paths_row(name, cost, cost_plain, cfg, image=None):
+    """One K2 form against plain SGM on the same costs; returns (max abs
+    err, S, plain S)."""
     plain = cfg.replace(backend="torch")
     s = held(name, lambda: sgm_paths(cost, cfg, image=image))
-    s_plain, plain_ms = once_ms(
-        lambda: sgm_aggregate(cost_plain, plain, image=image))
-    row = dict(
-        max_abs_err=require_equal(name, s.to(torch.int32), s_plain),
-        ms=cuda_ms(lambda: sgm_paths(cost, cfg, image=image), reps=reps),
-        plain_ms=plain_ms, **paths_bound(cost, cfg),
-    )
-    ptr = None if image is None else image.to(torch.int32)
-    scratch = torch.empty_like(s)
-    print(f"{name} per direction (dy,dx) ms: " + json.dumps(per_direction_ms(
-        dev, cost, scratch, None if ptr is None else ptr.data_ptr(), cfg)))
-    return row, s, s_plain
+    s_plain = synced(lambda: sgm_aggregate(cost_plain, plain, image=image))
+    return require_equal(name, s.to(torch.int32), s_plain), s, s_plain
 
 
-def select_row(name, s, s_plain, cfg, emit_d0=False, reps=20):
-    """One K3 form against the plain selection; returns (row, outputs,
-    plain outputs)."""
+def select_row(name, s, s_plain, cfg, emit_d0=False):
+    """One K3 form against the plain selection; returns (max abs err,
+    outputs, plain outputs)."""
     plain = cfg.replace(backend="torch")
     got = held(name, lambda: sgm_select(s, cfg, emit_d0=emit_d0))
     want = synced(lambda: select_disparity(s_plain, plain, emit_d0=emit_d0))
-    errs = [require_equal(f"{name} output {i}", g, w)
-            for i, (g, w) in enumerate(zip(got, want))]
-    row = dict(
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: sgm_select(s, cfg, emit_d0=emit_d0), reps=reps),
-        plain_ms=cuda_ms(lambda: select_disparity(s_plain, plain,
-                                                  emit_d0=emit_d0), reps=3),
-        **select_bound(*s.shape, emit_d0=emit_d0),
-    )
-    return row, got, want
+    err = max(require_equal(f"{name} output {i}", g, w)
+              for i, (g, w) in enumerate(zip(got, want)))
+    return err, got, want
 
 
 def median_row(name, disp, disp_plain):
-    """One K4 shape against the plain median; returns (row, plain map)."""
+    """One K4 shape against the plain median; returns (max abs err, plain
+    map)."""
     med = held(name, lambda: median3x3(disp))
     med_plain = synced(lambda: median_3x3(disp_plain))
-    row = dict(
-        max_abs_err=require_equal(name, med, med_plain),
-        ms=cuda_ms(lambda: median3x3(disp), reps=50),
-        device_ms=kernel_device_ms(lambda: median3x3(disp),
-                                   "median3x3_kernel"),
-        plain_ms=cuda_ms(lambda: median_3x3(disp_plain), reps=20),
-        **median_bound(*disp.shape),
-    )
-    return row, med_plain
+    return require_equal(name, med, med_plain), med_plain
 
 
 def kitti_mask(dev, shape=(375, 1242)) -> torch.Tensor:
@@ -1092,38 +850,21 @@ def kitti_mask(dev, shape=(375, 1242)) -> torch.Tensor:
 
 def mask_row(name, cost, cfg, mask, image=None, steps=None):
     """One K2 mask form against its plain version (the masked recurrence)
-    on the same costs and mask; returns the row (bound: C and the mask
-    read once, S written once)."""
-    def kernel():
-        return sgm_paths(cost, cfg, image=image, steps=steps, mask=mask)
-
-    def plain():
-        return sgm_paths_plain(cost, cfg, image=image, steps=steps,
-                               mask=mask)
-
-    got = held(name, kernel)
-    want, plain_ms = once_ms(plain)
-    return dict(
-        max_abs_err=require_equal(name, got, want),
-        ms=cuda_ms(kernel, reps=10), plain_ms=plain_ms,
-        **paths_bound(cost, cfg, len(steps) if steps else None, mask=True))
+    on the same costs and mask; returns the max abs err."""
+    got = held(name, lambda: sgm_paths(cost, cfg, image=image, steps=steps,
+                                       mask=mask))
+    want = synced(lambda: sgm_paths_plain(cost, cfg, image=image,
+                                          steps=steps, mask=mask))
+    return require_equal(name, got, want)
 
 
-def _first_row(rows: dict, name: str, make) -> None:
-    """``rows[name] = make()`` unless the row was already measured (a
-    second patch of the same form is compared, not timed again)."""
-    if name not in rows:
-        rows[name] = make()
-
-
-def banded_rows(dev, left, right, cfg, split, tag: str = "cfg4") -> dict:
+def banded_rows(left, right, cfg, split, tag: str = "cfg4") -> dict:
     """Every kernel form ``build_banded_pipeline(cfg, left.shape, **split)``
     launches, on each of its patches at the patch's whole shape, against
     the plain version on the same patch: K1 (census) or K5 (SAD), K2 unless
-    the config has no paths, K3 and K4. Returns the rows by KERNEL_INFO
-    name, ``<kernel>/<tag>/<H>x<W>[/framed|/qr]``."""
+    the config has no paths, K3 and K4. Returns the max abs errs by
+    KERNEL_INFO row, ``<kernel>/<tag>/<H>x<W>[/framed|/qr]``."""
     h, w = left.shape
-    d, md = cfg.num_disparities, int(cfg.min_disparity)
     plan = plan_bands(cfg, (h, w), **split)
     plain = cfg.replace(backend="torch")
     rows: dict = {}
@@ -1148,8 +889,7 @@ def banded_rows(dev, left, right, cfg, split, tag: str = "cfg4") -> dict:
                 s, s_plain = cost, cost_plain
             else:
                 s, s_plain = _banded_paths(
-                    dev, rows, f"sgm_paths/{tag}/{shape}", cost, cost_plain,
-                    cfg)
+                    rows, f"sgm_paths/{tag}/{shape}", cost, cost_plain, cfg)
             del cost, cost_plain
 
             # K3: base on the whole frame, framed on a legacy patch, the
@@ -1160,28 +900,14 @@ def banded_rows(dev, left, right, cfg, split, tag: str = "cfg4") -> dict:
             name = f"sgm_select/{tag}/{shape}{suffix}"
             got = held(name, lambda: sgm_select(s, cfg, **kw))
             want = synced(lambda: select_disparity(s_plain, plain, **kw))
-            err = max(require_equal(f"{name} output {i}", g, w_)
-                      for i, (g, w_) in enumerate(zip(got, want)))
-            _first_row(rows, name, lambda: dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: sgm_select(s, cfg, **kw), reps=5),
-                plain_ms=cuda_ms(lambda: select_disparity(s_plain, plain,
-                                                          **kw), reps=2),
-                **select_bound(ph, pw, d, spill=spill_width(d, md)
-                               if plan.stitched else 0)))
+            rows[name] = max(require_equal(f"{name} output {i}", g, w_)
+                             for i, (g, w_) in enumerate(zip(got, want)))
             del s, s_plain
 
             # K4 on the patch's disparity
             name = f"median3x3/{tag}/{shape}"
             med = held(name, lambda: median3x3(got[0]))
-            err = require_equal(name, med, median_3x3(want[0]))
-            _first_row(rows, name, lambda: dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: median3x3(got[0]), reps=10),
-                device_ms=kernel_device_ms(lambda: median3x3(got[0]),
-                                           "median3x3_kernel"),
-                plain_ms=cuda_ms(lambda: median_3x3(want[0]), reps=3),
-                **median_bound(ph, pw)))
+            rows[name] = require_equal(name, med, median_3x3(want[0]))
     return rows
 
 
@@ -1195,36 +921,21 @@ def _banded_census(rows, tag, shape, pl_, pr_, cfg, f0, ctx):
     ph, pw = pl_.shape
     name = f"census_cost/{tag}/{shape}" + _origin_suffix(f0, ctx)
     cl, cr = (transform_row(rows, f"census_transform/{tag}/{ph}x{iw}", img,
-                            cfg.census_window, reps=5)
+                            cfg.census_window)
               for img, iw in ((pl_, pw), (pr_, pw + ctx)))
     cost = held(name, lambda: census_cost(cl, cr, cfg, f0, ctx))
     cost_plain = synced(lambda: census_cost_volume(pl_, pr_, plain, f0, ctx))
-    err = require_equal(name, cost, cost_plain)
-    _first_row(rows, name, lambda: dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: census_cost(cl, cr, cfg, f0, ctx), reps=5),
-        plain_ms=cuda_ms(lambda: census_cost_volume(pl_, pr_, plain, f0, ctx),
-                         reps=2),
-        **cost_bound(ph, pw, cfg.num_disparities, cfg.census_words, 5, ctx)))
+    rows[name] = require_equal(name, cost, cost_plain)
     return cost, cost_plain
 
 
 def _banded_sad(rows, name, pl_, pr_, cfg, f0):
     """K5 on one patch, with its origin; returns as ``_banded_census``."""
     plain = cfg.replace(backend="torch")
-    ph, pw = pl_.shape
     name += _origin_suffix(f0, 0)
     cost = held(name, lambda: sad_cost(pl_, pr_, cfg, f0))
     cost_plain = synced(lambda: sad_cost_volume(pl_, pr_, plain, f0))
-    err = require_equal(name, cost, cost_plain)
-    _first_row(rows, name, lambda: dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: sad_cost(pl_, pr_, cfg, f0), reps=10),
-        device_ms=kernel_device_ms(lambda: sad_cost(pl_, pr_, cfg, f0),
-                                   "sad_cost_kernel"),
-        plain_ms=cuda_ms(lambda: sad_cost_volume(pl_, pr_, plain, f0),
-                         reps=3),
-        **sad_bound(ph, pw, cfg.num_disparities, cfg.sad_window)))
+    rows[name] = require_equal(name, cost, cost_plain)
     return cost, cost_plain
 
 
@@ -1236,35 +947,18 @@ def _origin_suffix(x_offset: int, ctx: int) -> str:
     return "/framed" if x_offset or ctx else ""
 
 
-def _banded_paths(dev, rows, name, cost, cost_plain, cfg, image=None,
-                  rect=None):
+def _banded_paths(rows, name, cost, cost_plain, cfg, image=None, rect=None):
     """K2 on a patch's costs against plain SGM on the same (``rect``: a
     tile's in-frame rectangle, the plain version's valid mask); returns
-    (the patch's S, its plain S). The plain version is timed on the run
-    that is compared (it takes seconds on a full-size patch)."""
+    (the patch's S, its plain S)."""
     plain = cfg.replace(backend="torch")
     img = image if cfg.adaptive_p2 else None
     mask = None if rect is None else rect_mask(rect, cost.shape[:2],
                                                cost.device)
-
-    def plain_fn():
-        return sgm_aggregate(cost_plain, plain, image=img, valid=mask)
-
     s = held(name, lambda: sgm_paths(cost, cfg, image=img, rect=rect))
-    s_plain, plain_ms = once_ms(plain_fn)
-    err = require_equal(name, s, s_plain)
-    if name not in rows:
-        scratch = torch.empty_like(s)
-        img32 = None if img is None else img.to(torch.int32)
-        print(f"{name} per direction (dy,dx) ms: " + json.dumps(
-            per_direction_ms(dev, cost, scratch, None if img32 is None else
-                             img32.data_ptr(), cfg, rect)))
-        del scratch, img32
-        rows[name] = dict(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: sgm_paths(cost, cfg, image=img, rect=rect),
-                       reps=3),
-            plain_ms=plain_ms, **paths_bound(cost, cfg))
+    s_plain = synced(lambda: sgm_aggregate(cost_plain, plain, image=img,
+                                           valid=mask))
+    rows[name] = require_equal(name, s, s_plain)
     return s, s_plain
 
 
@@ -1317,10 +1011,10 @@ def tiled_rows(dev, left, right, cfg, grid, lr_stitch, forms) -> dict:
                 tl, tr = left[ys][:, xs[ctx:]], right[ys][:, xs]
                 box = frame_rect((eh, ew), x0, y0, w, h)
                 if cfg.lr_check and cfg.lr_exact:
-                    disp = _tile_exact(dev, rows, tl, tr, cfg, x0, w, box)
+                    disp = _tile_exact(rows, tl, tr, cfg, x0, w, box)
                 else:
-                    disp = _tile_view(dev, rows, tl, tr, cfg, x0, w, ctx,
-                                      box, own=(halo_y, halo_y + bw)
+                    disp = _tile_view(rows, tl, tr, cfg, x0, w, ctx, box,
+                                      own=(halo_y, halo_y + bw)
                                       if stitch else None)
                 if cfg.median_filter:
                     # K4 on the crop with its 1-px halo: (bh + 2) x (bw + 2)
@@ -1329,21 +1023,14 @@ def tiled_rows(dev, left, right, cfg, grid, lr_stitch, forms) -> dict:
                     name = f"median3x3/tiles/{bh + 2}x{bw + 2}"
                     _tile_info(name)
                     med = held(name, lambda: median3x3(crop))
-                    err = require_equal(name, med, median_3x3(crop))
-                    _first_row(rows, name, lambda: dict(
-                        max_abs_err=err,
-                        ms=cuda_ms(lambda: median3x3(crop), reps=10),
-                        device_ms=kernel_device_ms(lambda: median3x3(crop),
-                                                   "median3x3_kernel"),
-                        plain_ms=cuda_ms(lambda: median_3x3(crop), reps=3),
-                        **median_bound(*crop.shape)))
+                    rows[name] = require_equal(name, med, median_3x3(crop))
                 torch.cuda.empty_cache()
     finally:
         _TALLY = None
     return rows
 
 
-def _tile_cost(dev, rows, ref, tgt, cfg, x0, ctx):
+def _tile_cost(rows, ref, tgt, cfg, x0, ctx):
     """K1 (both stages) or K5 on one tile's view at origin ``x0``; returns
     (volume, plain volume)."""
     shape = f"{ref.shape[0]}x{ref.shape[1]}"
@@ -1358,7 +1045,7 @@ def _tile_cost(dev, rows, ref, tgt, cfg, x0, ctx):
     return _banded_census(rows, "tiles", shape, ref, tgt, cfg, x0, ctx)
 
 
-def _tile_sum(dev, rows, cost, cost_plain, cfg, image, box):
+def _tile_sum(rows, cost, cost_plain, cfg, image, box):
     """K2 on a tile's costs, in the rectangle form unless ``box`` is the
     whole tile (or None: the exact LR check's flipped pass)."""
     h, w = cost.shape[:2]
@@ -1367,7 +1054,7 @@ def _tile_sum(dev, rows, cost, cost_plain, cfg, image, box):
     name = f"sgm_paths/tiles/{h}x{w}" + ("/rect" if box else "") + (
         "/adaptive" if cfg.adaptive_p2 else "")
     _tile_info(name)
-    return _banded_paths(dev, rows, name, cost, cost_plain, cfg, image, box)
+    return _banded_paths(rows, name, cost, cost_plain, cfg, image, box)
 
 
 def _tile_select(rows, name, s, s_plain, cfg, **kw):
@@ -1377,28 +1064,19 @@ def _tile_select(rows, name, s, s_plain, cfg, **kw):
     plain = cfg.replace(backend="torch")
     got = held(name, lambda: sgm_select(s, cfg, **kw))
     want = synced(lambda: select_disparity(s_plain, plain, **kw))
-    err = max(require_equal(f"{name} output {i}", g, w_)
-              for i, (g, w_) in enumerate(zip(got, want)))
-    h, w, d = s.shape
-    spill = spill_width(d, int(cfg.min_disparity)) if kw.get("emit_qr") else 0
-    _first_row(rows, name, lambda: dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: sgm_select(s, cfg, **kw), reps=5),
-        plain_ms=cuda_ms(lambda: select_disparity(s_plain, plain, **kw),
-                         reps=2),
-        **select_bound(h, w, d, emit_d0=kw.get("emit_d0", False),
-                       spill=spill)))
+    rows[name] = max(require_equal(f"{name} output {i}", g, w_)
+                     for i, (g, w_) in enumerate(zip(got, want)))
     return got, want
 
 
-def _tile_view(dev, rows, tl, tr, cfg, x0, iw, ctx, box, own):
+def _tile_view(rows, tl, tr, cfg, x0, iw, ctx, box, own):
     """One tile through K1/K5, K2 and K3 (framed, or emit_qr with ``own``
     on a stitched tile); returns the tile's disparity."""
-    cost, cost_plain = _tile_cost(dev, rows, tl, tr, cfg, x0, ctx)
+    cost, cost_plain = _tile_cost(rows, tl, tr, cfg, x0, ctx)
     if cfg.num_paths == 0:
         s, s_plain = cost, cost_plain
     else:
-        s, s_plain = _tile_sum(dev, rows, cost, cost_plain, cfg, tl, box)
+        s, s_plain = _tile_sum(rows, cost, cost_plain, cfg, tl, box)
     del cost, cost_plain
     h, w = tl.shape
     kw = dict(x_offset=x0, image_width=iw)
@@ -1410,14 +1088,14 @@ def _tile_view(dev, rows, tl, tr, cfg, x0, iw, ctx, box, own):
     return got[0]
 
 
-def _tile_exact(dev, rows, tl, tr, cfg, x0, iw, box):
+def _tile_exact(rows, tl, tr, cfg, x0, iw, box):
     """One tile of the exact LR check: the left view (K1 at ``x0``, K2 in
     the rectangle form, K3's emit_d0 form) and the flipped pair (K1 at the
     flipped origin, K2's whole form, K3's integer form); returns the left
     view's disparity."""
     h, w = tl.shape
-    cost, cost_plain = _tile_cost(dev, rows, tl, tr, cfg, x0, 0)
-    s, s_plain = _tile_sum(dev, rows, cost, cost_plain, cfg, tl, box)
+    cost, cost_plain = _tile_cost(rows, tl, tr, cfg, x0, 0)
+    s, s_plain = _tile_sum(rows, cost, cost_plain, cfg, tl, box)
     del cost, cost_plain
     got, _ = _tile_select(rows, f"sgm_select/tiles/{h}x{w}/d0", s, s_plain,
                           cfg.replace(lr_check=False), emit_d0=True,
@@ -1425,8 +1103,8 @@ def _tile_exact(dev, rows, tl, tr, cfg, x0, iw, box):
     del s, s_plain
     xf = iw - x0 - w
     fl, fr = tr.flip(1).contiguous(), tl.flip(1).contiguous()
-    cost, cost_plain = _tile_cost(dev, rows, fl, fr, cfg, xf, 0)
-    s, s_plain = _tile_sum(dev, rows, cost, cost_plain, cfg, fl, None)
+    cost, cost_plain = _tile_cost(rows, fl, fr, cfg, xf, 0)
+    s, s_plain = _tile_sum(rows, cost, cost_plain, cfg, fl, None)
     _tile_select(rows, f"sgm_select/tiles/{h}x{w}/int", s, s_plain,
                  cfg.replace(lr_check=False, subpixel=False,
                              uniqueness_ratio=0.0), x_offset=xf)
@@ -1446,9 +1124,7 @@ class ExactCall(NamedTuple):
     name: str                 # its row, unless an earlier row holds its form
     info: tuple               # the row's KERNEL_INFO entry
     plain: Callable           # the plain version on the same inputs
-    bound: dict               # the row's bound (``eval.roofline``)
     view: Callable            # the kernel's output as the plain one reads
-    plain_reps: int           # timed calls of the plain version
 
 
 def _exact_call(kernel: str, args, kw) -> ExactCall:
@@ -1461,8 +1137,7 @@ def _exact_call(kernel: str, args, kw) -> ExactCall:
         return ExactCall(f"census_transform/exact/{h}x{w}" + "/rank" * rank,
                 ("transform_words", _COST_CU, _RANK_T if rank else _CENSUS_T),
                 lambda: fn(img, window),
-                transform_bound(h, w, window, rank, img.element_size()),
-                (lambda got: got) if rank else _plain_words, 3)
+                (lambda got: got) if rank else _plain_words)
     if kernel in ("census_cost", "rank_cost"):
         wl, wr, cfg = args[:3]
         h, w = wl.shape[:2]
@@ -1474,10 +1149,7 @@ def _exact_call(kernel: str, args, kw) -> ExactCall:
                 _plain_words(a), _plain_words(b), c))
         return ExactCall(f"census_cost/exact/{h}x{w}x{d}" + "/rank" * rank,
                 (kernel, _COST_CU, _COST_X if d >= 128 else _COST_D),
-                lambda: fn(wl, wr, plain),
-                cost_bound(h, w, d, 1 if rank else cfg.census_words,
-                           2 if rank else 5),
-                lambda got: got.to(torch.int32), 2)
+                lambda: fn(wl, wr, plain), lambda got: got.to(torch.int32))
     if kernel == "sad_cost":
         left, right, cfg = args[:3]
         h, w = left.shape
@@ -1487,8 +1159,7 @@ def _exact_call(kernel: str, args, kw) -> ExactCall:
                 ("sad_cost", _SAD_CU,
                  "stereo_tpu/ops/pallas/cost_kernel.py:584"),
                 lambda: sad_cost_volume(left, right, plain),
-                sad_bound(h, w, d, cfg.sad_window),
-                lambda got: got.to(torch.int32), 3)
+                lambda got: got.to(torch.int32))
     if kernel == "sgm_paths":
         cost, cfg = args[:2]
         h, w, d = cost.shape
@@ -1503,8 +1174,7 @@ def _exact_call(kernel: str, args, kw) -> ExactCall:
                  _H_PATHS if kind == "h" else _V_PATHS),
                 lambda: sgm_paths_plain(cost, cfg, image=kw.get("image"),
                                         steps=steps, shear=shear),
-                paths_bound(cost, cfg, len(steps)),
-                lambda got: got, 1)
+                lambda got: got)
     if kernel == "sgm_select":
         s_, cfg = args[:2]
         h, w, d = s_.shape
@@ -1516,15 +1186,13 @@ def _exact_call(kernel: str, args, kw) -> ExactCall:
                  "stereo_tpu/ops/pallas/sgm_kernel.py:1224" if emit_d0
                  else _V_FUSED),
                 lambda: select_disparity(s_, plain, emit_d0=emit_d0),
-                select_bound(h, w, d, emit_d0=emit_d0),
-                lambda got: got, 2)
+                lambda got: got)
     if kernel == "median3x3":
         (disp,) = args
         h, w = disp.shape
         return ExactCall(f"median3x3/exact/{h}x{w}",
                          ("median3x3", _MEDIAN_CU, _MEDIAN),
-                         lambda: median_3x3(disp), median_bound(h, w),
-                         lambda got: got, 5)
+                         lambda: median_3x3(disp), lambda got: got)
     raise AssertionError(f"no exact-mode row for {kernel}")
 
 
@@ -1537,12 +1205,11 @@ def exact_rows(dev, left, right, cfg, grid, dplane, forms) -> dict:
     """Every kernel form ``build_exact_pipeline`` launches on the local
     ``grid`` for this frame, each call held against its plain version on
     the same inputs as the program runs: the exact mode's module calls its
-    kernels through wrappers that launch the kernel alone, compare it with
-    the plain version and time each row's first call. A form that an
-    earlier row holds keeps that row (the whole frame's K4, K1's transform
-    stage on the whole images of a disparity-plane cost); new rows are
-    ``<kernel>/exact/<shape>[/form]``. ``forms`` gets one frame's launches
-    by row."""
+    kernels through wrappers that launch the kernel alone and compare it
+    with the plain version. A form that an earlier row holds keeps that row
+    (the whole frame's K4, K1's transform stage on the whole images of a
+    disparity-plane cost); new rows are ``<kernel>/exact/<shape>[/form]``.
+    ``forms`` gets one frame's launches by row."""
     rows: dict = {}
     forms.clear()
     real = {k: getattr(exact_mode, k) for k in _EXACT_KERNELS}
@@ -1560,17 +1227,11 @@ def exact_rows(dev, left, right, cfg, grid, dplane, forms) -> dict:
             name = HELD.setdefault(form, call.name)
             KERNEL_INFO.setdefault(name, call.info)
             forms[name] = forms.get(name, 0) + n
-            want, want_ms = once_ms(call.plain)
+            want = synced(call.plain)
             pairs = (zip(got, want) if isinstance(got, tuple)
                      else [(call.view(got), want)])
-            err = max(require_equal(f"{name} output {i}", g, w_)
-                      for i, (g, w_) in enumerate(pairs))
-            _first_row(rows, name, lambda: dict(
-                max_abs_err=err,
-                ms=cuda_ms(lambda: real[kernel](*args, **kw), reps=3),
-                plain_ms=want_ms if call.plain_reps == 1 else cuda_ms(
-                    call.plain, reps=call.plain_reps, warmup=0),
-                **call.bound))
+            rows[name] = max(require_equal(f"{name} output {i}", g, w_)
+                             for i, (g, w_) in enumerate(pairs))
             return got
         return call
 
@@ -1598,39 +1259,26 @@ def peak_rows(dev) -> dict:
             if dtype == torch.float32:
                 x = x / 4
             got = held(name, lambda: alu_peak(x, k, chains))
-            rows[name] = dict(
-                max_abs_err=require_equal(name, got,
-                                          alu_peak_plain(x, k, chains)),
-                ms=cuda_ms(lambda: alu_peak(x, k, chains), reps=20),
-                plain_ms=cuda_ms(lambda: alu_peak_plain(x, k, chains), reps=5),
-                **peak_bound(n, k))
+            rows[name] = require_equal(name, got,
+                                       alu_peak_plain(x, k, chains))
     return rows
 
 
 def phase_kernels(dev) -> dict:
-    """Each kernel form against its plain version at its paths' shapes."""
+    """Each kernel form against its plain version at its paths' shapes;
+    returns each KERNEL_INFO row's max abs err."""
     left, right = to_dev(kitti_like_pair(seed=0), dev)
-    h, w = left.shape
-    one_view = cuda_ms(lambda: census_transform_plain(left,
-                                                      CFG.census_window),
-                       reps=10)
-    print(f"census_transform (plain torch, both views): {2 * one_view:.4f} ms")
     rows = {}
 
     # kitti_sgm8_128, its quality preset and lr_exact: 375x1242, D=128.
     rows["census_cost"], cost, cost_plain = census_row(
         "census_cost", "census_transform", rows, left, right, CFG)
     rows["sgm_paths"], s, s_plain = paths_row(
-        "sgm_paths", dev, cost, cost_plain, CFG)
+        "sgm_paths", cost, cost_plain, CFG)
     # K2 adaptive: the quality preset has the same census and D as CFG, so
     # the cost volume above is its cost volume.
     rows["sgm_paths/adaptive"], _, _ = paths_row(
-        "sgm_paths/adaptive", dev, cost, cost_plain, QCFG, image=left)
-    # The TPU's alternative: eight [H, W] P2 maps precomputed outside the
-    # kernel (plain torch here), which the in-kernel division replaces.
-    maps_ms = cuda_ms(lambda: [adaptive_p2_map(left, QCFG, -dy, -dx)
-                               for dy, dx in PATH_STEPS], reps=10)
-    print(f"adaptive P2 as 8 precomputed maps (plain torch): {maps_ms:.4f} ms")
+        "sgm_paths/adaptive", cost, cost_plain, QCFG, image=left)
     rows["sgm_select"], (disp, _), (disp_plain, valid_plain) = select_row(
         "sgm_select", s, s_plain, CFG)
     # lr_exact: the left view's winners with emit_d0, the flipped pair's as
@@ -1669,21 +1317,11 @@ def phase_kernels(dev) -> dict:
     rl, rr = (transform_row(rows, "census_transform/rank", img,
                             RANK.census_window, rank=True)
               for img in (left, right))
-    rank_view = cuda_ms(lambda: rank_transform_plain(left,
-                                                     RANK.census_window),
-                        reps=10)
-    print(f"rank_transform (plain torch, both views): {2 * rank_view:.4f} ms")
     rplain = RANK.replace(backend="torch")
     rcost = held("census_cost/rank", lambda: rank_cost(rl, rr, RANK))
     rcost_plain = synced(lambda: rank_cost_volume(left, right, rplain))
-    rows["census_cost/rank"] = dict(
-        max_abs_err=require_equal("census_cost/rank", rcost.to(torch.int32),
-                                  rcost_plain),
-        ms=cuda_ms(lambda: rank_cost(rl, rr, RANK), reps=20),
-        plain_ms=cuda_ms(lambda: rank_cost_volume(left, right, rplain),
-                         reps=3),
-        **cost_bound(h, w, RANK.num_disparities, 1, 2),
-    )
+    rows["census_cost/rank"] = require_equal(
+        "census_cost/rank", rcost.to(torch.int32), rcost_plain)
     del rcost, rcost_plain
 
     # The pyramid model's coarse pass, on its own inputs: the pooled pair
@@ -1695,9 +1333,9 @@ def phase_kernels(dev) -> dict:
         "census_cost/w1_d64", "census_transform/w1_d64", rows, pleft, pright,
         ccfg)
     rows["sgm_paths/d64"], cs, cs_plain = paths_row(
-        "sgm_paths/d64", dev, ccost, ccost_plain, ccfg)
+        "sgm_paths/d64", ccost, ccost_plain, ccfg)
     rows["sgm_paths/d64/adaptive"], _, _ = paths_row(
-        "sgm_paths/d64/adaptive", dev, ccost, ccost_plain,
+        "sgm_paths/d64/adaptive", ccost, ccost_plain,
         ccfg.replace(**QUALITY_P2), image=pleft)
     rows["sgm_select/coarse"], (cdisp, _), (cdisp_plain, _) = select_row(
         "sgm_select/coarse", cs, cs_plain, ccfg)
@@ -1705,26 +1343,18 @@ def phase_kernels(dev) -> dict:
         "median3x3/coarse", cdisp, cdisp_plain)
     del ccost, ccost_plain, cs, cs_plain
 
-    # The pyramid model's residual pass: the gather volume (plain torch),
-    # then K2 at D=16 (the staged S) and K3 with min_disparity=-8; its
-    # K4 is the 375x1242 form above.
-    base, vol, res_cfg = synced(lambda: pyramid.residual_volume(left, right))
-    pcl, pcr = (transform_row(rows, "census_transform/5x5", img, (5, 5)
-                              ).to(torch.int64) & 0xFFFFFFFF
-                for img in (left, right))
-    base_i = torch.round(base).to(torch.int32)
-    gather_ms = cuda_ms(lambda: _residual_cost_volume(pcl, pcr, base_i, 8, 16),
-                        reps=10)
-    volume_ms = cuda_ms(lambda: pyramid.residual_volume(left, right), reps=5)
-    print(f"pyramid residual volume (plain torch): gather + Hamming "
-          f"{gather_ms:.4f} ms; coarse pass + transforms + volume "
-          f"{volume_ms:.4f} ms")
+    # The pyramid model's residual pass: K1's transform stage on a 5x5
+    # window, the gather volume (plain torch), then K2 at D=16 (the staged
+    # S) and K3 with min_disparity=-8; its K4 is the 375x1242 form above.
+    _, vol, res_cfg = synced(lambda: pyramid.residual_volume(left, right))
+    for img in (left, right):
+        transform_row(rows, "census_transform/5x5", img, (5, 5))
     vol8 = vol.to(res_cfg.cost_volume_dtype)
     rows["sgm_paths/d16"], s16, s16_plain = paths_row(
-        "sgm_paths/d16", dev, vol8, vol, res_cfg)
+        "sgm_paths/d16", vol8, vol, res_cfg)
     rows["sgm_paths/d16/adaptive"], _, _ = paths_row(
-        "sgm_paths/d16/adaptive", dev, vol8, vol,
-        res_cfg.replace(**QUALITY_P2), image=left)
+        "sgm_paths/d16/adaptive", vol8, vol, res_cfg.replace(**QUALITY_P2),
+        image=left)
     rows["sgm_select/md-8"], (dres, _), _ = select_row(
         "sgm_select/md-8", s16, s16_plain, res_cfg)
     if float(dres.min()) >= 0:
@@ -1736,7 +1366,7 @@ def phase_kernels(dev) -> dict:
     rows["census_cost/d64"], mcost, mcost_plain = census_row(
         "census_cost/d64", "census_transform/555x900", rows, ml, mr, MID)
     rows["sgm_paths/4"], ms_, ms_plain = paths_row(
-        "sgm_paths/4", dev, mcost, mcost_plain, MID)
+        "sgm_paths/4", mcost, mcost_plain, MID)
     rows["sgm_select/d64"], (mdisp, _), (mdisp_plain, _) = select_row(
         "sgm_select/d64", ms_, ms_plain, MID)
     rows["median3x3/555x900"], _ = median_row(
@@ -1751,9 +1381,9 @@ def phase_kernels(dev) -> dict:
     rows["census_cost/160x288"], hcost, hcost_plain = census_row(
         "census_cost/160x288", "census_transform/160x288", rows, hl, hr, CFG)
     rows["sgm_paths/160x288"], hs, hs_plain = paths_row(
-        "sgm_paths/160x288", dev, hcost, hcost_plain, CFG)
+        "sgm_paths/160x288", hcost, hcost_plain, CFG)
     rows["sgm_paths/adaptive/160x288"], _, _ = paths_row(
-        "sgm_paths/adaptive/160x288", dev, hcost, hcost_plain, QCFG, image=hl)
+        "sgm_paths/adaptive/160x288", hcost, hcost_plain, QCFG, image=hl)
     rows["sgm_select/160x288"], (hdisp, _), (hdisp_plain, _) = select_row(
         "sgm_select/160x288", hs, hs_plain, CFG)
     rows["median3x3/160x288"], _ = median_row(
@@ -1763,7 +1393,7 @@ def phase_kernels(dev) -> dict:
     if int(hsad.max()) <= 127:
         raise AssertionError("SAD costs fit int8: int16 was not exercised")
     rows["sgm_paths/int16"], _, _ = paths_row(
-        "sgm_paths/int16", dev, hsad, hsad_plain, SADSGM)
+        "sgm_paths/int16", hsad, hsad_plain, SADSGM)
 
     # tsukuba_sad16: K5, K3 at D=16 on the raw SAD cost (num_paths=0), K4.
     tl, tr = to_dev(tsukuba_pair(0), dev)
@@ -1778,20 +1408,12 @@ def phase_kernels(dev) -> dict:
     cl_, cr_ = tl[:, f0:].contiguous(), tr[:, f0 - ctx:].contiguous()
     plain = SAD.replace(backend="torch")
     cost = held("sad_cost/ctx", lambda: sad_cost(cl_, cr_, SAD, f0, ctx))
-    rows["sad_cost/ctx"] = dict(
-        max_abs_err=require_equal(
-            "sad_cost/ctx", cost.to(torch.int32),
-            synced(lambda: sad_cost_volume(cl_, cr_, plain, f0, ctx))),
-        ms=cuda_ms(lambda: sad_cost(cl_, cr_, SAD, f0, ctx), reps=20),
-        device_ms=kernel_device_ms(
-            lambda: sad_cost(cl_, cr_, SAD, f0, ctx), "sad_cost_kernel"),
-        plain_ms=cuda_ms(lambda: sad_cost_volume(cl_, cr_, plain, f0, ctx),
-                         reps=5),
-        **sad_bound(*cl_.shape, SAD.num_disparities, SAD.sad_window, ctx))
+    rows["sad_cost/ctx"] = require_equal(
+        "sad_cost/ctx", cost.to(torch.int32),
+        synced(lambda: sad_cost_volume(cl_, cr_, plain, f0, ctx)))
     del cost
     # K5 at KITTI size (kitti_sgm8_128 with cost_fn="sad", the SAD half of
-    # census_vs_sad at full size): its rate away from launch latency; no
-    # path launches this form.
+    # census_vs_sad at full size); no path launches this form.
     rows["sad_cost/kitti"], _, _ = sad_row("sad_cost/kitti", left, right,
                                            SADSGM)
     del sad, sad_plain, hsad, hsad_plain, hcost, hcost_plain, hs, hs_plain
@@ -1801,12 +1423,12 @@ def phase_kernels(dev) -> dict:
     for shape in ((497, 720), (1988, 2880)):
         bl, br = to_dev(cfg4_pair(shape)(0), dev)
         for split, _, _ in CFG4_SPLITS.values():
-            rows.update(banded_rows(dev, bl, br, CFG4, split))
+            rows.update(banded_rows(bl, br, CFG4, split))
             torch.cuda.empty_cache()
         del bl, br
     torch.cuda.empty_cache()
     # tsukuba_sad16 in two column patches: K5 and K3 with a column origin.
-    rows.update(banded_rows(dev, tl, tr, SAD, SAD_SPLIT, tag="bands"))
+    rows.update(banded_rows(tl, tr, SAD, SAD_SPLIT, tag="bands"))
     # The halo-tiled pipeline: every tile of each tiled path's grid, with
     # one frame's launches tallied into the slice's forms.
     for sl in TILED_SLICES:
@@ -1822,28 +1444,20 @@ def phase_kernels(dev) -> dict:
     for sl in EXACT_SLICES:
         _, cfg, runner = load_slice(sl)
         gl, gr = to_dev(sl.pair(0), dev)
-        for name, row in exact_rows(dev, gl, gr, cfg, runner.grid,
+        for name, err in exact_rows(dev, gl, gr, cfg, runner.grid,
                                     runner.dplane, sl.forms).items():
-            rows.setdefault(name, row)
+            rows.setdefault(name, err)
         print(f"{sl.name}: launches per frame {sl.forms}")
         del gl, gr
     rows.update(peak_rows(dev))
-
-    for name, r in rows.items():
-        device = (f", {r['device_ms']:.4f} ms on the device"
-                  if r.get("device_ms") is not None else "")
-        print(f"kernel {name}: equal to plain; {r['ms']:.4f} ms{device} "
-              f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"by {r['bound_by']})")
+    print(f"kernels: {len(rows)} forms, each equal to its plain version")
     return rows
 
 
-def run_slice(dev, sl: Slice, frame0: Dict[str, tuple],
-              device_ms_of: Dict[str, float]) -> Dict[str, int]:
+def run_slice(dev, sl: Slice, frame0: Dict[str, tuple]) -> Dict[str, int]:
     """The slice's requests through the entry points a user calls; returns
-    the launches of that run alone, by kernel form, as counted, and notes
-    the median device ms per frame in ``device_ms_of``. ``frame0`` keeps
-    frame 0's (disp, valid) of the slices that a later one names in
+    the launches of that run alone, by kernel form, as counted. ``frame0``
+    keeps frame 0's (disp, valid) of the slices that a later one names in
     ``differs_from``."""
     fx, cfg, model = load_slice(sl)
     pairs = {seed: sl.pair(seed) for seed in set(sl.seeds)}
@@ -1852,19 +1466,12 @@ def run_slice(dev, sl: Slice, frame0: Dict[str, tuple],
     torch.cuda.synchronize()
 
     reset_launch_counts()
-    answers, device_ms, e2e_ms = {}, [], []
+    answers = {}
     for i, seed in enumerate(sl.seeds):
         pair = pairs[seed]
-        t0 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         res = fn(pair.left, pair.right)
-        end.record()
         disp, valid = host_postprocess(res.disp, res.valid, cfg)
         m = evaluate_disparity(disp, pair.gt_disp, pair.gt_valid, valid)
-        e2e_ms.append((time.perf_counter() - t0) * 1e3)
-        device_ms.append(start.elapsed_time(end))
 
         raw = (sha16(res.disp), sha16(res.valid))
         post = (sha16(disp), sha16(valid))
@@ -1875,9 +1482,8 @@ def run_slice(dev, sl: Slice, frame0: Dict[str, tuple],
             raise AssertionError(
                 f"{sl.name} frame {i}: seed {seed} answered differently")
         answers[seed] = (raw, post)
-        print(f"{sl.name} frame {i} seed {seed}: device "
-              f"{device_ms[-1]:.3f} ms, end to end {e2e_ms[-1]:.3f} ms, bad3 "
-              f"{m['bad3']:.6f}, density {m['density']:.6f}")
+        print(f"{sl.name} frame {i} seed {seed}: bad3 {m['bad3']:.6f}, "
+              f"density {m['density']:.6f}")
         if i == 0 and sl.differs_from:
             base_disp, base_valid = frame0[sl.differs_from]
             differ = (res.disp != base_disp) | (res.valid != base_valid)
@@ -1901,11 +1507,8 @@ def run_slice(dev, sl: Slice, frame0: Dict[str, tuple],
     if counts != want_counts:
         raise AssertionError(
             f"{sl.name}: launch counts {counts} != {want_counts}")
-    device_ms_of[sl.name] = statistics.median(device_ms)
-    print(f"slice {sl.name} ({model.name}): {len(sl.seeds)} frames, "
-          f"median device {statistics.median(device_ms):.3f} ms, median end "
-          f"to end {statistics.median(e2e_ms):.3f} ms; frame 0 matches the "
-          f"reference hashes; launches {counts}")
+    print(f"slice {sl.name} ({model.name}): {len(sl.seeds)} frames; frame 0 "
+          f"matches the reference hashes; launches {counts}")
     return counts
 
 
@@ -1932,7 +1535,7 @@ _FULL_RES_FORMS = {
 }
 
 
-def full_res_sweep(dev, preset: str, smi: str) -> Dict[str, int]:
+def full_res_sweep(dev, preset: str) -> Dict[str, int]:
     """run_hard_suite for ``preset`` at 375x1242, seed 0, on the card: rows
     and full_res_bad3_worst equal to the reference's fixture; returns the
     launches by kernel form, as counted."""
@@ -1940,11 +1543,10 @@ def full_res_sweep(dev, preset: str, smi: str) -> Dict[str, int]:
         (TESTDATA / f"hard_suite_{preset}_full_res.json").read_text())
     n_pairs = len(SCENARIOS) * len(fx["seeds"])
     reset_launch_counts()
-    t0 = time.perf_counter()
-    rows = run_hard_suite(PRESETS[preset], shape=tuple(fx["shape"]),
-                          seeds=tuple(fx["seeds"]), device=dev)
-    torch.cuda.synchronize()
-    sweep_s = time.perf_counter() - t0
+    rows = synced(lambda: run_hard_suite(PRESETS[preset],
+                                         shape=tuple(fx["shape"]),
+                                         seeds=tuple(fx["seeds"]),
+                                         device=dev))
     launches = counted_launches(f"{preset} full res")
     if launches != expected_launches(_FULL_RES_FORMS[preset], n_pairs):
         raise AssertionError(f"{preset} full res: launch counts {launches}")
@@ -1957,13 +1559,11 @@ def full_res_sweep(dev, preset: str, smi: str) -> Dict[str, int]:
     if worst != fx["full_res_bad3_worst"]:
         raise AssertionError(f"{preset}: full_res_bad3_worst {worst}")
     print(f"full_res_bad3_worst {preset}: {worst} (the reference's); "
-          f"{n_pairs} pairs at {fx['shape']} in {sweep_s:.3f} s wall "
-          f"({sweep_s / n_pairs * 1e3:.3f} ms per pair, making the pair and "
-          f"the host post-filters included) on {smi}; launches {launches}")
+          f"{n_pairs} pairs at {fx['shape']}; launches {launches}")
     return launches
 
 
-def phase_hard_suite(dev, smi: str) -> Dict[str, int]:
+def phase_hard_suite(dev) -> Dict[str, int]:
     """The reference bench's suite-scale sweep, its census-vs-SAD
     comparison and its full-res quality record for both presets on the
     card; returns the launches by kernel form, as counted."""
@@ -1974,11 +1574,10 @@ def phase_hard_suite(dev, smi: str) -> Dict[str, int]:
     n_pairs = len(SCENARIOS) * len(fx["seeds"])
 
     reset_launch_counts()
-    t0 = time.perf_counter()
-    rows = run_hard_suite(PRESETS[fx["preset"]], shape=tuple(fx["shape"]),
-                          seeds=tuple(fx["seeds"]), device=dev)
-    torch.cuda.synchronize()
-    suite_s = time.perf_counter() - t0
+    rows = synced(lambda: run_hard_suite(PRESETS[fx["preset"]],
+                                         shape=tuple(fx["shape"]),
+                                         seeds=tuple(fx["seeds"]),
+                                         device=dev))
     launches = counted_launches("hard suite")
     if launches != expected_launches(_SUITE_FORMS, n_pairs):
         raise AssertionError(f"hard suite: launch counts {launches}")
@@ -1988,23 +1587,18 @@ def phase_hard_suite(dev, smi: str) -> Dict[str, int]:
         raise AssertionError("hard suite rows differ from the reference's")
 
     reset_launch_counts()
-    t0 = time.perf_counter()
-    robust = census_vs_sad_robustness(
+    robust = synced(lambda: census_vs_sad_robustness(
         PRESETS[rb["preset"]], shape=tuple(rb["shape"]),
-        seeds=tuple(rb["seeds"]), device=dev)
-    torch.cuda.synchronize()
-    robust_s = time.perf_counter() - t0
+        seeds=tuple(rb["seeds"]), device=dev))
     counts = counted_launches("census vs SAD")
     if counts != expected_launches(_ROBUST_FORMS, len(rb["seeds"])):
         raise AssertionError(f"census vs SAD: launch counts {counts}")
     print("census vs SAD rows: " + json.dumps(robust))
     if robust != rb["rows"]:
         raise AssertionError("census vs SAD rows differ from the reference's")
-    print(f"hard suite: {n_pairs} pairs at {fx['shape']} in {suite_s:.3f} s "
-          f"wall ({suite_s / n_pairs * 1e3:.3f} ms per pair, making the pair "
-          f"included); census vs SAD: {robust_s:.3f} s; all rows equal the "
-          f"reference's; launches {launches} and {counts}")
-    for part in (counts, *(full_res_sweep(dev, preset, smi)
+    print(f"hard suite: {n_pairs} pairs at {fx['shape']} and census vs SAD; "
+          f"all rows equal the reference's; launches {launches} and {counts}")
+    for part in (counts, *(full_res_sweep(dev, preset)
                            for preset in _FULL_RES_FORMS)):
         for form, n in part.items():
             launches[form] = launches.get(form, 0) + n
@@ -2018,8 +1612,8 @@ STREAM_BATCH, STREAM_FRAMES = 48, 96
 #: StreamRunner.run on host frames: 10 frames at batch 4 (the last batch
 #: partial), a fault injected after the first batch, then a restart.
 RUN_FRAMES, RUN_BATCH, RUN_FAIL_AFTER = 10, 4, 4
-#: scaling_report's row on the card: one frame a call, its default trains.
-SCALE_ITERS, SCALE_REPEATS = 10, 3
+#: scaling_report on the card: one frame a call, the shortest trains.
+SCALE_ITERS, SCALE_REPEATS = 1, 3
 
 
 def stream_pair(seed: int):
@@ -2047,42 +1641,32 @@ def _count(what: str, forms: Dict[str, int], frames: int) -> Dict[str, int]:
     return counts
 
 
-def phase_stream(dev, smi: str) -> Dict[str, int]:
+def phase_stream(dev) -> Dict[str, int]:
     """Config 5 through the stream's entry points on the card; returns the
     launches by kernel form, as counted (the per-frame paths that the
     frames are held against are not counted)."""
     frame_forms = SLICES[0].forms            # kitti_sgm8_128, whole frame
     tile_forms = TILED_SLICES[0].forms       # its 2x2 stitched tiles
-    t0 = time.perf_counter()
     pairs = [stream_pair(i) for i in range(STREAM_FRAMES)]
     batches = [tuple(
         torch.from_numpy(np.stack([getattr(p, side)
                                    for p in pairs[i:i + STREAM_BATCH]])
                          ).to(dev) for side in ("left", "right"))
         for i in range(0, STREAM_FRAMES, STREAM_BATCH)]
-    print(f"stream: {STREAM_FRAMES} frames made and staged on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
     launches: Dict[str, int] = {}
 
     def add(counts):
         for form, n in counts.items():
             launches[form] = launches.get(form, 0) + n
 
-    # The full-width stream: one warm-up batch, then a reset and the run.
+    # The full-width stream on batches already on the card.
     whole = make_tile_mesh([dev], (1, 1))
     runner = StreamRunner(CFG, whole, STREAM_SHAPE, batch_size=STREAM_BATCH,
                           device=dev)
-    runner.run_batches(batches[:1])
-    runner.frames_done, runner.elapsed = 0, 0.0
     outs = []
     reset_launch_counts()
     stats = runner.run_batches(batches, on_result=outs.append)
     add(_count("stream", frame_forms, STREAM_FRAMES))
-    print(json.dumps({
-        "metric": f"kitti_stream_batch{STREAM_BATCH}_fps_per_chip",
-        "value": stats["fps"], "unit": "fps", "batch": STREAM_BATCH,
-        "frames": stats["frames"], "shape": list(STREAM_SHAPE),
-        "elapsed_s": stats["elapsed"], "device": smi}))
     if stats["frames"] != STREAM_FRAMES:
         raise AssertionError(f"stream: {stats['frames']} frames done")
     frame = build_pipeline(CFG, dev)
@@ -2166,14 +1750,16 @@ def phase_stream(dev, smi: str) -> Dict[str, int]:
     print("tiled stream: 4 frames on a local 2x2 grid (stitched), equal to "
           "build_halo_pipeline")
 
-    # scaling_report's row for the one card.
+    # scaling_report on the one card.
     reset_launch_counts()
     rows = scaling_report(CFG, STREAM_SHAPE, device_counts=[1],
                           iters=SCALE_ITERS, devices=[dev])
     add(_count("scaling_report", frame_forms,
                1 + SCALE_ITERS * SCALE_REPEATS))
-    for row in rows:
-        print("scaling row: " + json.dumps({**row, "device": smi}))
+    if [(r["devices"], r["batch"], r["device"]) for r in rows] != [
+            (1, 1, torch.cuda.get_device_name(dev))]:
+        raise AssertionError(f"scaling_report: rows {rows}")
+    print("scaling_report: 1 card, 1 frame a call, launches as expected")
     return launches
 
 
@@ -2183,10 +1769,6 @@ def _moves(tree):
     back)."""
     return tuple(None if x is None else x.transpose(0, 1).clone()
                  .transpose(0, 1) for x in tree)
-
-
-def _still(tree):
-    return tree
 
 
 def _planes(vol):
@@ -2212,14 +1794,10 @@ def phase_masked(dev) -> Dict[str, int]:
     each with the launch counters set to 0 just before and read just after,
     every launch a form that the kernels phase held (K2 only in its mask
     form), the result bit-equal to the same call with backend="torch" on
-    the card (the comparison only). Then the device ms of each call beside
-    the whole frame's, and of the constrained route's K2 (hooks that move
-    nothing) beside the whole form. Returns the launches by form."""
+    the card. Returns the launches by form."""
     left, right = to_dev(kitti_like_pair(seed=0), dev)
     valid = kitti_mask(dev, left.shape)
     launches: Dict[str, int] = {}
-    times = {"whole": cuda_ms(lambda: compute_disparity(left, right, CFG),
-                              reps=5)}
     for name, (cfg, kw, masked, k2) in MASKED_CALLS.items():
         kw = dict(kw, valid=valid) if masked else kw
 
@@ -2242,17 +1820,7 @@ def phase_masked(dev) -> Dict[str, int]:
             raise AssertionError(f"masked: {name}: non-finite disparities")
         for form, n in counts.items():
             launches[form] = launches.get(form, 0) + n
-        times[name] = cuda_ms(call, reps=5)
         print(f"masked: {name}: equal to the plain path; launches {counts}")
-    cost = _kernel_cost(left, right, CFG)
-    k2 = {"whole": cuda_ms(lambda: sgm_paths(cost, CFG), reps=10),
-          "masked": cuda_ms(lambda: kernel_sum(cost, CFG, left, valid=valid),
-                            reps=10),
-          "constrained, hooks that move nothing": cuda_ms(
-              lambda: kernel_sum(cost, CFG, left, constrain=(_still, _still)),
-              reps=10)}
-    print("masked vs whole, device ms (CUDA events, 375x1242x128): "
-          + json.dumps({"compute_disparity": times, "k2_route": k2}))
     return launches
 
 
@@ -2260,7 +1828,7 @@ def phase_masked(dev) -> Dict[str, int]:
 CLI = [sys.executable, "-m", "stereo_tpu_torch.cli"]
 
 
-def phase_cli(dev, smi: str) -> None:
+def phase_cli(dev) -> None:
     """The CLI as a user runs it, in subprocesses on the card: ``run`` on
     files (kitti_like_pair(seed=0) and its GT written as PNGs) with --rig,
     --depth-out and --ply, with --tiles 2,2 and with --exact-mesh 2,2;
@@ -2293,7 +1861,6 @@ def phase_cli(dev, smi: str) -> None:
                            "kitti_sgm8_128_quality"],
             "info": ["info"],
         }
-        t0 = time.perf_counter()
         procs = {name: subprocess.Popen(
             CLI + args, cwd=ROOT, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True) for name, args in runs.items()}
@@ -2306,14 +1873,13 @@ def phase_cli(dev, smi: str) -> None:
                                          f"{proc.returncode}\n{err[-3000:]}")
                 outs[name] = out
                 print(f"cli {name}: " + " | ".join(
-                    (out + err).strip().splitlines()[-3:]))
+                    out.strip().splitlines()[-3:]))
         finally:
             for proc in procs.values():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        print(f"cli: five commands at once in "
-              f"{time.perf_counter() - t0:.1f} s")
+        print("cli: five commands at once, each exit 0")
 
         # The same work in this process, on the card.
         res = build_pipeline(CFG, dev)(pair.left, pair.right)
@@ -2359,36 +1925,58 @@ def phase_cli(dev, smi: str) -> None:
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     if rec["device"] != torch.cuda.get_device_name(0) or not rec["fps"] > 0:
         raise AssertionError(f"cli bench: {rec}")
-    print("cli bench: " + json.dumps({**rec, "card": smi}))
+    print(f"cli bench: exit 0 on {rec['device']}")
 
 
-def phase_exact(device_ms_of: Dict[str, float]) -> None:
-    """The exact mode's paths ran in phase 4 (their frame 0 equal to the
-    whole frame's fixture, the disparity-plane runs therefore to the exact
-    ones); here one JSON line per path with its median device ms a frame
-    beside the whole frame's, then ``dryrun_multichip(8)`` on the card
-    (not counted: its tiny frames are no main path)."""
-    for sl in EXACT_SLICES:
-        print("exact vs whole, median device ms per frame: " + json.dumps({
-            "path": sl.name, "exact": device_ms_of[sl.name],
-            "whole": device_ms_of.get(sl.fixture), "whole_path": sl.fixture}))
-    t0 = time.perf_counter()
-    dryrun_multichip(8, device="cuda")
-    torch.cuda.synchronize()
-    print(f"dryrun_multichip(8) on the card: OK in "
-          f"{time.perf_counter() - t0:.1f} s")
+#: The roofline CLI's arguments: the classic path's kernels, the fewest
+#: iterations its timers take.
+ROOFLINE_ARGS = ["--preset", "kitti_sgm8_128", "--iters", "2"]
 
 
-def phase_anchor(dev):
-    """The ALU anchor through its entry point; returns the best rate per
-    element type and K6's launches by kernel form, as counted."""
+def phase_roofline(dev) -> Dict[str, int]:
+    """``python -m stereo_tpu_torch.eval.roofline``'s entry point in this
+    process, its output captured, with the launch counters set to 0 just
+    before and read just after: it must return 0, give the ALU anchor a
+    positive rate for every program and element type, and give a row for
+    each kernel of the classic path on this card. Its times are not
+    printed. Returns the launches by form."""
+    import contextlib
+    import io
+
+    from stereo_tpu_torch.eval import roofline
+
+    out = io.StringIO()
     reset_launch_counts()
-    peak = measure_alu_peak(dev, iters=20)
+    with contextlib.redirect_stdout(out):
+        rc = roofline.main(ROOFLINE_ARGS)
     torch.cuda.synchronize()
-    counts = counted_launches("anchor")
-    print("alu peak, best per type, Gop/s: " + json.dumps(
-        {k: v / 1e9 for k, v in peak.items()}))
-    return peak, counts
+    counts = counted_launches("roofline")
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    anchor = {(r["anchor_dtype"], r["anchor_k"]) for r in lines
+              if "anchor_dtype" in r and r["gops"] > 0}
+    best = next(r["alu_peak_gops_best"] for r in lines
+                if "alu_peak_gops_best" in r)
+    kernels = [r["kernel"] for r in lines if "kernel" in r]
+    total = next(r for r in lines if r.get("kernel") == "TOTAL(kernels)")
+    want = {(t, k) for _, k, _ in ANCHOR_PROGRAMS
+            for t in ("float32", "int32")}
+    if rc != 0 or anchor != want or not all(v > 0 for v in best.values()) \
+            or total["device"] != torch.cuda.get_device_name(dev) \
+            or kernels != ["census transform x2", "census_cost",
+                           f"sgm_paths x{CFG.num_paths}", "sgm_select",
+                           "median3x3", "TOTAL(kernels)"]:
+        raise AssertionError(f"roofline: exit {rc}\n{out.getvalue()}")
+    print(f"roofline: exit 0, the anchor on {len(want)} programs, "
+          f"{len(kernels) - 1} kernel rows; launches {counts}")
+    return counts
+
+
+def phase_dryrun() -> None:
+    """``dryrun_multichip(8)`` on the card: a local grid of 8 tiles, every
+    multi-tile mode, which must agree (not counted: its tiny frames are no
+    main path)."""
+    synced(lambda: dryrun_multichip(8, device="cuda"))
+    print("dryrun_multichip(8) on the card: OK")
 
 
 #: The full-size config-4 tile grids (``--write-fixtures``): fixture
@@ -2484,7 +2072,7 @@ def main(argv=None) -> int:
                     help="make the full-size config-4 fixtures into DIR "
                          "instead of running the phases")
     args = ap.parse_args(argv)
-    smi = phase_device()
+    phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     timed("build", phase_build)
@@ -2495,43 +2083,28 @@ def main(argv=None) -> int:
     # From here on every launch is one a wrapper counted on a main path.
     launches = dict.fromkeys(KERNEL_INFO, 0)
     frame0: Dict[str, tuple] = {}
-    device_ms_of: Dict[str, float] = {}
 
     def slices():
-        return [run_slice(dev, sl, frame0, device_ms_of) for sl in SLICES]
+        return [run_slice(dev, sl, frame0) for sl in SLICES]
 
     for counts in (*timed("slices", slices),
-                   timed("hard suite", phase_hard_suite, dev, smi),
-                   timed("stream", phase_stream, dev, smi),
+                   timed("hard suite", phase_hard_suite, dev),
+                   timed("stream", phase_stream, dev),
                    timed("masked", phase_masked, dev)):
         for form, n in counts.items():
             launches[form] += n
-    print("tiled vs whole, median device ms per frame: " + json.dumps({
-        sl.fixture: {"tiled": device_ms_of[sl.fixture],
-                     "whole": device_ms_of[sl.differs_from],
-                     "whole_path": sl.differs_from}
-        for sl in TILED_SLICES}))
-    timed("cli", phase_cli, dev, smi)
-    timed("exact", phase_exact, device_ms_of)
-    peak, anchor_counts = timed("anchor", phase_anchor, dev)
-    for form, n in anchor_counts.items():
+    timed("cli", phase_cli, dev)
+    for form, n in timed("roofline", phase_roofline, dev).items():
         launches[form] += n
+    timed("dryrun", phase_dryrun)
     missing = [form for form, n in launches.items()
                if n == 0 and form not in OFF_PATH]
     if missing:
         raise AssertionError(f"no main path launched {missing}")
-    kernels = []
-    for form in KERNEL_INFO:
-        # The median's exchanges are float32 mins and maxes and K5 sums the
-        # paths' uint8 images in float32; every other kernel's operations
-        # are integer.
-        anchor = "float32" if form.startswith((
-            "median3x3", "sad_cost", "alu_peak/float32")) else "int32"
-        kernels.append(dict(
-            name=form, route="cuda", source=KERNEL_INFO[form][1],
-            replaces=KERNEL_INFO[form][2], launches=launches[form],
-            **rows[form], **sol_fractions(rows[form], peak[anchor])))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [dict(
+        name=form, route="cuda", source=KERNEL_INFO[form][1],
+        replaces=KERNEL_INFO[form][2], launches=launches[form],
+        max_abs_err=rows[form]) for form in KERNEL_INFO]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,14 @@
-"""Where a frame's time goes on the card, for each path chip_smoke.py drives.
+"""Where a frame's time goes on the card, for each path chip_smoke.py checks.
 
     python3 profile_paths.py [--frames 6] [SLICE ...]
     python3 profile_paths.py --forms
     python3 profile_paths.py --k2
+
+Kernel forms and paths are timed here, and against their bounds by
+``python -m stereo_tpu_torch.eval.roofline``; ``chip_smoke.py`` checks
+them and times nothing. The stream is timed by the benchmark:
+``python3 benchmark/run.py --workload kitti-stream-b48 --trace 1`` gives
+its device ops, idle gaps and spans on host frames.
 
 For each named slice of ``chip_smoke.SLICES`` (all by default, the exact
 mode's paths such as ``kitti_sgm8_128_exact_2x2`` and
@@ -14,12 +20,7 @@ time, the device's busy time and idle share, and the device time by kernel
 (the port's CUDA kernels by name, everything else as plain torch, its six
 largest launches by name in ``plain_top``), all per frame. For a pyramid
 slice it also times the model's stages one by one with CUDA events
-(medians). The name
-``kitti_stream_batch48`` (last by default) is the batched stream: one
-48-frame batch of ``chip_smoke.py``'s stream frames, on the card, through
-``StreamRunner.run_batches`` after a warm-up batch, profiled the same way
-(the wall time ends with the runner's wait on the batch's event). Needs a
-CUDA card; prints its name and power limit first.
+(medians). Needs a CUDA card; prints its name and power limit first.
 
 ``--forms`` instead profiles K5 and K4 alone, each in a train of launches
 through its wrapper, at the shapes the paths give them (and K5 at
@@ -48,23 +49,19 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 from chip_smoke import (
-    CFG,
     SAD,
     SADSGM,
     SLICES,
-    STREAM_SHAPE,
     cfg4_pair,
-    cuda_ms,
     load_slice,
     phase_device,
-    stream_pair,
     to_dev,
     tsukuba_pair,
 )
@@ -72,7 +69,7 @@ from stereo_tpu_torch import KITTI_SGM8_128, KITTI_SGM8_128_QUALITY
 from stereo_tpu_torch.config import MIDDLEBURY_FULL_256_TILED
 from stereo_tpu_torch.data import kitti_like_pair, make_pair
 from stereo_tpu_torch.eval.hard_suite import SCENARIOS
-from stereo_tpu_torch.eval.roofline import profiled_ms
+from stereo_tpu_torch.eval.roofline import cuda_ms, profiled_ms
 from stereo_tpu_torch.models.pyramid import (
     PyramidSGM,
     _local_minmax_center,
@@ -89,7 +86,6 @@ from stereo_tpu_torch.ops.cuda import (
     sgm_paths,
     sgm_select,
 )
-from stereo_tpu_torch.parallel import StreamRunner, make_tile_mesh
 from stereo_tpu_torch.pipeline import compute_disparity
 
 #: Substrings of the port's kernel names, as the profiler reports them.
@@ -97,8 +93,6 @@ KERNELS = ("census_transform_kernel", "census_cost_kernel",
            "sad_cost_kernel", "sgm_path_kernel", "sgm_select_kernel",
            "median3x3_kernel")
 WARMUP = 3
-#: The batched stream's row: kitti_sgm8_128, one batch of this many frames.
-STREAM_ROW, STREAM_BATCH = "kitti_stream_batch48", 48
 
 
 def profiled(run, frames: int) -> dict:
@@ -153,22 +147,6 @@ def profile_slice(sl, frames: int, dev: torch.device) -> dict:
 
     return {"slice": sl.name, "model": model.name,
             "shape": list(left.shape), **profiled(run, frames)}
-
-
-def profile_stream(dev: torch.device) -> dict:
-    """One batch of the stream after a warm-up batch, frames on the card."""
-    pairs = [stream_pair(i) for i in range(STREAM_BATCH)]
-    batch = [tuple(torch.from_numpy(np.stack([getattr(p, side)
-                                              for p in pairs])).to(dev)
-                   for side in ("left", "right"))]
-    runner = StreamRunner(CFG, make_tile_mesh([dev], (1, 1)), STREAM_SHAPE,
-                          batch_size=STREAM_BATCH, device=dev)
-    runner.run_batches(batch)
-    runner.frames_done, runner.elapsed = 0, 0.0  # the cursor, not a resume
-    torch.cuda.synchronize()
-    return {"slice": STREAM_ROW, "model": "StreamRunner.run_batches, 1x1",
-            "shape": list(STREAM_SHAPE),
-            **profiled(lambda: runner.run_batches(batch), STREAM_BATCH)}
 
 
 def pyramid_stages(sl, dev: torch.device) -> dict:
@@ -317,9 +295,8 @@ def k2_forms(dev: torch.device, reps: int = 10) -> list:
 def main(argv=None) -> int:
     by_name = {sl.name: sl for sl in SLICES}
     ap = argparse.ArgumentParser(prog="profile_paths.py")
-    ap.add_argument("slices", nargs="*", default=[*by_name, STREAM_ROW],
-                    help=f"slices to profile, of {sorted(by_name)} and "
-                         f"{STREAM_ROW}")
+    ap.add_argument("slices", nargs="*", default=list(by_name),
+                    help=f"slices to profile, of {sorted(by_name)}")
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--forms", action="store_true",
                     help="profile K5 and K4 alone instead of the slices")
@@ -327,15 +304,16 @@ def main(argv=None) -> int:
                     help="profile K2's forms alone instead of the slices")
     args = ap.parse_args(argv)
     phase_device()
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
     if args.forms or args.k2:
         for row in (kernel_forms if args.forms else k2_forms)(dev):
             print(json.dumps(row))
         return 0
     for name in args.slices:
-        if name == STREAM_ROW:
-            print(json.dumps(profile_stream(dev)))
-            continue
         sl = by_name[name]
         print(json.dumps(profile_slice(sl, args.frames, dev)))
         if isinstance(load_slice(sl)[2], PyramidSGM):

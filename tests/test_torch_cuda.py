@@ -468,8 +468,8 @@ def test_sad_cost_kernel_row_view(dev, dtype):
 
 
 def test_profiled_ms_times_a_kernel(dev):
-    # chip_smoke.py's device_ms and profile_paths.py --forms: the kernel's
-    # device time per launch, and nothing else launched by the call.
+    # profile_paths.py --forms: the kernel's device time per launch, and
+    # nothing else launched by the call.
     disp = torch.rand((375, 1242), device=dev) * 64
     ms, other_ms, other = roofline.profiled_ms(lambda: median3x3(disp),
                                                "median3x3_kernel")
