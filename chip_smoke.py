@@ -298,6 +298,10 @@ KERNEL_INFO = {
 
 
 
+#: K2's launches for an 8-path config-4 patch where they are not 7.
+_CFG4_K2 = {"1988x2880": 3}
+
+
 def _cfg4_forms(images: Dict[str, int], k1: Dict[str, int],
                 shapes: Dict[str, int], k3: str) -> Dict[str, int]:
     """Launches per frame of one config-4 split, by KERNEL_INFO row:
@@ -311,7 +315,9 @@ def _cfg4_forms(images: Dict[str, int], k1: Dict[str, int],
     forms.update({f"census_cost/cfg4/{suffix}": n
                   for suffix, n in k1.items()})
     for shape, n in shapes.items():
-        forms[f"sgm_paths/cfg4/{shape}"] = 7 * n  # the pair and 6 more
+        # the pair and 6 more, or on a patch of 2^22 pixels or more the
+        # pair and the two sweep groups
+        forms[f"sgm_paths/cfg4/{shape}"] = _CFG4_K2.get(shape, 7) * n
         forms[f"sgm_select/cfg4/{shape}{k3}"] = n
         forms[f"median3x3/cfg4/{shape}"] = n
     return forms
@@ -583,7 +589,9 @@ _TALLY = None
 def held(name: str, fn):
     """``fn()`` must launch row ``name``'s kernel form and nothing else (K2
     once per direction, or in the whole form its horizontal pair, the form
-    ``"hpair"``, and the other directions once each: two forms, one row):
+    ``"hpair"``, on a large block its sweep groups, ``"vdown"`` and
+    ``"vup"``, and the other directions once each: several forms, one
+    row):
     notes the counted forms under the row, waits for the card so a fault
     shows where it ran, and returns what ``fn`` did, which the caller
     compares with the plain version."""
@@ -748,8 +756,9 @@ def k2_instances() -> Dict[str, dict]:
     """Each K2 instance's registers and spills (``kernel_instances``; its
     template arguments are DPL, PARTIAL, ADAPTIVE, RUN (0 whole, 1 the
     rectangle form, 2 the sheared form, 3 the mask form, 4 the horizontal
-    pair, whose block holds two warps' rings) and the cost type) and its
-    ring from the C queries."""
+    pair, whose block holds two warps' rings, 5 a sweep group, whose block
+    holds a strip of warps, each with a ring of three rounds) and the cost
+    type) and its ring from the C queries."""
     lib = load_kernels()
     found: Dict[str, dict] = {}
     for args, row in kernel_instances("sgm_path_kernel").items():
@@ -757,14 +766,20 @@ def k2_instances() -> Dict[str, dict]:
         cost_bytes = 1 if t == "a" else 2
         name = (f"dpl{dpl}{'/partial' * (partial == '1')}"
                 f"{'/adaptive' * (adaptive == '1')}"
-                f"{['', '/rect', '/shear', '/mask', '/hpair'][int(run_form)]}"
+                f"{['', '/rect', '/shear', '/mask', '/hpair', '/group'][int(run_form)]}"
                 f"/int{8 * cost_bytes}")
         d = 32 * int(dpl)
+        if run_form == "5":
+            found[name] = {**row,
+                           "stages": lib.stpu_sgm_path_stages(d) * 3 // 4,
+                           "warps": lib.stpu_sgm_group_warps(d),
+                           "smem": lib.stpu_sgm_group_smem(d)}
+            continue
         warps = 2 if run_form == "4" else 1
         found[name] = dict(stages=lib.stpu_sgm_path_stages(d),
                            smem=warps * lib.stpu_sgm_path_smem(d, cost_bytes),
                            **row)
-    if len(found) != 320:
+    if len(found) != 324:
         raise AssertionError(f"ptxas report: {len(found)} K2 instances")
     return dict(sorted(found.items()))
 

@@ -31,7 +31,12 @@ device time the call spends (plain torch launches around the kernel;
 
 ``--k2`` profiles K2 alone the same way, eight directions per call on
 random costs: its whole-frame form at KITTI size (fixed and adaptive P2,
-375x1242x128) and at config 4's (1988x2880x256), the two horizontals
+375x1242x128), at config 4's (1988x2880x256, fixed and adaptive) and at
+1988x2880x128; at each of them the six directions other than the
+horizontals as six single launches and, where the checkout has them, as
+the two sweep groups (both straight through K2's C entry, adding into a
+scratch S, whatever the launch plan would choose for the shape); the two
+horizontals
 alone (``steps``; one launch where the checkout pairs them) and each
 horizontal alone, and, where the checkout's ``sgm_paths`` takes a
 rectangle, its rectangle form at the same shapes
@@ -56,6 +61,7 @@ import time
 import torch
 
 from chip_smoke import (
+    QUALITY_P2,
     SAD,
     SADSGM,
     SLICES,
@@ -86,6 +92,9 @@ from stereo_tpu_torch.ops.cuda import (
     sgm_paths,
     sgm_select,
 )
+from stereo_tpu_torch.ops.cuda.build import KERNEL_SIGNATURES
+from stereo_tpu_torch.ops.cuda.launch import run
+from stereo_tpu_torch.ops.sgm import PATH_STEPS
 from stereo_tpu_torch.pipeline import compute_disparity
 
 #: Substrings of the port's kernel names, as the profiler reports them.
@@ -226,10 +235,12 @@ def kernel_forms(dev: torch.device, reps: int = 50) -> list:
 
 
 def k2_forms(dev: torch.device, reps: int = 10) -> list:
-    """K2's whole-frame form, its horizontals (both, and each alone), and
-    its rectangle form where this checkout has one, at KITTI and config-4
-    sizes: device ms per call (``profiled_ms``, per launch times the
-    launches of a call). Where the checkout has the sheared form, also the
+    """K2's whole-frame form, its six other directions as single launches
+    and as the two sweep groups where this checkout has them, its
+    horizontals (both, and each alone), and its rectangle form where this
+    checkout has one, at KITTI and config-4 sizes: device ms per call
+    (``profiled_ms``, per launch times the launches of a call). Where the
+    checkout has the sheared form, also the
     two down-right diagonals of the whole form and the sheared form's two
     verticals of the whole sheared volume [H, W + H - 1, D] (the same
     scans)."""
@@ -245,6 +256,37 @@ def k2_forms(dev: torch.device, reps: int = 10) -> list:
                 "kernel_device_ms_per_call": got[0] * launches,
                 "other_device_ms": got[1]}
 
+    # the checkout's C entry takes a sweep group's work (step +-2, 0)
+    groups = len(KERNEL_SIGNATURES["stpu_sgm_path"]) == 26
+    if groups:
+        from stereo_tpu_torch.ops.cuda.sgm_kernel import _group_work
+
+    def entry_row(form, steps, cost, image, cfg):
+        # K2's C entry straight, each step one launch into a scratch S it
+        # adds into (these launches bypass the wrapper's counter)
+        h, w, d = cost.shape
+        scratch = torch.zeros((h, w, d), dtype=torch.int16, device=dev)
+        img = image.to(torch.int32) if cfg.adaptive_p2 else None
+
+        def call():
+            for dy, dx in steps:
+                work = (None, None)
+                if abs(dy) == 2:
+                    work = tuple(t.data_ptr() for t in _group_work(
+                        dev, h, w, d))
+                run("stpu_sgm_path", dev, cost.data_ptr(), 1,
+                    None if img is None else img.data_ptr(),
+                    scratch.data_ptr(), h, w, d, dy, dx, cfg.p1, cfg.p2,
+                    cfg.p2_min, cfg.adaptive_grad_floor, 1, 0, 0, h, 0, w, 0,
+                    0, 0, None, *work[:2 * groups])
+
+        got = profiled_ms(call, "sgm_path_kernel", reps=reps)
+        if got is None:
+            raise RuntimeError(f"{form}: the profiler recorded no K2 launch")
+        return {"form": form, "calls": reps, "launches_per_call": len(steps),
+                "kernel_device_ms_per_call": got[0] * len(steps),
+                "other_device_ms": got[1]}
+
     gen = torch.Generator(device=dev).manual_seed(0)
     params = inspect.signature(sgm_paths).parameters
     rect, shear, subset = ("rect" in params, "shear" in params,
@@ -255,12 +297,21 @@ def k2_forms(dev: torch.device, reps: int = 10) -> list:
             ("kitti adaptive 375x1242x128", KITTI_SGM8_128_QUALITY,
              (375, 1242, 128)),
             ("config 4 1988x2880x256", MIDDLEBURY_FULL_256_TILED,
-             (1988, 2880, 256))):
+             (1988, 2880, 256)),
+            ("config 4 adaptive 1988x2880x256",
+             MIDDLEBURY_FULL_256_TILED.replace(**QUALITY_P2),
+             (1988, 2880, 256)),
+            ("1988x2880x128", KITTI_SGM8_128, (1988, 2880, 128))):
         h, w, _ = shape
         cost = torch.randint(0, 64, shape, generator=gen, device=dev,
                              dtype=torch.int32).to(torch.int8)
         image = torch.randint(0, 256, (h, w), generator=gen, device=dev,
                               dtype=torch.int32).to(torch.uint8)
+        rows.append(entry_row(f"six single directions {name}",
+                              PATH_STEPS[2:8], cost, image, cfg))
+        if groups:
+            rows.append(entry_row(f"sweep groups {name}", ((2, 0), (-2, 0)),
+                                  cost, image, cfg))
         forms = {"whole": {}}
         if subset:
             forms.update({"horizontals": {"steps": ((0, 1), (0, -1))},
@@ -272,11 +323,7 @@ def k2_forms(dev: torch.device, reps: int = 10) -> list:
             rows.append(row(f"sgm_paths {form} {name}",
                             lambda: sgm_paths(cost, cfg, image=image, **kw)))
         if shear:
-            from stereo_tpu_torch.ops.sgm import (
-                PATH_STEPS,
-                V_STEPS,
-                shear_window,
-            )
+            from stereo_tpu_torch.ops.sgm import V_STEPS, shear_window
 
             sheared = shear_window(cost, 0, h, 1, 0, w + h - 1)
             image_sh = shear_window(image, 0, h, 1, 0, w + h - 1)

@@ -87,6 +87,40 @@
 // L_first lies below the full one, which the wrapper's bound keeps in
 // int16. No atomics, and the same bytes move as in two launches.
 //
+// Sweep groups (RUN = kGroup; the whole form's three down directions, (1,
+// 0), (1, 1) and (1, -1), in one launch, and the three up ones in
+// another): a single direction reads C and reads and writes S, so six of
+// them move S six times where two groups move it twice. A group sweeps the
+// frame's rows t = 0, 1, ... (frame row t going down, h - 1 - t going up)
+// and keeps the three carries of a pixel in the registers of one warp,
+// reads its C (and its four image words under adaptive P2) once, and
+// stores S_old + L_v + L_d1 + L_d2 once (the sum alone as the call's first
+// launch). The warp owns a sheared column u = x + t: its pixels are (t, u -
+// t), so it walks along the (1, -1) diagonal, whose carry stays in its
+// registers. The vertical carry of (t, x) comes from the warp of column u -
+// 1 and the (1, 1) diagonal's from u - 2, both from row t - 1: every carry
+// flows toward larger u, never back. A block is a strip of k adjacent
+// sheared columns [u0, u0 + k), a warp each, which step the rows together,
+// one barrier a row, handing their two carries on through shared memory
+// (two rows of slots, so one barrier a row does). Its first two warps take
+// theirs from the strip before, u0 - 2 and u0 - 1, whose last two warps
+// store them to an edge buffer in device memory every row: each 64-bit
+// word holds a pair of 16-bit values and the launch's tag, and a load sees
+// such a word whole or not at all, so a word that holds this launch's tag
+// holds its value, with no flag and no fence. The first two warps read the
+// next row's words ahead and read again while a tag is an older launch's.
+// A strip waits only on the strip before it, never on the one after, and
+// never on a block that has not started: each block takes its strip from
+// a ticket counter as it starts. The edge buffer has a row for every strip
+// and row, so no strip waits for room; the last block done zeroes the
+// counters and leaves the tag, which the next launch counts on from. The
+// carries are handled as pairs of 16-bit halves (Hopper's 16x2 minimum and
+// add-minimum instructions): every value lies in [0, 2^15), so the halves
+// never carry into each other. k: as many warps as fit the shared memory
+// (group_warps), which makes the chain of strips across the frame short.
+// Integer adds in any order give the same int16 sum, so S is bit for bit
+// what the three single launches give.
+//
 // Any D in [1, 256] and int8 or int16 costs: lanes hold DPL = ceil(D / 32)
 // consecutive disparities, and the registers past D (half the warp at D =
 // 16, the pyramid model's residual volume; the TPU packs several pixels'
@@ -138,10 +172,13 @@ namespace stpu_k2 {
 
 // The rectangle's bounds (the RECT form's arguments) and, for the SHEAR
 // form, the sheared band's shear sign (+1 or -1), its global sheared
-// column origin and the frame's width.
+// column origin and the frame's width; for the sweep groups, their
+// counters and tag and their edge buffer (stpu_sgm_path).
 struct Rect {
   int y_lo, y_hi, x_lo, x_hi;
   int shear, x0, frame_w;
+  int* sync;
+  uint64_t* edge;
 };
 
 int launch_int16(const void* cost, const int* image, const uint8_t* mask,
@@ -326,18 +363,425 @@ __device__ __forceinline__ void axis_run(int p, int step, int lo, int hi,
 // inside a rectangle (kRect), over the run of rows of a sheared column
 // whose source column lies in the frame (kShear), or after each pixel
 // whose mask byte is set (kMask). kPair is the whole form's two
-// horizontals in one launch (see the header).
-enum Run { kWhole = 0, kRect = 1, kShear = 2, kMask = 3, kPair = 4 };
+// horizontals in one launch, kGroup a sweep group (see the header).
+enum Run { kWhole = 0, kRect = 1, kShear = 2, kMask = 3, kPair = 4,
+           kGroup = 5 };
 
-// Warps per block: one per scanline, two (one per direction) for kPair.
+// Most warps of a sweep group's block.
+constexpr int kGroupWarps = 19;
+
+// Warps per block: one per scanline, two (one per direction) for kPair,
+// at most kGroupWarps for kGroup (a strip of sheared columns).
 __host__ __device__ constexpr int block_warps(int run) {
-  return run == kPair ? 2 : 1;
+  return run == kPair ? 2 : run == kGroup ? kGroupWarps : 1;
 }
 
-// DPL = disparities per lane, ceil(D / 32); PARTIAL: D = d < 32 * DPL
-// (registers past D are dead); ADAPTIVE: P2 from the image; RUN: where
-// paths start fresh (enum Run); CostT: int8 (census, rank) or int16 (SAD)
-// costs.
+// The sweep groups' instances: int8 costs at D = 256 and 128, the only
+// blocks launch_plan gives them (its groups_pay).
+template <int DPL, bool PARTIAL, typename CostT>
+constexpr bool group_built() {
+  return !PARTIAL && (DPL == 8 || DPL == 4) && sizeof(CostT) == 1;
+}
+
+// A group warp's ring: three rounds, the current one and two in flight.
+__host__ __device__ constexpr int group_stages(int dpl) {
+  return 3 * round_pixels(dpl);
+}
+
+// Shared memory of a group block of `warps` warps: their rings, then the
+// int16 carry rows (32 * dpl entries) of the V and the (1, 1) carries each
+// warp hands on, two rows of each.
+__host__ __device__ constexpr int group_smem(int dpl, int cost_bytes,
+                                             int warps) {
+  return warps * group_stages(dpl) * slot_bytes(dpl, cost_bytes) +
+         2 * 2 * warps * 64 * dpl;
+}
+
+// Shared memory a block may use on the H100 (227 KB).
+constexpr int kBlockSmem = 232448;
+
+// Warps of a group block for d disparities: the strip's width. Each
+// strip hands its edge to the next through device memory, a hop that the
+// whole frame's chain of strips pays once each, so the strip is as wide as
+// its rings let one block be: kGroupWarps, or fewer where D's rings do not
+// fit (measured on the H100 at 1988 x 2880 x 256: 16 warps 4.34 ms for the
+// down group, 19 warps 4.01).
+int group_warps(int d) {
+  int k = kGroupWarps;
+  while (k > 2 && group_smem((d + 31) / 32, 1, k) > kBlockSmem) --k;
+  return k;
+}
+
+// W 32-bit words at p (shared or device memory, 4 * W-byte aligned, W =
+// 1, 2 or 4) as one access.
+template <int W>
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&v)[W]) {
+  static_assert(W == 1 || W == 2 || W == 4, "a vector of 4, 8 or 16 bytes");
+  if constexpr (W == 1) {
+    v[0] = *static_cast<const uint32_t*>(p);
+  } else if constexpr (W == 2) {
+    const uint2 u = *static_cast<const uint2*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+  } else {
+    const uint4 u = *static_cast<const uint4*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_words(void* p, const uint32_t (&v)[W]) {
+  static_assert(W == 2 || W == 4, "a vector of 8 or 16 bytes");
+  if constexpr (W == 2) {
+    *static_cast<uint2*>(p) = make_uint2(v[0], v[1]);
+  } else {
+    *static_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The same to device memory, as a streaming store: nothing in the launch
+// reads it again.
+template <int W>
+__device__ __forceinline__ void store_words_cs(void* p,
+                                               const uint32_t (&v)[W]) {
+  static_assert(W == 2 || W == 4, "a vector of 8 or 16 bytes");
+  if constexpr (W == 2) {
+    __stcs(static_cast<uint2*>(p), make_uint2(v[0], v[1]));
+  } else {
+    __stcs(static_cast<uint4*>(p), make_uint4(v[0], v[1], v[2], v[3]));
+  }
+}
+
+// One step of each of a group's three directions, on the carries as pairs
+// of 16-bit halves (word i of a lane holds disparities 2i and 2i + 1 of
+// its DPL): L(p) from L(p - r) and C(p), for the three carries at once, so
+// that their warp reductions and shuffles are in flight together. Every
+// value is an integer in [0, 2^15) (C >= 0; L <= max C + P2 and S below the
+// wrapper's bound), so the halves' minima are unsigned 16-bit ones and
+// c + cand - m, added as whole words, carries and borrows nothing across
+// halves. A missing neighbour at d = -1 or D takes 0x7fff, which plus P1
+// never wins.
+template <int DPL>
+__device__ __forceinline__ void group_step(uint32_t (&L)[3][DPL / 2],
+                                           const uint32_t (&c)[DPL / 2],
+                                           int p1, const int (&p2e)[3],
+                                           int lane) {
+  constexpr int W = DPL / 2;
+  const uint32_t p1x2 = (uint32_t)p1 * 0x10001u;
+  int m[3];
+  uint32_t below[3], above[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    uint32_t mm = L[q][0];
+#pragma unroll
+    for (int i = 1; i < W; ++i) mm = __vminu2(mm, L[q][i]);
+    m[q] = (int)min(mm & 0xffffu, mm >> 16);
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) m[q] = __reduce_min_sync(kFull, m[q]);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    // The word whose high half is d - 1 of word 0, and the one whose low
+    // half is d + 1 of the last word.
+    below[q] = __shfl_up_sync(kFull, L[q][W - 1], 1);
+    above[q] = __shfl_down_sync(kFull, L[q][0], 1);
+    if (lane == 0) below[q] = 0x7fff0000u;
+    if (lane == 31) above[q] = 0x00007fffu;
+  }
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const uint32_t mp2 = (uint32_t)(m[q] + p2e[q]) * 0x10001u;
+    const uint32_t mx2 = (uint32_t)m[q] * 0x10001u;
+    uint32_t out[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint32_t prev = __byte_perm(i > 0 ? L[q][i - 1] : below[q],
+                                        L[q][i], 0x5432);
+      const uint32_t next = __byte_perm(L[q][i],
+                                        i < W - 1 ? L[q][i + 1] : above[q],
+                                        0x5432);
+      uint32_t cand = __vminu2(L[q][i], mp2);
+      cand = __viaddmin_u16x2(prev, p1x2, cand);
+      cand = __viaddmin_u16x2(next, p1x2, cand);
+      out[i] = c[i] + cand - mx2;
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) L[q][i] = out[i];
+  }
+}
+
+// A tagged edge word: a 16-bit pair of a carry row and the launch's tag
+// in one 64-bit word, which a load sees whole or not at all.
+__device__ __forceinline__ void store_tagged(uint64_t* p, uint32_t w0,
+                                             uint32_t w1, uint32_t tag) {
+  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};\n" ::"l"(p),
+               "l"((uint64_t)w0 | ((uint64_t)tag << 32)),
+               "l"((uint64_t)w1 | ((uint64_t)tag << 32))
+               : "memory");
+}
+
+// W tagged words of an edge row at p, as they are now.
+template <int W>
+__device__ __forceinline__ void load_tagged(const uint64_t* p,
+                                            uint64_t (&v)[W]) {
+#pragma unroll
+  for (int i = 0; i < W; i += 2) {
+    asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];\n"
+                 : "=l"(v[i]), "=l"(v[i + 1])
+                 : "l"(p + i)
+                 : "memory");
+  }
+}
+
+// The values of the W tagged words of the edge row at p (out), from the
+// words read ahead (v), which are read again until every one holds the
+// tag.
+template <int W>
+__device__ __forceinline__ void take_tagged(const uint64_t* p,
+                                            uint64_t (&v)[W], uint32_t tag,
+                                            uint32_t (&out)[W]) {
+  while (true) {
+    bool ok = true;
+#pragma unroll
+    for (int i = 0; i < W; ++i) ok = ok && (uint32_t)(v[i] >> 32) == tag;
+    if (__all_sync(kFull, ok)) break;
+    load_tagged<W>(p, v);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) out[i] = (uint32_t)v[i];
+}
+
+// A sweep group (RUN = kGroup; see the header): dir = +1 the down group,
+// -1 the up group. sync: [0] the ticket counter, [1] the blocks done, [2]
+// the tag of the last launch; edge: [blocks][h][3][32][DPL / 2] tagged
+// words, strip b's row t: the V carry of its last warp, the (1, 1) carry of
+// the one before it and of its last, each lane's words together.
+template <int DPL, bool PARTIAL, bool ADAPTIVE, typename CostT>
+__device__ __forceinline__ void group_sweep(
+    const CostT* __restrict__ cost, const int* __restrict__ image,
+    int16_t* __restrict__ sum, int h, int w, int dir, int p1, int p2,
+    int p2_min, int grad_floor, int accumulate, int* __restrict__ sync,
+    uint64_t* __restrict__ edge) {
+  constexpr int kCB = (int)sizeof(CostT);
+  constexpr int kRound = round_pixels(DPL);
+  constexpr int kStages = group_stages(DPL);
+  constexpr int kSlot = slot_bytes(DPL, kCB);
+  constexpr int kC = slot_c(DPL, kCB);
+  constexpr int kS = slot_s(DPL);
+  constexpr int kVec = 32 * DPL;  // entries of an int16 carry row
+  constexpr int W = DPL / 2;      // 32-bit words a lane holds of a row
+  constexpr int kEdgeVec = 32 * W;  // tagged words of an edge carry row
+  static_assert(3 * kRound <= 32, "a lane per divide of a round");
+  static_assert(!PARTIAL && W % 2 == 0, "the groups' instances: whole lanes");
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int ticket;
+  __shared__ uint32_t tag_s;
+  const int D = 32 * DPL;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = (int)(blockDim.x >> 5);  // the strip's width
+  int16_t* const xv = reinterpret_cast<int16_t*>(smem + k * kStages * kSlot);
+  int16_t* const xd = xv + 2 * k * kVec;  // [2][k][kVec] each
+  if (threadIdx.x == 0) {
+    ticket = atomicAdd(&sync[0], 1);
+    tag_s = *reinterpret_cast<volatile uint32_t*>(&sync[2]) + 1;
+  }
+  __syncthreads();
+  const int b = ticket;
+  const uint32_t tag = tag_s;
+  const int u0 = b * k;
+  // The rows this strip has pixels on.
+  const int t_lo = max(0, u0 - (w - 1));
+  const int t_hi = min(h, u0 + k);
+
+  char* const ring = smem + warp * (kStages * kSlot);
+  const int u = u0 + warp;
+  // This warp's pixels: rows [a, e), pixel (t, u - t); none past the
+  // frame's last sheared column.
+  const int a = max(0, u - (w - 1));
+  const int e = min(h, u + 1);
+  const ptrdiff_t row_step = dir > 0 ? w : -(ptrdiff_t)w;  // (t+1, x)
+  const ptrdiff_t pix_step = row_step - 1;
+  // The pixel at row t (t may lie outside [a, e): arithmetic only).
+  auto pix_at = [&](int t) {
+    return (ptrdiff_t)(dir > 0 ? a : h - 1 - a) * w + (u - a) +
+           (ptrdiff_t)(t - a) * pix_step;
+  };
+  // Strip s's edge row t, this lane's words of its carry row q.
+  auto edge_at = [&](int s, int t, int q) {
+    return edge + (((ptrdiff_t)s * h + t) * 3 + q) * kEdgeVec + lane * W;
+  };
+  const int acc = accumulate;
+  // Start row t's copies into `slot` as one commit group (empty where the
+  // warp has no pixel): C, S, then I(p) and the image words of its three
+  // predecessors, V, (1, 1) and (1, -1), where they lie in the frame.
+  auto stage = [&](int t, char* slot) {
+    if (t >= a && t < e) {
+      const ptrdiff_t pix = pix_at(t);
+      const ptrdiff_t off = pix * D;
+      stage_bytes(slot, cost + off, D * kCB, lane);
+      if (acc) stage_bytes(slot + kC, sum + off, 2 * D, lane);
+      if (ADAPTIVE) {
+        const int x = u - t;
+        const ptrdiff_t pred = pix - row_step;
+        if (lane == 0) cp_async4(slot + kC + kS, image + pix);
+        if (t > 0) {
+          if (lane == 1) cp_async4(slot + kC + kS + 4, image + pred);
+          if (lane == 2 && x > 0) {
+            cp_async4(slot + kC + kS + 8, image + pred - 1);
+          }
+          if (lane == 3 && x < w - 1) {
+            cp_async4(slot + kC + kS + 12, image + pred + 1);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  uint32_t L[3][W];  // the V, (1, 1) and (1, -1) carries, as 16-bit pairs
+  // The first two warps' edge words read ahead (V and (1, 1); warp 1 the
+  // (1, 1) only): tag 0, which no launch has, until read.
+  uint64_t ahead_v[W], ahead_d[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    L[0][i] = L[1][i] = L[2][i] = 0;
+    ahead_v[i] = ahead_d[i] = 0;
+  }
+  // The ring holds three rounds: round r of the strip in slots
+  // (r % 3) * kRound on.
+#pragma unroll 1
+  for (int i = 0; i < kStages - kRound; ++i) stage(t_lo + i, ring + i * kSlot);
+  int base = 0;  // the current round's first slot
+#pragma unroll 1
+  for (int t0 = t_lo; t0 < t_hi; t0 += kRound) {
+    char* const cur = ring + base * kSlot;
+    // Round r + 2 takes the slots of round r - 1.
+    char* const ahead =
+        ring + (base == 0 ? kStages - kRound : base - kRound) * kSlot;
+    base = base == kStages - kRound ? 0 : base + kRound;
+    __syncwarp();  // every lane has read the slots refilled below
+#pragma unroll
+    for (int g = 0; g < kRound; ++g) {
+      stage(t0 + kStages - kRound + g, ahead + g * kSlot);
+    }
+    cp_async_wait<kStages - kRound>();
+    __syncwarp();
+    // ADAPTIVE: lane q < 3 * kRound divides for direction q / kRound at
+    // step q % kRound; each step takes its three P2s by shuffles.
+    int p2_lane = p2;
+    if (ADAPTIVE && lane < 3 * kRound) {
+      const int* words = reinterpret_cast<const int*>(
+          cur + (lane % kRound) * kSlot + kC + kS);
+      const int grad = abs(words[0] - words[1 + lane / kRound]) - grad_floor;
+      if (grad > 0) p2_lane = max(p2_min, p2 / grad);  // floor: both >= 0
+    }
+    ptrdiff_t off = pix_at(t0) * D + lane * DPL;
+#pragma unroll 1
+    for (int g = 0; g < kRound; ++g, off += pix_step * D) {
+      const int t = t0 + g;
+      if (t >= t_hi) break;  // uniform over the block
+      int p2e[3] = {p2, p2, p2};
+      if (ADAPTIVE) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          p2e[q] = __shfl_sync(kFull, p2_lane, q * kRound + g);
+        }
+      }
+      if (t >= a && t < e) {
+        const int x = u - t;
+        // The carries of the predecessors, from the warps of columns u - 1
+        // and u - 2, or for the first two warps from the strip before's
+        // edge rows, once they hold this launch's tag; L = 0 where a
+        // predecessor leaves the frame, so L = C.
+        const int16_t* const prev_v = xv + ((t - 1) & 1) * k * kVec;
+        const int16_t* const prev_d = xd + ((t - 1) & 1) * k * kVec;
+        if (t == 0) {
+#pragma unroll
+          for (int i = 0; i < W; ++i) L[0][i] = 0;
+        } else if (warp > 0) {
+          load_words<W>(prev_v + (warp - 1) * kVec + lane * DPL, L[0]);
+        } else {
+          take_tagged<W>(edge_at(b - 1, t - 1, 0), ahead_v, tag, L[0]);
+        }
+        if (t == 0 || x == 0) {
+#pragma unroll
+          for (int i = 0; i < W; ++i) L[1][i] = 0;
+        } else if (warp > 1) {
+          load_words<W>(prev_d + (warp - 2) * kVec + lane * DPL, L[1]);
+        } else {
+          take_tagged<W>(edge_at(b - 1, t - 1, 1 + warp), ahead_d, tag, L[1]);
+        }
+        if (t == 0 || x == w - 1) {
+#pragma unroll
+          for (int i = 0; i < W; ++i) L[2][i] = 0;
+        }
+        const char* const slot = cur + g * kSlot;
+        // C as 16-bit pairs: its bytes, zero-extended (costs are >= 0).
+        uint32_t cw[W / 2], c[W];
+        load_words<W / 2>(slot + lane * DPL, cw);
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          c[i] = __byte_perm(cw[i / 2], 0, (i & 1) ? 0x4342 : 0x4140);
+        }
+        group_step<DPL>(L, c, p1, p2e, lane);
+        uint32_t sw[W];
+        if (acc) {
+          load_words<W>(slot + kC + lane * DPL * 2, sw);
+        } else {
+#pragma unroll
+          for (int i = 0; i < W; ++i) sw[i] = 0;
+        }
+        // S_old + L_v + L_d1 + L_d2 in int16 halves: the three carries add
+        // as whole words (each half stays below 2^15), S_old by halves.
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          sw[i] = __vadd2(sw[i], L[0][i] + L[1][i] + L[2][i]);
+        }
+        store_words_cs<W>(sum + off, sw);
+        // Hand the V and (1, 1) carries on: to the next warps, and from
+        // the strip's last two warps to the strip after it.
+        int16_t* const next_v = xv + (t & 1) * k * kVec + warp * kVec;
+        int16_t* const next_d = xd + (t & 1) * k * kVec + warp * kVec;
+        store_words<W>(next_v + lane * DPL, L[0]);
+        store_words<W>(next_d + lane * DPL, L[1]);
+        if (warp >= k - 2) {
+          // The strip after reads these, tagged, in device memory.
+#pragma unroll
+          for (int i = 0; i < W; i += 2) {
+            if (warp == k - 1) {
+              store_tagged(edge_at(b, t, 0) + i, L[0][i], L[0][i + 1], tag);
+              store_tagged(edge_at(b, t, 2) + i, L[1][i], L[1][i + 1], tag);
+            } else {
+              store_tagged(edge_at(b, t, 1) + i, L[1][i], L[1][i + 1], tag);
+            }
+          }
+        }
+      }
+      // The first two warps read the strip before's edge row t ahead,
+      // which row t + 1 takes.
+      if (warp < 2 && b > 0 && t + 1 < e) {
+        if (warp == 0) load_tagged<W>(edge_at(b - 1, t, 0), ahead_v);
+        load_tagged<W>(edge_at(b - 1, t, 1 + warp), ahead_d);
+      }
+      // Row t's carries are stored before any warp reads them.
+      __syncthreads();
+    }
+  }
+  cp_async_wait<0>();
+  // The last block done zeroes the counters and leaves this launch's tag
+  // for the next launch to count on from.
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(&sync[1], 1) == (int)gridDim.x - 1) {
+    sync[0] = 0;
+    sync[1] = 0;
+    sync[2] = (int)tag;
+  }
+}
+
 template <int DPL, bool PARTIAL, bool ADAPTIVE, int RUN, typename CostT>
 __global__ void __launch_bounds__(32 * block_warps(RUN))
     sgm_path_kernel(const CostT* __restrict__ cost,
@@ -346,6 +790,12 @@ __global__ void __launch_bounds__(32 * block_warps(RUN))
                     int16_t* __restrict__ sum, int h, int w, int d,
                     int step_y, int step_x, int p1, int p2, int p2_min,
                     int grad_floor, int accumulate, Rect rect) {
+  if constexpr (RUN == kGroup) {  // step_y: +1 the down group, -1 the up
+    group_sweep<DPL, PARTIAL, ADAPTIVE, CostT>(
+        cost, image, sum, h, w, step_y, p1, p2, p2_min, grad_floor,
+        accumulate, rect.sync, rect.edge);
+    return;
+  }
   constexpr int kCB = (int)sizeof(CostT);
   constexpr int kStages = ring_stages(DPL);
   constexpr int kRound = round_pixels(DPL);
@@ -590,6 +1040,27 @@ cudaError_t launch(const void* cost, const int* image, const uint8_t* mask,
                    int16_t* sum, int h, int w, int d, int step_y, int step_x,
                    int p1, int p2, int p2_min, int grad_floor, int accumulate,
                    int run, const Rect& r, cudaStream_t s) {
+  const auto* c = static_cast<const CostT*>(cost);
+  if (run == kGroup) {
+    if constexpr (group_built<DPL, PARTIAL, CostT>()) {
+      const int k = group_warps(d);
+      const int smem = group_smem(DPL, (int)sizeof(CostT), k);
+      const auto kernel =
+          image != nullptr
+              ? &sgm_path_kernel<DPL, PARTIAL, true, kGroup, CostT>
+              : &sgm_path_kernel<DPL, PARTIAL, false, kGroup, CostT>;
+      if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+      }
+      kernel<<<(w + h - 1 + k - 1) / k, 32 * k, smem, s>>>(
+          c, image, mask, sum, h, w, d, step_y, step_x, p1, p2, p2_min,
+          grad_floor, accumulate, r);
+      return cudaGetLastError();
+    }
+    return cudaErrorInvalidValue;  // no instance: launch_plan gives none
+  }
   int n_lines;
   if (step_y == 0) {  // the horizontals and kPair (step 0, 0): the rows
     n_lines = h;
@@ -598,7 +1069,6 @@ cudaError_t launch(const void* cost, const int* image, const uint8_t* mask,
   } else {
     n_lines = w + h - 1;
   }
-  const auto* c = static_cast<const CostT*>(cost);
   const int warps = block_warps(run);
   const int smem = warps * ring_smem(DPL, (int)sizeof(CostT));
   using Kernel = decltype(&sgm_path_kernel<DPL, PARTIAL, true, kWhole, CostT>);
@@ -684,6 +1154,21 @@ extern "C" int stpu_sgm_path_smem(int d, int cost_bytes) {
   return ring_smem((d + 31) / 32, cost_bytes);
 }
 
+// The blocks of a sweep group over an h x w x d frame: its edge buffer is
+// that many times h x 3 x 16 * ceil(d / 32) tagged 64-bit words.
+extern "C" int stpu_sgm_group_blocks(int h, int w, int d) {
+  const int k = group_warps(d);
+  return (w + h - 1 + k - 1) / k;
+}
+
+// A sweep group's warps per block (the strip's width) and its block's
+// dynamic shared memory for d disparities of int8 costs.
+extern "C" int stpu_sgm_group_warps(int d) { return group_warps(d); }
+
+extern "C" int stpu_sgm_group_smem(int d) {
+  return group_smem((d + 31) / 32, 1, group_warps(d));
+}
+
 // cost: [H, W, D] int8 (cost_bytes 1) or int16 (cost_bytes 2); image: [H, W]
 // int32 reference view for adaptive P2, or NULL for fixed P2. cost and sum
 // are 16-byte aligned. rect != 0 selects the rectangle form with the
@@ -694,18 +1179,29 @@ extern "C" int stpu_sgm_path_smem(int d, int cost_bytes) {
 // mask != NULL selects the mask form: [h, w] bytes (0 or 1), contiguous,
 // 4-byte aligned; it takes neither a rectangle nor a shear. step_y = step_x
 // = 0 selects the horizontal pair: both horizontals, (0, 1) and (0, -1),
-// in one launch of the whole form (no rectangle, shear or mask).
+// in one launch of the whole form (no rectangle, shear or mask). step_y =
+// +2 or -2 with step_x = 0 selects a sweep group of the whole form: the
+// three down directions, (1, 0), (1, 1) and (1, -1), or the three up ones,
+// for int8 costs at D = 128 or 256 (the instances built); sync: 3 ints,
+// its counters and the tag of the last launch, zero when first used; edge:
+// its edge buffer (stpu_sgm_group_blocks), 16-byte aligned, zero when
+// first used with sync and used with no other. Launches that share them
+// run in sequence on one stream.
 extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
                              const void* image, void* sum, int h, int w,
                              int d, int step_y, int step_x, int p1, int p2,
                              int p2_min, int grad_floor, int accumulate,
                              int rect, int y_lo, int y_hi, int x_lo, int x_hi,
                              int shear, int x0, int frame_w, const void* mask,
-                             void* stream) {
+                             void* sync, void* edge, void* stream) {
   const bool pair = step_y == 0 && step_x == 0;
-  if (h <= 0 || w <= 0 || d <= 0 || d > 256 || step_y < -1 || step_y > 1 ||
+  const bool group = step_y == 2 || step_y == -2;
+  if (h <= 0 || w <= 0 || d <= 0 || d > 256 || step_y < -2 || step_y > 2 ||
       step_x < -1 || step_x > 1 ||
-      (pair && (rect != 0 || shear != 0 || mask != nullptr)) ||
+      ((pair || group) && (rect != 0 || shear != 0 || mask != nullptr)) ||
+      (group && (step_x != 0 || sync == nullptr || edge == nullptr ||
+                 (reinterpret_cast<uintptr_t>(edge) & 15) != 0 ||
+                 (reinterpret_cast<uintptr_t>(sync) & 3) != 0)) ||
       (cost_bytes != 1 && cost_bytes != 2) || p1 < 0 || p2 < 0 ||
       p2_min < 0 || y_lo < 0 || y_lo > y_hi || y_hi > h || x_lo < 0 ||
       x_lo > x_hi || x_hi > w || shear < -1 || shear > 1 ||
@@ -714,12 +1210,15 @@ extern "C" int stpu_sgm_path(const void* cost, int cost_bytes,
       (mask != nullptr && (rect != 0 || shear != 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  const Rect r{y_lo, y_hi, x_lo, x_hi, shear, x0, frame_w};
+  const Rect r{y_lo, y_hi, x_lo, x_hi, shear, x0, frame_w,
+               static_cast<int*>(sync), static_cast<uint64_t*>(edge)};
   const int run = mask != nullptr ? kMask
                   : shear != 0    ? kShear
                   : rect != 0     ? kRect
                   : pair          ? kPair
+                  : group         ? kGroup
                                   : kWhole;
+  if (group) step_y /= 2;  // the kernel's sweep: +1 down, -1 up
   if (((reinterpret_cast<uintptr_t>(cost) | reinterpret_cast<uintptr_t>(sum)) &
        15) != 0 ||
       ((reinterpret_cast<uintptr_t>(image) |

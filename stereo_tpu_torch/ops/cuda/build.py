@@ -44,6 +44,11 @@ KERNEL_SIGNATURES = {
     # per warp (bytes; a block holds one warp, two in the horizontal pair)
     "stpu_sgm_path_stages": [_ci],
     "stpu_sgm_path_smem": [_ci, _ci],
+    # h, w, d -> a K2 sweep group's blocks; d -> its warps per block and
+    # its shared memory per block (bytes)
+    "stpu_sgm_group_blocks": [_ci, _ci, _ci],
+    "stpu_sgm_group_warps": [_ci],
+    "stpu_sgm_group_smem": [_ci],
     # img, out, h, w, wy, wx, image type, rank, stream
     "stpu_census_transform": [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _vp],
     # cl, cr, out, h, w, d, words, combine, md, maxc, ctx, x_off, stream
@@ -56,13 +61,15 @@ KERNEL_SIGNATURES = {
     "stpu_sad_cost": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                       _ci, _ci, _cu, _ci, _cf, _cf, _vp],
     # cost, cost_bytes, image (NULL: fixed P2), sum, h, w, d, step_y,
-    # step_x (0, 0: both horizontals, the horizontal pair), p1, p2, p2_min, grad_floor, accumulate, rect (0: the
-    # whole-frame form), y_lo, y_hi, x_lo, x_hi, shear (0, or the sheared
-    # form's sign), x0 (its sheared column origin), frame_w, mask (NULL, or
-    # the mask form's [h, w] bytes), stream
+    # step_x (0, 0: both horizontals, the horizontal pair; +-2, 0: the down
+    # or up sweep group), p1, p2, p2_min, grad_floor, accumulate, rect (0:
+    # the whole-frame form), y_lo, y_hi, x_lo, x_hi, shear (0, or the
+    # sheared form's sign), x0 (its sheared column origin), frame_w, mask
+    # (NULL, or the mask form's [h, w] bytes), sync and edge (a sweep
+    # group's counters and edge buffer, else NULL), stream
     "stpu_sgm_path": [_vp, _ci, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
                       _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
-                      _vp, _vp],
+                      _vp, _vp, _vp, _vp],
     # sum, disp, valid, d0 (NULL: not emitted), h, w, d, md, subpixel,
     # uniqueness, uniq_f, lr_check, lr_tau, x0, iw, lr_bit, qr (NULL: not
     # the emit_qr form), spill, own_lo, own_hi, sp, stream

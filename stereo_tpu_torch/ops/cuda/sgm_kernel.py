@@ -21,7 +21,8 @@ reference's golden path under an arbitrary ``valid`` mask
 (``stereo_tpu/ops/sgm.py:83``): a path restarts after every pixel whose
 mask is False; ``pipeline.kernel_sum`` runs each family of the constrained
 composition in it. The whole form's two horizontals run as one launch,
-the horizontal pair (``launch_plan``).
+the horizontal pair, and on large frames its three down directions and its
+three up ones run as one launch each, the sweep groups (``launch_plan``).
 """
 
 from __future__ import annotations
@@ -101,28 +102,78 @@ def _form_args(cost: torch.Tensor, cfg: StereoConfig, image, rect, steps,
 
 class Launch(NamedTuple):
     """One K2 launch of a call: its form (``"whole"``, ``"rect"``,
-    ``"shear+1"``, ``"shear-1"``, ``"mask"``, or ``"hpair"``, the two
-    horizontals at once), the directions it runs, and whether it adds into
-    the S of the launches before it."""
+    ``"shear+1"``, ``"shear-1"``, ``"mask"``, ``"hpair"``, the two
+    horizontals at once, or ``"vdown"`` and ``"vup"``, the sweep groups),
+    the directions it runs, and whether it adds into the S of the launches
+    before it."""
     form: str
     steps: Tuple[Tuple[int, int], ...]
     accumulate: bool
 
 
-def launch_plan(steps: Sequence[Tuple[int, int]], form: str
+#: The whole form's sweep groups: its three down directions and its three
+#: up ones, each run as one launch where ``groups_pay``.
+SWEEP_GROUPS = (("vdown", tuple(st for st in PATH_STEPS if st[0] == 1)),
+                ("vup", tuple(st for st in PATH_STEPS if st[0] == -1)))
+
+
+def groups_pay(h: int, w: int, d: int, cost_bytes: int = 1) -> bool:
+    """Whether the sweep groups beat the six single directions on an
+    h x w x d block of ``cost_bytes``-byte costs: int8 costs at D = 128
+    or 256 (the instances built) on a frame of 2^22 pixels or more. A
+    group's strips hand their edges on one after another across the frame,
+    a chain that only a large frame's rows pay back: on the H100 the two
+    groups take about half the six singles' time at 1988 x 2880 (D = 256
+    and 128), and as long or longer at 375 x 1242 x 128 (``PERF.md``
+    records the timings)."""
+    return cost_bytes == 1 and d in (128, 256) and h * w >= 1 << 22
+
+
+def launch_plan(steps: Sequence[Tuple[int, int]], form: str,
+                shape: Tuple[int, int, int], cost_bytes: int = 1
                 ) -> Tuple[Launch, ...]:
-    """K2's launches for a call of ``steps`` in ``form``, in order: one per
-    direction, except that in the whole form both horizontals, where
-    ``steps`` holds them, run as one paired launch (``"hpair"``) where the
-    first of them stands. Every launch but the first accumulates."""
-    pair = form == "whole" and set(H_STEPS) <= set(steps)
+    """K2's launches for a call of ``steps`` in ``form`` on an h x w x d
+    block (``shape``) of ``cost_bytes``-byte costs, in order: one per
+    direction, except in the whole form. There both horizontals, where
+    ``steps`` holds them, run as one paired launch (``"hpair"``), and where
+    ``groups_pay`` for the shape, the three down directions and the three
+    up ones, where ``steps`` holds all three, as one launch each (``"vdown"``,
+    ``"vup"``); each such launch stands where the first of its directions
+    does. Every launch but the first accumulates."""
+    units = []
+    if form == "whole":
+        units.append(("hpair", H_STEPS))
+        if groups_pay(*shape, cost_bytes):
+            units.extend(SWEEP_GROUPS)
+    units = [(name, group) for name, group in units
+             if set(group) <= set(steps)]
     plan = []
     for step in steps:
-        if not pair or step not in H_STEPS:
-            plan.append(Launch(form, (step,), bool(plan)))
-        elif not any(p.form == "hpair" for p in plan):
-            plan.append(Launch("hpair", H_STEPS, bool(plan)))
+        name, group = next(((n, g) for n, g in units if step in g),
+                           (form, (step,)))
+        if name == form or not any(p.form == name for p in plan):
+            plan.append(Launch(name, group, bool(plan)))
     return tuple(plan)
+
+
+#: Each (device index, stream)'s sweep-group work: its counters (zero
+#: between launches) and the tag of its last launch, and its edge buffer of
+#: tagged words, zero when made: the two are made and kept together.
+_GROUP_WORK = {}
+
+
+def _group_work(device: torch.device, h: int, w: int, d: int):
+    """(counters, edge buffer) for a sweep group on ``device``'s current
+    stream over an h x w x d block (``stpu_sgm_path``)."""
+    words = (load_kernels().stpu_sgm_group_blocks(h, w, d) * h * 3 * 16
+             * -(-d // 32))
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    work = _GROUP_WORK.get(key)
+    if work is None or work[1].numel() < words:
+        work = (torch.zeros(3, dtype=torch.int32, device=device),
+                torch.zeros(words, dtype=torch.int64, device=device))
+        _GROUP_WORK[key] = work
+    return work
 
 
 def sgm_paths_plain(cost: torch.Tensor, cfg: StereoConfig,
@@ -155,7 +206,8 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[H, W, D] int16 S = sum of the cfg.num_paths (4 or 8) path costs of
     an int8 (census, rank) or int16 (SAD) cost volume, any D in [1, 256]:
-    one kernel launch per direction (both horizontals in one, below). With ``cfg.adaptive_p2``, ``image``
+    one kernel launch per direction (fewer in the whole form, below). With
+    ``cfg.adaptive_p2``, ``image``
     ([H, W], the reference view) is required and each step's P2 comes from
     it. ``rect`` = (y_lo, y_hi, x_lo, x_hi), a tile's in-frame rectangle:
     L = C wherever a pixel's predecessor lies outside it (the rectangle
@@ -179,8 +231,14 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
     row's two chains of dependent steps run at once. Its result is bit for
     bit the two launches'. ``sgm_paths.forms`` counts it once under the
     form ``"hpair"``: an 8-path whole frame is 1 ``"hpair"`` and 6
-    ``"whole"`` launches, a 4-path one 1 and 2. The rectangle, mask and
-    sheared forms launch once per direction."""
+    ``"whole"`` launches, a 4-path one 1 and 2. Where ``groups_pay`` for
+    the block's shape, the whole form's three down directions and its three
+    up ones run as one launch each, the sweep groups (``"vdown"``,
+    ``"vup"``): a warp carries the three paths of a pixel, so C is read and
+    S read and written once for the three, and an 8-path whole frame is 1
+    ``"hpair"``, 1 ``"vdown"`` and 1 ``"vup"``; bit for bit the six
+    launches' sum. The rectangle, mask and sheared forms launch once per
+    direction."""
     if on_cpu(*(t for t in (cost, image, mask) if t is not None)):
         return sgm_paths_plain(cost, cfg, image, rect, steps, shear, mask)
     img, box, steps = _form_args(cost, cfg, image, rect, steps, shear, mask)
@@ -209,14 +267,23 @@ def sgm_paths(cost: torch.Tensor, cfg: StereoConfig,
     # mask.
     form = ("mask" if mask is not None else f"shear{sign:+d}" if sign
             else "rect" if box is not None else "whole")
-    for launch in launch_plan(steps, form):
-        # the C entry's step (0, 0) is the horizontal pair
-        step_y, step_x = (0, 0) if launch.form == "hpair" else launch.steps[0]
+    plan = launch_plan(steps, form, (h, w, d), cost.element_size())
+    sync = edge = None
+    if any(launch.form in ("vdown", "vup") for launch in plan):
+        sync, edge = _group_work(cost.device, h, w, d)
+    for launch in plan:
+        # the C entry's step (0, 0) is the horizontal pair, (+-2, 0) a
+        # sweep group
+        step_y, step_x = {"hpair": (0, 0), "vdown": (2, 0),
+                          "vup": (-2, 0)}.get(launch.form, launch.steps[0])
+        group = launch.form in ("vdown", "vup")
         run("stpu_sgm_path", cost.device, cost.data_ptr(),
             cost.element_size(), img_ptr, s.data_ptr(), h, w, d, step_y,
             step_x, cfg.p1, cfg.p2, cfg.p2_min, cfg.adaptive_grad_floor,
             int(launch.accumulate), int(box is not None), y_lo, y_hi, x_lo,
-            x_hi, sign, x0, frame_w, mask_ptr)
+            x_hi, sign, x0, frame_w, mask_ptr,
+            sync.data_ptr() if group else None,
+            edge.data_ptr() if group else None)
         count_launch(sgm_paths, h, w, d, str(cost.dtype), steps,
                      cfg.adaptive_p2, launch.form)
     return s

@@ -1291,6 +1291,96 @@ def test_sgm_paths_pair_in_a_call(dev, paths, d, adaptive, cost_t, order):
         assert torch.equal(got, sgm_paths(cost, cfg, image=image))
 
 
+# --- the whole form's sweep groups ------------------------------------------
+
+#: Frames for a sweep group launched straight through the C entry: a pixel,
+#: a row, a column, h > w (diagonals leave the frame early), widths that are
+#: no multiple of the strip, and frames whose strips span many blocks.
+_GROUP_FRAMES = [(1, 1), (1, 37), (37, 1), (5, 3), (3, 5), (29, 71),
+                 (40, 300), (300, 40), (97, 531)]
+
+
+def _group_launch(cost, image, s, cfg, which, accumulate):
+    """One sweep group ("vdown" or "vup") into ``s`` through K2's C entry
+    (step +-2, 0), whatever ``launch_plan`` would choose for the shape."""
+    from stereo_tpu_torch.ops.cuda.launch import run
+    from stereo_tpu_torch.ops.cuda.sgm_kernel import _group_work
+
+    h, w, d = cost.shape
+    sync, edge = _group_work(cost.device, h, w, d)
+    img = None if image is None else image.to(torch.int32).contiguous()
+    run("stpu_sgm_path", cost.device, cost.data_ptr(), 1,
+        None if img is None else img.data_ptr(), s.data_ptr(), h, w, d,
+        2 if which == "vdown" else -2, 0, cfg.p1, cfg.p2, cfg.p2_min,
+        cfg.adaptive_grad_floor, int(accumulate), 0, 0, h, 0, w, 0, 0, 0,
+        None, sync.data_ptr(), edge.data_ptr())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("h, w", _GROUP_FRAMES)
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("which", ["vdown", "vup"])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_sgm_paths_sweep_group(dev, h, w, d, adaptive, which, accumulate):
+    """One sweep group, the three down or the three up directions in one
+    launch: bit for bit the plain sum of its directions and the sum of the
+    three single launches, as the call's first launch (S = the sum) and
+    added into an S of any int16 values (wrapping as int16 does)."""
+    from stereo_tpu_torch.ops.cuda.sgm_kernel import (
+        SWEEP_GROUPS,
+        sgm_paths_plain,
+    )
+
+    cfg, cost, image = _pair_inputs(h * w + d, h, w, d, adaptive,
+                                    torch.int8, dev)
+    steps = dict(SWEEP_GROUPS)[which]
+    rng = np.random.default_rng(h + w)
+    s_old = torch.from_numpy(rng.integers(-2 ** 15, 2 ** 15, size=(h, w, d))
+                             ).to(torch.int16).to(dev)
+    got = s_old.clone()
+    _group_launch(cost, image if adaptive else None, got, cfg, which,
+                  accumulate)
+    want = sgm_paths_plain(cost, cfg, image=image, steps=steps).to(
+        torch.int32)
+    singles = sum(sgm_paths(cost, cfg, image=image, steps=(st,)).to(
+        torch.int32) for st in steps)
+    assert torch.equal(singles, want)
+    if accumulate:
+        want = want + s_old.to(torch.int32)
+    assert torch.equal(got, want.to(torch.int16))
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_sgm_paths_groups_in_a_call(dev, d, adaptive):
+    """A whole 8-path call on a frame where ``groups_pay``: K2 launches the
+    horizontal pair and the two sweep groups, counted as ``"hpair"``,
+    ``"vdown"`` and ``"vup"``, and S equals the sum of the eight single
+    directions' calls; twice in a row (the groups' counters and tags carry
+    over from one launch to the next)."""
+    from stereo_tpu_torch.ops.cuda.sgm_kernel import groups_pay
+
+    h, w = 2048, 2048
+    assert groups_pay(h, w, d)
+    cfg, cost, image = _pair_inputs(d, h, w, d, adaptive, torch.int8, dev)
+    singles = torch.zeros((h, w, d), dtype=torch.int32, device=dev)
+    for st in PATH_STEPS:
+        singles += sgm_paths(cost, cfg, image=image, steps=(st,)).to(
+            torch.int32)
+    want = singles.to(torch.int16)
+    del singles
+    for _ in range(2):
+        reset_launch_counts()
+        got = sgm_paths(cost, cfg, image=image)
+        torch.cuda.synchronize()
+        form = ("sgm_paths", h, w, d, "torch.int8", PATH_STEPS, adaptive)
+        assert launch_forms() == {(*form, "hpair"): 1, (*form, "vdown"): 1,
+                                  (*form, "vup"): 1}
+        assert torch.equal(got, want)
+        del got
+
+
 @pytest.mark.parametrize("sign", [1, -1])
 @pytest.mark.parametrize("band", ["first", "middle", "last", "whole",
                                   "narrow"])
